@@ -17,8 +17,17 @@ Phases, in order:
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
      the launch count of every kernel, ms/frame and peak memory;
-  5. plain: one frame pair at full width through the plain versions on
-     the card, its fused disparity held against the kernel run's.
+  5. eval: the dataset evaluation path, ``run_inference(evaluate=True)``
+     over an in-memory dataset of 2 synthetic sequences x 4 frames at
+     384x1280 with exact ground truth, with ``runtime = {gn_impl:
+     "pallas_window", corr_impl: "patch"}`` (kernels 5 and 6 in place of
+     3 and 2), its metric table, ms per sequence and launch counts, and
+     the main path's stream in that configuration beside phase 4's; then
+     one sequence each through GTMotion + GTFusion, Motion + KalmanFusion
+     and the stereo-only configs/models/stereo.py;
+  6. plain: one frame pair at full width through the plain versions on
+     the card, for the default and for the eval phase's configuration,
+     the fused disparity held against the kernel run's.
 
 Any failure exits non-zero.  The line before the last holds the kernel
 table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -40,6 +49,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 in the tensor cores
 H, W = 384, 1280
 
 
@@ -48,8 +58,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -89,6 +99,8 @@ def smi_name_power() -> str:
 # ---------------------------------------------------------------------------
 
 def _compare(name, got, ref, atol, rtol):
+    """Max abs error; fails where |got - ref| > atol + rtol * |ref|.
+    ``atol`` is a number or a tensor of ``ref``'s shape."""
     import torch
     if isinstance(got, (tuple, list)):
         errs = [_compare(f"{name}[{i}]", g, r, atol, rtol)
@@ -102,9 +114,10 @@ def _compare(name, got, ref, atol, rtol):
     err = (got - ref).abs()
     bad = err > atol + rtol * ref.abs()
     max_err, max_ref = float(err.max()), float(ref.abs().max())
+    shown = "per element" if torch.is_tensor(atol) else f"{atol:g}"
     print(f"  {name}: max_abs_err {max_err:.3e}  max|ref| {max_ref:.3e}  "
           f"rel {max_err / max(max_ref, 1e-30):.3e}  out of tol "
-          f"{int(bad.sum())}/{bad.numel()} (atol {atol:g} + rtol {rtol:g}*|ref|)")
+          f"{int(bad.sum())}/{bad.numel()} (atol {shown} + rtol {rtol:g}*|ref|)")
     if bool(bad.any()):
         fail(f"{name}: kernel disagrees with its plain version")
     return max_err
@@ -170,7 +183,7 @@ def kernel_checks(dev):
         bytes=n * (64 * 2 + 2 * 4 + 49 * 4), flops=n * 49 * 9,
         library_ms=None))
 
-    # -- kernel 3: fused GN aggregate + solve (48x160, C=32) --
+    # -- kernels 3 and 5: GN aggregate (+ solve) at 48x160, C=32 --
     intr8 = torch.tensor([[721.5 / 8, 721.5 / 8, 609.6 / 8, 172.9 / 8]],
                          device=dev)
     depth = rand(1, h8, w8, lo=2.0, hi=60.0)
@@ -180,25 +193,97 @@ def kernel_checks(dev):
     weight = rand(1, h8, w8, 3)
     vals = gn.build_vals(Ts, target, weight, depth, intr8).contiguous()
     ae = randn(1, h8, w8, 32, scale=1.0 / 8).contiguous()
-    got = gn.gn_fused_solve(ae, vals)
-    ref = gn.gn_fused_solve_plain(ae, vals)
-    torch.cuda.synchronize()
-    # ~4000-term f32 sums in another order, then a damped 6x6 solve
-    err = _compare("gn_fused_solve", got, ref, 1e-5, 1e-3)
     ky = np.minimum(np.arange(h8) + 32, h8 - 1) - np.maximum(
         np.arange(h8) - 32, 0) + 1
     kx = np.minimum(np.arange(w8) + 32, w8 - 1) - np.maximum(
         np.arange(w8) - 32, 0) + 1
     pairs = float(ky.sum() * kx.sum())
+    # kernel 3: ~4000-term f32 sums in another order, then a damped 6x6
+    # solve.  With bf16 scores a sigmoid within an ulp of a bf16 rounding
+    # boundary may round the other way than the plain version's (expf
+    # against torch.sigmoid): 2^-9 relative on that term, well inside rtol.
+    errs = {}
+    for bf in (False, True):
+        got = gn.gn_fused_solve(ae, vals, bf16_scores=bf)
+        ref = gn.gn_fused_solve_plain(ae, vals, bf16_scores=bf)
+        torch.cuda.synchronize()
+        errs[bf] = _compare("gn_fused_solve" + (" (bf16 scores)" if bf else ""),
+                            got, ref, 1e-5, 1e-3)
     rows.append(dict(
         name="gn_fused_solve", source="codd_torch/csrc/gn_fused.cu",
-        replaces="codd_tpu/ops/pallas/gn_fused.py:214", max_abs_err=err,
+        replaces="codd_tpu/ops/pallas/gn_fused.py:214",
+        max_abs_err=max(errs.values()),
         ms=cuda_ms(lambda: gn.gn_fused_solve(ae, vals)),
         plain_ms=cuda_ms(lambda: gn.gn_fused_solve_plain(ae, vals)),
         bytes=4 * n * (32 + 27 + 6),
         # per pair: 32-wide dot (64), logit (3), sigmoid (3), 27 FMAs (54);
         # per query: norm (64) and the damped solve (~200)
         flops=pairs * 124 + n * 264, library_ms=None))
+    print(f"  gn_fused_solve (bf16 scores): "
+          f"{cuda_ms(lambda: gn.gn_fused_solve(ae, vals, bf16_scores=True)):.4f} ms")
+    # kernel 5: the same sums, written out.  The 27 columns differ by
+    # orders of magnitude and the b columns cancel, so each element is held
+    # to its own sum of |terms| (the scores are positive: the plain version
+    # on |vals|): 1e-5 of it for ~4000 f32 terms in another order; with
+    # bf16 scores 2^-12, for the few scores that land on a bf16 rounding
+    # boundary and move their term by 2^-8.  No rtol.
+    absum = gn.gn_window_aggregate_plain(ae, vals.abs())
+    for bf in (False, True):
+        label = "gn_window_aggregate" + (" (bf16 scores)" if bf else "")
+        got = gn.gn_window_aggregate(ae, vals, bf16_scores=bf)
+        ref = gn.gn_window_aggregate_plain(ae, vals, bf16_scores=bf)
+        torch.cuda.synchronize()
+        errs[bf] = _compare(label, got, ref,
+                            (2.0 ** -12 if bf else 1e-5) * absum + 1e-6, 0.0)
+        err = (got - ref).abs()
+        col_rel = (err.amax((0, 1, 2))
+                   / ref.abs().amax((0, 1, 2)).clamp(min=1e-30))
+        print(f"  {label}: worst |err| / sum|terms| "
+              f"{float((err / (absum + 1e-6)).max()):.3e}; worst |err| / "
+              f"max|column| {float(col_rel.max()):.3e} (column "
+              f"{int(col_rel.argmax())} of 27)")
+    rows.append(dict(
+        name="gn_window_aggregate", source="codd_torch/csrc/gn_window.cu",
+        replaces="codd_tpu/ops/pallas/gn_window.py:153",
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: gn.gn_window_aggregate(ae, vals)),
+        plain_ms=cuda_ms(lambda: gn.gn_window_aggregate_plain(ae, vals)),
+        bytes=4 * n * (32 + 27 + 27), flops=pairs * 124 + n * 64,
+        library_ms=None))
+    print(f"  gn_window_aggregate (bf16 scores): "
+          f"{cuda_ms(lambda: gn.gn_window_aggregate(ae, vals, bf16_scores=True)):.4f} ms")
+
+    # -- kernel 6: corr patch lookup, all four levels (48x160 queries) --
+    pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
+    per_level = []
+    for lvl, f2p in enumerate(pyr["levels"]):
+        sc = 1.0 / 2 ** lvl
+        got = corr.corr_patch_lookup_level(pyr["f1"], f2p, coords, 3, sc)
+        ref = corr.corr_patch_lookup_level_plain(pyr["f1"], f2p, coords * sc, 3)
+        torch.cuda.synchronize()
+        # 128 exact bf16 x bf16 products summed in f32 in another order
+        # than torch.sum's: a few ulps of sum |f1 . f2| ~ 128 * |f1| |f2|
+        err = _compare(f"corr_patch_lookup L{lvl}", got, ref, 2e-5, 1e-5)
+        nbytes = (pyr["f1"].numel() * 2 + f2p.numel() * 2 + coords.numel() * 4
+                  + n * 49 * 4)
+        per_level.append(dict(
+            err=err, bytes=nbytes, flops=n * (64 * 256 + 49 * 9),
+            ms=cuda_ms(lambda: corr.corr_patch_lookup_level(
+                pyr["f1"], f2p, coords, 3, sc)),
+            plain_ms=cuda_ms(lambda: corr.corr_patch_lookup_level_plain(
+                pyr["f1"], f2p, coords * sc, 3))))
+        lb, _ = bound_ms(nbytes, per_level[-1]["flops"], BF16_FLOPS_PER_S)
+        print(f"  corr_patch_lookup L{lvl} {tuple(f2p.shape)}: "
+              f"{per_level[-1]['ms']:.4f} ms  plain "
+              f"{per_level[-1]['plain_ms']:.4f} ms  bound {lb:.4f} ms")
+    rows.append(dict(  # the row is level 0, the largest, as kernel 2's is
+        name="corr_patch_lookup", source="codd_torch/csrc/corr_patch.cu",
+        replaces="scripts/kernel_corr_pallas.py:73",
+        max_abs_err=max(p["err"] for p in per_level), ms=per_level[0]["ms"],
+        plain_ms=per_level[0]["plain_ms"], bytes=per_level[0]["bytes"],
+        flops=per_level[0]["flops"], peak=BF16_FLOPS_PER_S, library_ms=None))
+    print(f"  corr_patch_lookup, four levels: "
+          f"{sum(p['ms'] for p in per_level):.4f} ms")
 
     # -- kernel 4: splat compositor at the full-res call (C=6, r=1) --
     intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
@@ -225,7 +310,8 @@ def kernel_checks(dev):
         flops=float(run.sum()) * (2 * 6 + 6), library_ms=None))
 
     for r in rows:
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"))
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            r.pop("bytes"), r.pop("flops"), r.pop("peak", F32_FLOPS_PER_S))
         print(f"  {r['name']}: {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
               f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
@@ -235,12 +321,12 @@ def kernel_checks(dev):
 # phases 4-5: the streaming cascade
 # ---------------------------------------------------------------------------
 
-def frames(n: int, dev):
+def frames(n: int, dev, seed: int = 1):
     """Seeded stereo frames of a smooth textured plane: the right view is
     the left one shifted by 8 + t whole pixels (disparity 8 + t), and the
     camera pans 2 pixels a frame."""
     import torch
-    g = torch.Generator().manual_seed(1)
+    g = torch.Generator().manual_seed(seed)
     base = torch.rand((1, 3, H // 8, (W + 64) // 8), generator=g)
     tex = torch.nn.functional.interpolate(base, size=(H, W + 64),
                                           mode="bilinear", align_corners=False)
@@ -257,43 +343,51 @@ def frames(n: int, dev):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the four hot ops to their plain PyTorch versions (phase 5)."""
+    """Route the six hot ops to their plain PyTorch versions (phase 6)."""
     from codd_torch.models.stereo import hitnet
     from codd_torch.ops import corr, gn, splat, tile_warp
 
     def corr_plain(vol, coords, radius=3, scale=1.0, out=None, offset=0):
-        res = corr.corr_lookup_level_plain(vol, coords * scale, radius)
-        out[..., offset:offset + res.shape[-1]] = res
-        return out
+        return corr._into(out, offset, corr.corr_lookup_level_plain(
+            vol, coords * scale, radius))
+
+    def patch_plain(f1, f2p, coords, radius=3, scale=1.0, out=None, offset=0):
+        return corr._into(out, offset, corr.corr_patch_lookup_level_plain(
+            f1, f2p, coords * scale, radius))
 
     saved = (hitnet.tile_warp_cost, corr.corr_lookup_level,
-             gn.gn_fused_solve, splat.composite)
+             gn.gn_fused_solve, splat.composite, gn.gn_window_aggregate,
+             corr.corr_patch_lookup_level)
     hitnet.tile_warp_cost = tile_warp.tile_warp_cost_plain
     corr.corr_lookup_level = corr_plain
     gn.gn_fused_solve = gn.gn_fused_solve_plain
     splat.composite = splat.composite_plain
+    gn.gn_window_aggregate = gn.gn_window_aggregate_plain
+    corr.corr_patch_lookup_level = patch_plain
     try:
         yield
     finally:
         (hitnet.tile_warp_cost, corr.corr_lookup_level, gn.gn_fused_solve,
-         splat.composite) = saved
+         splat.composite, gn.gn_window_aggregate,
+         corr.corr_patch_lookup_level) = saved
 
 
-def main_path(dev, steps: int):
-    import torch
+def build_model(name: str = "codd.py", **overrides):
+    """A model of configs/models/<name> on the card, seeded weights;
+    ``overrides`` replace top-level keys of its ``model`` dict."""
     from codd_torch.config import load_config
     from codd_torch.models.builder import build_estimator
-    from codd_torch.ops import kernels
 
     cfg = load_config(str(Path(__file__).resolve().parent / "configs"
-                          / "models" / "codd.py"))
-    model = build_estimator(cfg["model"], device="cuda", seed=0)
-    intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
-    seq = frames(steps + 1, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+                          / "models" / name))
+    return build_estimator(dict(cfg["model"], **overrides), device="cuda",
+                           seed=0)
 
-    kernels.reset_counts()
+
+def stream(model, intr, seq):
+    """first_step + one step per further frame, each timed on the host
+    clock up to a synchronize: (first_step s, [step ms], outputs)."""
+    import torch
     t0 = time.perf_counter()
     carry, out = model.first_step(*seq[0], intr)
     torch.cuda.synchronize()
@@ -305,10 +399,26 @@ def main_path(dev, steps: int):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
+    return t_first, step_ms, outs
+
+
+def main_path(dev, steps: int):
+    import torch
+    from codd_torch.ops import kernels
+
+    model = build_model()
+    intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
+    seq = frames(steps + 1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_counts()
+    t_first, step_ms, outs = stream(model, intr, seq)
     launches = kernels.counts()
 
     expect = {"tile_warp_cost": 9 * (steps + 1), "corr_lookup": 64 * steps,
-              "gn_fused_solve": 16 * steps, "splat_composite": 2 * steps}
+              "gn_fused_solve": 16 * steps, "splat_composite": 2 * steps,
+              "gn_window_aggregate": 0, "corr_patch_lookup": 0}
     print(f"  launches {launches} (expected {expect})")
     if launches != expect:
         fail(f"launch counts {launches} != expected {expect}")
@@ -326,11 +436,154 @@ def main_path(dev, steps: int):
     print(f"  pred_disp frame {steps}: mean {float(outs[-1]['pred_disp'].mean()):.3f}"
           f" min {float(outs[-1]['pred_disp'].min()):.3f}"
           f" max {float(outs[-1]['pred_disp'].max()):.3f}")
-    return model, intr, seq, launches
+    return model, intr, seq, launches, float(np.median(step_ms))
 
 
-def plain_check(model, intr, seq):
+# ---------------------------------------------------------------------------
+# phase 5: the dataset evaluation path
+# ---------------------------------------------------------------------------
+
+EVAL_RUNTIME = {"gn_impl": "pallas_window", "corr_impl": "patch"}
+EVAL_FRAMES = 4
+
+
+class PlaneSequences:
+    """In-memory dataset in StereoVideoDataset's sample format: ``n``
+    sequences of ``EVAL_FRAMES`` frames of the panning textured plane of
+    ``frames()``, normalised like the test pipeline, with exact ground
+    truth.  Pixel x of frame t shows texture column x + 2t at disparity
+    8 + t, so towards frame t + 1 the flow is (-2, 0), the disparity grows
+    by 1, and only the two leftmost columns leave the view (occluded)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def sequence_name(self, i):
+        return f"plane/{i:02d}/0000.png"
+
+    def __getitem__(self, i):
+        import torch
+        T = EVAL_FRAMES
+        seq = frames(T, "cpu", seed=1 + i)
+        mean = torch.tensor([123.675, 116.28, 103.53]) / 255.0
+        std = torch.tensor([58.395, 57.12, 57.375]) / 255.0
+        norm = lambda side: np.stack(  # frames() is in [0, 1.1]
+            [((f[side][0] - mean) / std).numpy() for f in seq])
+        disp = np.stack([np.full((H, W, 1), 8.0 + t, np.float32)
+                         for t in range(T)])
+        flow = np.zeros((T, H, W, 2), np.float32)
+        flow[..., 0] = -2.0
+        occ = np.zeros((T, H, W, 1), np.float32)
+        occ[:, :, :2] = 1.0
+        return {"imgs": norm(0), "r_imgs": norm(1), "gt_disp": disp,
+                "gt_flow": flow,
+                "gt_disp_change": np.ones((T, H, W, 1), np.float32),
+                "gt_flow_occ": occ,
+                "meta": {"filename": self.sequence_name(i),
+                         "img_shape": (H, W), "ori_shape": (H, W),
+                         "disp_range": (1.0, 210.0), "calib": None,
+                         "intrinsics": [721.5, 721.5, 609.6, 172.9]}}
+
+
+def _eval_run(label, model, n_seq, expect_per_seq, scene_flow=True):
+    """run_inference over ``n_seq`` plane sequences; checks the launch
+    counts and that every metric is finite, with count > 0 where the model
+    yields a transform field (``scene_flow``)."""
     import torch
+    from codd_torch.apis.evaluation import METER_NAMES, SUM_NAMES
+    from codd_torch.apis.inference import run_inference
+    from codd_torch.ops import kernels
+
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    metrics = run_inference(model, PlaneSequences(n_seq), evaluate=True,
+                            log=lines.append)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_seq
+    launches = kernels.counts()
+    expect = {k: v * n_seq for k, v in expect_per_seq.items()}
+    print(f"  {label}: {ms:.1f} ms/sequence of {EVAL_FRAMES} frames over "
+          f"{n_seq} (data made on the host included); peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"  {label}: launches {launches}")
+    if launches != expect:
+        fail(f"{label}: launch counts {launches} != expected {expect}")
+    for k in METER_NAMES + SUM_NAMES:
+        if k not in metrics or not np.isfinite(metrics[k]):
+            fail(f"{label}: metric {k} missing or non-finite: {metrics}")
+    if (metrics["count"] > 0) != scene_flow:
+        fail(f"{label}: scene-flow count {metrics['count']}, expected "
+             f"{'> 0' if scene_flow else '0'}")
+    print("  " + "\n  ".join(l for line in lines for l in
+                             str(line).strip().splitlines()))
+    return launches, ms
+
+
+def streams_in_turns(dev, default_model, model):
+    """Profile phase: both configurations streamed in turns, for the
+    spread of the host-bound ms/frame inside and between them."""
+    import torch
+    intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
+    seq = frames(7, dev)
+    meds = {"default": [], "second": []}
+    for which in ("default", "second", "second", "default") * 2:
+        m = default_model if which == "default" else model
+        _, step_ms, _ = stream(m, intr, seq)
+        meds[which].append(round(float(np.median(step_ms)), 1))
+    print(f"  streaming, first_step + 6 steps, median ms/frame of each "
+          f"stream, in turns (default, second, second, default) x 2: "
+          f"default {meds['default']} (median "
+          f"{float(np.median(meds['default'])):.1f}), pallas_window + "
+          f"patch {meds['second']} (median "
+          f"{float(np.median(meds['second'])):.1f})")
+
+
+def eval_phase(dev, steps, default_ms):
+    """Phase 5; returns the second configuration's model and its launch
+    counts over the two sequences.  ``default_ms`` is the main path's
+    median ms/frame over ``steps`` steps, or None."""
+    import torch
+    esteps = EVAL_FRAMES - 1
+    tile = 9 * EVAL_FRAMES
+    zero = {"corr_lookup": 0, "gn_fused_solve": 0, "gn_window_aggregate": 0,
+            "corr_patch_lookup": 0, "splat_composite": 0}
+    model = build_model(runtime=EVAL_RUNTIME)
+    launches, _ = _eval_run(
+        "pallas_window + patch", model, 2,
+        dict(zero, tile_warp_cost=tile, gn_window_aggregate=16 * esteps,
+             corr_patch_lookup=64 * esteps, splat_composite=2 * esteps))
+    # the main path's stream once more in this configuration; the step is
+    # host-bound, so one stream each orders the two loosely (the profile
+    # phase repeats them in turns and splits the device time)
+    if default_ms is not None:
+        intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
+        _, step_ms, _ = stream(model, intr, frames(steps + 1, dev))
+        print(f"  streaming, first_step + {steps} steps, median ms/frame: "
+              f"default {default_ms:.1f} (phase 4), pallas_window + patch "
+              f"{float(np.median(step_ms)):.1f}")
+    _eval_run("GTMotion + GTFusion",
+              build_model(motion={"type": "GTMotion"},
+                          fusion={"type": "GTFusion"}), 1,
+              dict(zero, tile_warp_cost=tile))
+    _eval_run("Motion + KalmanFusion",
+              build_model(fusion={"type": "KalmanFusion"}), 1,
+              dict(zero, tile_warp_cost=tile, corr_lookup=64 * esteps,
+                   gn_fused_solve=16 * esteps, splat_composite=2 * esteps))
+    _eval_run("stereo only (configs/models/stereo.py)",
+              build_model("stereo.py"), 1, dict(zero, tile_warp_cost=tile),
+              scene_flow=False)
+    return model, launches
+
+
+def plain_check(model, intr, seq, label: str):
+    import torch
+    print(f"  {label}:")
     carry, _ = model.first_step(*seq[0], intr)
     _, out_k = model.step(carry, *seq[1], intr)
     with plain_versions():
@@ -349,8 +602,8 @@ def plain_check(model, intr, seq):
             fail(f"{key}: kernel run disagrees with the plain run")
 
 
-def profile_step(model, intr, seq, out_dir: Path):
-    """torch.profiler over one step: device time by kernel, the four hand
+def profile_step(model, intr, seq, out_file: Path):
+    """torch.profiler over one step: device time by kernel, the hand
     kernels' share, and the device's idle share of the step's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -374,7 +627,9 @@ def profile_step(model, intr, seq, out_dir: Path):
     hand = {"tile_warp_cost_kernel": "tile_warp_cost",
             "corr_lookup_kernel": "corr_lookup",
             "gn_fused_solve_kernel": "gn_fused_solve",
-            "splat_composite_kernel": "splat_composite"}
+            "splat_composite_kernel": "splat_composite",
+            "gn_window_aggregate_kernel": "gn_window_aggregate",
+            "corr_patch_lookup_kernel": "corr_patch_lookup"}
     mine = {v: sum(r[1] for r in rows if k in r[0]) for k, v in hand.items()}
     cats: dict = {}
     for key, ms, n in rows:
@@ -386,8 +641,8 @@ def profile_step(model, intr, seq, out_dir: Path):
              f"share {max(0.0, 1 - busy / wall_ms):.3f} (profiled)"]
     lines += [f"  {name}: {ms:.3f} ms ({100 * ms / busy:.1f} %), {n} launches"
               for name, (ms, n) in sorted(cats.items(), key=lambda c: -c[1][0])]
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "profile_step.txt", "w") as f:
+    out_file.parent.mkdir(parents=True, exist_ok=True)
+    with open(out_file, "w") as f:
         f.write("\n".join(lines) + "\n")
         for key, ms, n in rows:
             f.write(f"{ms:10.4f} ms {n:6d}x  {key}\n")
@@ -417,12 +672,17 @@ def _category(kernel: str, hand) -> str:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,plain",
-                    help="comma list of kernels, main, plain, profile "
-                         "(profile writes chiprun_out/profile_step.txt)")
-    ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--phases", default="kernels,main,eval,plain",
+                    help="comma list of kernels, main, eval, plain, profile "
+                         "(profile writes chiprun_out/profile_step*.txt and streams "
+                         "both configurations in turns)")
+    ap.add_argument("--steps", type=int, default=3,
+                    help="step calls of the main path after first_step")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    unknown = phases - {"kernels", "main", "eval", "plain", "profile"}
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
 
     try:
         import torch
@@ -437,34 +697,64 @@ def main():
 
     name = torch.cuda.get_device_name(0)
     smi = smi_name_power()
-    print(f"[1/5] device: {name} (count {torch.cuda.device_count()}); "
+    print(f"[1/6] device: {name} (count {torch.cuda.device_count()}); "
           f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     kernels.load(verbose=True)
-    print(f"[2/5] built {len(kernels.KERNELS)} kernels in "
+    print(f"[2/6] built {len(kernels.KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
     if "kernels" in phases:
-        print("[3/5] kernels against their plain versions", flush=True)
+        print("[3/6] kernels against their plain versions", flush=True)
         rows = kernel_checks(dev)
-    launches = {}
+    launches, eval_launches = {}, {}
+    model = eval_model = default_ms = None
     if "main" in phases:
-        print(f"[4/5] streaming cascade 384x1280, first_step + {args.steps} "
+        print(f"[4/6] streaming cascade 384x1280, first_step + {args.steps} "
               "steps", flush=True)
-        model, intr, seq, launches = main_path(dev, args.steps)
-        if "plain" in phases:
-            print("[5/5] one frame pair through the plain versions", flush=True)
-            plain_check(model, intr, seq)
-        if "profile" in phases:
-            print("[profile] one step under torch.profiler", flush=True)
-            profile_step(model, intr, seq,
-                         Path(__file__).resolve().parent / "chiprun_out")
+        model, intr, seq, launches, default_ms = main_path(dev, args.steps)
+    if "eval" in phases:
+        print(f"[5/6] run_inference(evaluate=True), runtime {EVAL_RUNTIME}, "
+              f"2 sequences x {EVAL_FRAMES} frames at 384x1280; then the "
+              "oracle and stereo-only variants", flush=True)
+        eval_model, eval_launches = eval_phase(dev, args.steps, default_ms)
+    if "plain" in phases:
+        print("[6/6] one frame pair through the plain versions", flush=True)
+        intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
+        seq = frames(2, dev)
+        if model is not None:
+            plain_check(model, intr, seq, "default runtime")
+        if eval_model is not None:
+            plain_check(eval_model, intr, seq, f"runtime {EVAL_RUNTIME}")
+    if "profile" in phases:
+        if model is None and eval_model is None:
+            fail("the profile phase needs the main or the eval phase")
+        out_dir = Path(__file__).resolve().parent / "chiprun_out"
+        intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
+        seq = frames(2, dev)
+        for m, label, fname in (
+                (model, "default runtime", "profile_step.txt"),
+                (eval_model, f"runtime {EVAL_RUNTIME}",
+                 "profile_step_eval.txt")):
+            if m is not None:
+                print(f"[profile] one step under torch.profiler, {label}",
+                      flush=True)
+                profile_step(m, intr, seq, out_dir / fname)
+        if model is not None and eval_model is not None:
+            print("[profile] both configurations streamed in turns",
+                  flush=True)
+            streams_in_turns(dev, model, eval_model)
+    # each path was driven with the counts at 0; a kernel's launches are
+    # the default path's plus the evaluation path's
     for r in rows:
         r["route"] = "cuda"
-        r["launches"] = launches.get(r["name"], 0)
+        r["launches"] = (launches.get(r["name"], 0)
+                         + eval_launches.get(r["name"], 0))
+        if r["launches"] == 0 and {"main", "eval"} <= phases:
+            fail(f"{r['name']}: launched no time on the main paths")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

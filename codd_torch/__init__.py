@@ -1,10 +1,21 @@
-"""codd_torch — the CODD streaming cascade in PyTorch for one NVIDIA H100.
+"""codd_torch — CODD inference and evaluation in PyTorch for one NVIDIA H100.
 
-A port of ``codd_tpu`` (JAX) that computes the same function with the
-default runtime knobs: HITNet stereo -> RAFT-3D motion (16 Gauss-Newton
-iterations, point-splat warping) -> recurrent fusion, driven frame by
-frame through ``CODD.first_step`` / ``CODD.step``.  Only the eval /
-inference path exists in this package.
+A port of ``codd_tpu`` (JAX) that computes the same function: HITNet
+stereo -> RAFT-3D motion (16 Gauss-Newton iterations, point-splat warping)
+-> recurrent fusion, with every motion / fusion variant (the network, the
+ground-truth oracles, Kalman, none) and every ``model.runtime`` value
+``codd_tpu`` takes.  Entry points, from the top:
+
+* ``python -m codd_torch.tools.inference CONFIG [CHECKPOINT] --eval`` (or
+  ``--show-dir``): a dataset's sequences through the model;
+* ``apis.inference.run_inference`` / ``apis.evaluation.
+  make_sequence_evaluator``: the same from Python, metrics accumulated on
+  the device with one transfer a sequence;
+* ``models.builder.build_estimator`` + ``CODD.first_step`` / ``CODD.step``
+  (frame by frame) or ``CODD.__call__`` (a clip).
+
+Only the eval / inference path exists in this package: no training, no
+losses, no training augmentations.
 
 Conventions:
 
@@ -16,16 +27,18 @@ Conventions:
 * **Device.**  ``models.builder.build_estimator`` puts the model on
   ``"cuda"`` and raises when CUDA is missing unless the caller passes
   ``device="cpu"`` (the tests do).  There is no silent CPU fallback.
-* **Kernels.**  Four hot ops run hand-written CUDA kernels for
+* **Kernels.**  Six hot ops run hand-written CUDA kernels for
   ``sm_90a`` (``csrc/``): the stereo tile-warp cost
-  (``ops/tile_warp.py``), the corr-volume window lookup (``ops/corr.py``),
-  the fused GN aggregate + 6x6 solve (``ops/gn.py``) and the splat
+  (``ops/tile_warp.py``), the corr-volume window lookup and the corr
+  patch lookup (``ops/corr.py``), the fused GN aggregate + 6x6 solve and
+  the GN window aggregate alone (``ops/gn.py``), and the splat
   compositor (``ops/splat.py``).  Each wrapper runs its plain PyTorch
   version for CPU tensors and launches its kernel (or raises) for CUDA
   tensors; ``ops/kernels.py`` builds the kernels with ``nvcc`` on first
   use and counts launches.
 * **Precision.**  Everything is float32 except the bf16 correlation
-  volumes, as in ``codd_tpu``.  ``build_estimator`` turns TF32 off for
+  features and volumes (and, with ``gn_bf16_scores``, the GN scores), as
+  in ``codd_tpu``.  ``build_estimator`` turns TF32 off for
   cuDNN convolutions and cuBLAS matmuls
   (``torch.backends.cudnn.allow_tf32 = False``,
   ``torch.backends.cuda.matmul.allow_tf32 = False``): reduced-precision

@@ -1,11 +1,41 @@
 """Model factory: config dicts -> CODD estimator on a device (counterpart
 of ``codd_tpu/models/builder.py:build_estimator``).
 
-This package implements the streaming eval path at the default runtime
-knobs only.  Unknown ``runtime`` keys raise ``ValueError`` as in
-``codd_tpu``; known keys set to anything but the default, and motion or
-fusion types other than ``Motion``/``Fusion``, raise
-``NotImplementedError`` rather than run a different path silently.
+The same config file builds in both packages: ``model.motion.type`` is
+Motion, GTMotion or absent, ``model.fusion.type`` Fusion, NullFusion,
+GTFusion, KalmanFusion or absent, and ``model.runtime`` takes every key
+and value ``codd_tpu`` takes.  An unknown key raises ``ValueError`` as
+there; an unknown *value* raises too (``codd_tpu`` lets some fall
+through).  What each knob does here:
+
+=====================  ====================================================
+``gn_impl``            ``auto``/``fused``: kernel 3 (aggregate + solve);
+                       ``windowed``/``pallas_window``: kernel 5, then the
+                       damped solve in PyTorch; ``dense``: the masked
+                       (n, n) form in PyTorch, by this explicit request
+                       only: the kernels take every shape.
+``gn_bf16_scores``     kernels 3 and 5 round score and value to bf16
+                       before the product; the sum stays f32.  Dropped
+                       where ``codd_tpu`` runs its dense form, which keeps
+                       f32 scores (``ops/gn.py:resolve_impl``).
+``corr_impl``          ``auto``/``volume``/``volume_reduce``/
+                       ``volume_pallas``: bf16 volumes + kernel 2 (the
+                       three selects are bit-identical in ``codd_tpu``);
+                       ``patch``: kernel 6, no volume.
+``pixel_center_offset``  passed to both splats.
+``init_cost_variant``, ``tile_warp_variant``, ``splat_impl``,
+``splat_impl_lr``, ``gn_unroll``
+                       formulations of one function for the TPU's
+                       compiler.  The port has one kernel per op and runs
+                       it whatever the value; the value is validated.
+                       ``tile_warp_variant`` ``tilewin``/``grouped`` and
+                       the ``xla_window`` splats are *approximations* in
+                       ``codd_tpu`` (fixed windows, overflow drop); the
+                       port's kernels are exact and do not reproduce
+                       them.
+``splat_impl_train``   validated only: it names the splat a training
+                       path runs, and the port has none yet.
+=====================  ====================================================
 """
 
 from __future__ import annotations
@@ -15,17 +45,60 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..ops.corr import CORR_IMPLS
+from ..ops.gn import GN_IMPLS
 from .codd import CODD
 
-__all__ = ["build_estimator", "init_weights", "RUNTIME_DEFAULTS"]
+__all__ = ["build_estimator", "init_weights", "RUNTIME_DEFAULTS",
+           "RUNTIME_VALUES"]
 
-# the codd_tpu runtime knobs and the only values this package implements
 RUNTIME_DEFAULTS = {
     "init_cost_variant": "auto", "tile_warp_variant": "auto",
     "gn_impl": "auto", "gn_bf16_scores": False, "splat_impl": "xla_gather",
     "splat_impl_lr": "", "splat_impl_train": "xla", "corr_impl": "auto",
     "gn_unroll": 1, "pixel_center_offset": 0.0,
 }
+
+_SPLAT_IMPLS = ("xla", "xla_gather", "pallas", "xla_window",
+                "xla_sort_window")
+# every value codd_tpu accepts for the string knobs; the others are typed
+RUNTIME_VALUES = {
+    "init_cost_variant": ("auto", "unrolled", "map", "phases"),
+    "tile_warp_variant": ("auto", "exact", "tilewin", "grouped", "pallas"),
+    "gn_impl": GN_IMPLS,
+    "corr_impl": CORR_IMPLS,
+    "splat_impl": _SPLAT_IMPLS,
+    "splat_impl_lr": ("",) + _SPLAT_IMPLS,
+    "splat_impl_train": _SPLAT_IMPLS,
+}
+_MOTION_TYPES = {"Motion": "Motion", "GTMotion": "GTMotion", None: "none"}
+_FUSION_TYPES = {"Fusion": "Fusion", "NullFusion": "NullFusion",
+                 "GTFusion": "GTFusion", "KalmanFusion": "KalmanFusion",
+                 None: "none"}
+
+
+def _check_runtime(runtime: Dict[str, Any]) -> Dict[str, Any]:
+    """Defaults filled in; an unknown key or value raises ValueError."""
+    unknown = set(runtime) - set(RUNTIME_DEFAULTS)
+    if unknown:
+        raise ValueError(f"unknown model.runtime keys: {sorted(unknown)}; "
+                         f"known: {sorted(RUNTIME_DEFAULTS)}")
+    rt = dict(RUNTIME_DEFAULTS, **runtime)
+    for k, allowed in RUNTIME_VALUES.items():
+        if rt[k] not in allowed:
+            raise ValueError(f"model.runtime.{k}={rt[k]!r}: one of {allowed}")
+    if not isinstance(rt["gn_bf16_scores"], (bool, int)):
+        raise ValueError("model.runtime.gn_bf16_scores must be a bool, got "
+                         f"{rt['gn_bf16_scores']!r}")
+    if (isinstance(rt["gn_unroll"], bool) or not isinstance(rt["gn_unroll"], int)
+            or rt["gn_unroll"] < 1):
+        raise ValueError("model.runtime.gn_unroll must be a positive int, "
+                         f"got {rt['gn_unroll']!r}")
+    if (isinstance(rt["pixel_center_offset"], bool)
+            or not isinstance(rt["pixel_center_offset"], (int, float))):
+        raise ValueError("model.runtime.pixel_center_offset must be a "
+                         f"number, got {rt['pixel_center_offset']!r}")
+    return rt
 
 
 def _resolve_device(device) -> torch.device:
@@ -64,27 +137,25 @@ def build_estimator(model_cfg: Dict[str, Any], device=None,
     stereo = model_cfg.get("stereo") or {}
     motion = model_cfg.get("motion")
     fusion = model_cfg.get("fusion")
-    runtime = dict(model_cfg.get("runtime") or {})
-    unknown = set(runtime) - set(RUNTIME_DEFAULTS)
-    if unknown:
-        raise ValueError(f"unknown model.runtime keys: {sorted(unknown)}; "
-                         f"known: {sorted(RUNTIME_DEFAULTS)}")
-    for k, v in runtime.items():
-        if v != RUNTIME_DEFAULTS[k]:
-            raise NotImplementedError(
-                f"model.runtime.{k}={v!r}: codd_torch implements only "
-                f"{k}={RUNTIME_DEFAULTS[k]!r}")
-    mtype = motion.get("type", "Motion") if motion else None
-    ftype = fusion.get("type", "Fusion") if fusion else None
-    if mtype != "Motion" or ftype != "Fusion":
-        raise NotImplementedError(
-            f"motion type {mtype!r} / fusion type {ftype!r}: codd_torch "
-            "implements Motion + Fusion only")
+    rt = _check_runtime(dict(model_cfg.get("runtime") or {}))
+    mname = motion.get("type", "Motion") if motion else None
+    fname = fusion.get("type", "Fusion") if fusion else None
+    if mname not in _MOTION_TYPES or fname not in _FUSION_TYPES:
+        raise ValueError(f"motion type {mname!r} / fusion type {fname!r}: "
+                         f"one of {sorted(k for k in _MOTION_TYPES if k)} / "
+                         f"{sorted(k for k in _FUSION_TYPES if k)} or absent")
     max_disp = (stereo.get("initialization", {}).get("max_disp")
                 or stereo.get("max_disp") or 320)
-    model = CODD(max_disp=int(max_disp), iters=int(motion.get("iters", 16)),
-                 fusion_channel=int(fusion.get("fusion_channel", 32)),
-                 stereo_feat_channels=int(fusion.get("in_channels", 24)))
+    model = CODD(
+        max_disp=int(max_disp),
+        iters=int(motion.get("iters", 16)) if motion else 16,
+        fusion_channel=int(fusion.get("fusion_channel", 32)) if fusion else 32,
+        stereo_feat_channels=int(fusion.get("in_channels", 24)) if fusion
+        else 24,
+        motion_type=_MOTION_TYPES[mname], fusion_type=_FUSION_TYPES[fname],
+        gn_impl=rt["gn_impl"], gn_bf16_scores=bool(rt["gn_bf16_scores"]),
+        corr_impl=rt["corr_impl"],
+        pixel_center_offset=float(rt["pixel_center_offset"]))
     if seed is not None:
         init_weights(model, seed)
     # full-f32 convolutions and products: TF32 breaks the GN logits' norm

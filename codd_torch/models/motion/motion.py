@@ -17,7 +17,7 @@ from ...ops.projective import inv_project
 from ...ops.splat import splat_render
 from .raft3d import RAFT3D
 
-BF_DEFAULT = 1050 * 0.2  # baseline * focal
+from ...utils.masks import BF_DEFAULT  # baseline * focal = 210
 
 __all__ = ["Motion", "BF_DEFAULT", "disp_to_depth"]
 
@@ -28,10 +28,17 @@ def disp_to_depth(disp):
 
 
 class Motion(nn.Module):
-    def __init__(self, iters: int = 16, ds_scale: int = 4):
+    def __init__(self, iters: int = 16, ds_scale: int = 4,
+                 gn_impl: str = "auto", gn_bf16_scores: bool = False,
+                 corr_impl: str = "auto", pixel_center_offset: float = 0.0):
         super().__init__()
         self.ds_scale = ds_scale
-        self.raft3d = RAFT3D(iters=iters)
+        # 0.0 = integer pixel centres; -0.5 = pytorch3d's half-integer
+        # screen convention, for weights trained with the original
+        self.pixel_center_offset = pixel_center_offset
+        self.raft3d = RAFT3D(iters=iters, gn_impl=gn_impl,
+                             gn_bf16_scores=gn_bf16_scores,
+                             corr_impl=corr_impl)
 
     def encode(self, image):
         return self.raft3d.encode(image)
@@ -52,7 +59,8 @@ class Motion(nn.Module):
         X2 = se3.act(Ts, inv_project(depth_prev, intrinsics))
         warped, zbuf = splat_render(
             X2.reshape(B, -1, 3), to_proj.reshape(B, -1, to_proj.shape[-1]),
-            intrinsics, H=H, W=W, radius_px=1.0)
+            intrinsics, H=H, W=W, radius_px=1.0,
+            pixel_center_offset=self.pixel_center_offset)
         img_warp = torch.zeros_like(memory_img)
         flow_warp = warped[..., :3]
         confidence_warp = warped[..., 3:6]
@@ -68,6 +76,7 @@ class Motion(nn.Module):
         C = memory_feat.shape[-1]
         feat_warp, _ = splat_render(
             X2l.reshape(B, -1, 3), memory_feat.reshape(B, -1, C), intr_lr,
-            H=H // s, W=W // s, radius_px=2.0)
+            H=H // s, W=W // s, radius_px=2.0,
+            pixel_center_offset=self.pixel_center_offset)
         memory5 = (img_warp, feat_warp, confidence_warp, disp_warp, flow_warp)
         return memory5, raft_out, fmap_curr, netinp_curr

@@ -3,8 +3,10 @@
 
 Per GN iteration: project the previous frame's points through the current
 transform field, sample the current inverse depth, look up the
-correlation pyramid (kernel 2), run the ConvGRU update, and take one
-damped Gauss-Newton step on the SE(3) field (kernel 3).  The flax
+correlation pyramid (kernel 2, or kernel 6 with ``corr_impl="patch"``),
+run the ConvGRU update, and take one damped Gauss-Newton step on the
+SE(3) field (kernel 3, or kernel 5 + a PyTorch solve with
+``gn_impl="windowed"``/``"pallas_window"``).  The flax
 ``nn.scan`` over iterations is a Python loop over one ``GNIteration``
 module (shared weights, named ``gn_iter`` like the scan).
 """
@@ -92,9 +94,12 @@ class GNIteration(nn.Module):
     """One GRU + Gauss-Newton refinement step."""
 
     def __init__(self, hidden_dim: int = 128, corr_radius: int = 3,
-                 corr_levels: int = 4):
+                 corr_levels: int = 4, gn_impl: str = "auto",
+                 gn_bf16_scores: bool = False):
         super().__init__()
         self.corr_radius = corr_radius
+        self.gn_impl = gn_impl
+        self.gn_bf16_scores = gn_bf16_scores
         self.update_block = BasicUpdateBlock(
             hidden_dim, corr_levels * (2 * corr_radius + 1) ** 2)
 
@@ -111,14 +116,22 @@ class GNIteration(nn.Module):
         net, mask, ae, delta, weight = self.update_block(
             net, inp, corr, flow, dz, twist)
         target = coords1_xyz + delta
-        Ts = gn_step(Ts, ae, target, weight, depth1_r8, intr8)
+        Ts = gn_step(Ts, ae, target, weight, depth1_r8, intr8,
+                     impl=self.gn_impl, bf16_scores=self.gn_bf16_scores)
         return net, Ts, mask, weight
 
 
 class RAFT3D(nn.Module):
     def __init__(self, iters: int = 16, corr_levels: int = 4,
-                 corr_radius: int = 3, hidden_dim: int = 128):
+                 corr_radius: int = 3, hidden_dim: int = 128,
+                 gn_impl: str = "auto", gn_bf16_scores: bool = False,
+                 corr_impl: str = "auto"):
         super().__init__()
+        if corr_impl not in corr_ops.CORR_IMPLS:
+            raise ValueError(f"bad corr_impl {corr_impl!r}; one of "
+                             f"{corr_ops.CORR_IMPLS}")
+        # eval: "auto" and the three volume selects are one volume lookup
+        self.pyramid_impl = "patch" if corr_impl == "patch" else "volume"
         self.iters = iters
         self.corr_levels = corr_levels
         self.corr_radius = corr_radius
@@ -126,7 +139,8 @@ class RAFT3D(nn.Module):
         self.fnet = BasicEncoder(128)
         self.cnet = HRNetSmall()
         self.cnet_out = ResizeConcatConv(18 + 36 + 72 + 144, 128 * 4)
-        self.gn_iter = GNIteration(hidden_dim, corr_radius, corr_levels)
+        self.gn_iter = GNIteration(hidden_dim, corr_radius, corr_levels,
+                                   gn_impl, gn_bf16_scores)
 
     def encode(self, image):
         return self.fnet(image), self.cnet_out(self.cnet(image))
@@ -140,7 +154,8 @@ class RAFT3D(nn.Module):
         dt, dev = image_curr.dtype, image_curr.device
         fmap_curr = self.fnet(image_curr)
         vols = corr_ops.build_corr_pyramid(fmap_prev, fmap_curr,
-                                           self.corr_levels, self.corr_radius)
+                                           self.corr_levels, self.corr_radius,
+                                           impl=self.pyramid_impl)
         net = torch.tanh(netinp_prev[..., :128])
         inp = F.relu(netinp_prev[..., 128:])
         intr8 = intrinsics / 8.0

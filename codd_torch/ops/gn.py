@@ -1,30 +1,50 @@
-"""Dense SE(3) Gauss-Newton step of RAFT-3D — kernel 3.
+"""Dense SE(3) Gauss-Newton step of RAFT-3D — kernels 3 and 5.
 
 Counterpart of ``codd_tpu/ops/gn.py`` (forward only).  For target pixel i,
 
     agg_i = sum_j sigmoid(-||ae_i - ae_j||^2) * vals_j   (|dy|,|dx| <= r)
 
 where ``vals_j`` packs the 21 upper-triangle entries of J^T W J and the 6
-of J^T W r at source pixel j (``_build_vals``).  H_i and b_i unpack from
+of J^T W r at source pixel j (``build_vals``).  H_i and b_i unpack from
 agg_i, are damped ``H += (lm*diag(H) + ep) I`` and solved by an unrolled
 6x6 LL^T; a non-finite solution becomes a zero update, and the field is
 retracted ``Ts <- exp(dx) * Ts``.
 
-The kernel (``csrc/gn_fused.cu``) replaces the TPU kernel
-``codd_tpu/ops/pallas/gn_fused.py:gn_fused_solve`` (``pl.pallas_call`` at
-:214) and does aggregate, damping and solve in one pass, all in f32.  On
-the H100 it is bound by operations: at 48x160 each query meets up to
+Two kernels share one aggregation (``csrc/gn_common.cuh``):
+
+* ``gn_fused_solve`` (``csrc/gn_fused.cu``) replaces the TPU kernel
+  ``codd_tpu/ops/pallas/gn_fused.py:gn_fused_solve`` (``pl.pallas_call``
+  at :214) and does aggregate, damping and solve in one pass.
+* ``gn_window_aggregate`` (``csrc/gn_window.cu``) replaces
+  ``codd_tpu/ops/pallas/gn_window.py:gn_window_aggregate``
+  (``pl.pallas_call`` at :153): it writes the 27 sums, and
+  ``damped_solve`` runs in PyTorch, as ``codd_tpu`` solves in XLA on that
+  path.
+
+On the H100 both are bound by operations: at 48x160 each query meets up to
 65x65 keys, ~130 f32 flops each (a 32-wide dot, a sigmoid, 27
 multiply-adds), ~3 GFLOP per call against 2 MB of operands.  One block
 per 32-query row segment streams the key rows of its 65-row window
 through shared memory, where every warp reads one key at a time as a
 broadcast; eight warps split the columns of a row and sum their partials
-in a fixed order before the solve.  The logits are ``2 q.k - |q|^2 - |k|^2``
-with the norms subtracted outside the dot product, as in the oracle:
-folding them into the product failed on the TPU at rel 2e-2
-(``gn_fused.py:37-47``).  The plain version (``gn_fused_solve_plain``)
-aggregates over the dense masked (n, n) score matrix, which is exactly
-``codd_tpu``'s ``dense`` path and equals its ``windowed`` path.
+in a fixed order.  The logits are ``2 q.k - |q|^2 - |k|^2`` with the norms
+subtracted outside the dot product, as in the oracle: folding them into
+the product is what failed on the TPU (``gn_fused.py:37-47``,
+``codd_tpu/ops/gn.py:181-194``).  With ``bf16_scores`` the sigmoid score
+and the value are rounded to bf16 before their product and the sum stays
+f32 (``gn_window.py:96-100``, ``codd_tpu/ops/gn.py:310-313``).
+
+The plain versions aggregate over the dense masked (n, n) score matrix,
+which is ``codd_tpu``'s ``dense`` path and equals its ``windowed`` path.
+
+``impl`` (``codd_tpu``'s ``runtime.gn_impl``) picks the route in
+``gn_step``, at every shape: ``auto`` and ``fused`` take kernel 3,
+``windowed`` and ``pallas_window`` kernel 5 then ``damped_solve``;
+``dense`` is the masked (n, n) form in PyTorch on whichever device, by
+explicit request only.  ``codd_tpu`` runs its dense form, with f32 scores,
+where its windowed paths do not apply (``resolve_impl``: radius 32, width
+a multiple of 32 and > 96); the port's kernels compute the same sums
+there, and drop ``bf16_scores`` there to agree with it.
 """
 
 from __future__ import annotations
@@ -34,9 +54,13 @@ import torch
 from . import kernels, se3
 from .projective import inv_project, project
 
-__all__ = ["gn_step", "gn_fused_solve", "gn_fused_solve_plain",
-           "cholesky_solve_small", "build_vals", "sym_pack", "sym_unpack",
-           "damped_solve"]
+__all__ = ["gn_step", "build_system", "resolve_impl", "gn_fused_solve",
+           "gn_fused_solve_plain", "gn_window_aggregate",
+           "gn_window_aggregate_plain", "cholesky_solve_small", "build_vals",
+           "sym_pack", "sym_unpack", "damped_solve", "GN_IMPLS"]
+
+GN_IMPLS = ("auto", "fused", "windowed", "pallas_window", "dense")
+_GN_BLOCK = 32  # codd_tpu's column block: the windowed paths need r == 32
 
 _TRI = [(i, j) for i in range(6) for j in range(i, 6)]
 
@@ -123,9 +147,10 @@ def damped_solve(agg, lm: float = 1e-4, ep: float = 10.0):
                        torch.zeros_like(dx))
 
 
-def gn_fused_solve_plain(ae, vals, radius: int = 32, lm: float = 1e-4,
-                         ep: float = 10.0):
-    """ae (B,h,w,C) pre-scaled embeddings, vals (B,h,w,27) -> dx (B,h,w,6)."""
+def gn_window_aggregate_plain(ae, vals, radius: int = 32,
+                              bf16_scores: bool = False):
+    """ae (B,h,w,C) pre-scaled embeddings, vals (B,h,w,27) -> the windowed
+    sums (B,h,w,27), over the dense masked (n, n) score matrix."""
     B, h, w, C = ae.shape
     n = h * w
     q = ae.reshape(B, n, C)
@@ -136,34 +161,120 @@ def gn_fused_solve_plain(ae, vals, radius: int = 32, lm: float = 1e-4,
     xs = torch.arange(n, device=ae.device) % w
     inside = (((ys[:, None] - ys[None, :]).abs() <= radius)
               & ((xs[:, None] - xs[None, :]).abs() <= radius))
-    scores = torch.sigmoid(logits) * inside[None].to(ae.dtype)
-    agg = torch.bmm(scores, vals.reshape(B, n, 27)).reshape(B, h, w, 27)
-    return damped_solve(agg, lm, ep)
+    scores = torch.sigmoid(logits)
+    v = vals.reshape(B, n, 27)
+    if bf16_scores:
+        # bf16 x bf16 products are exact in f32; the sum stays f32
+        scores = scores.to(torch.bfloat16).float()
+        v = v.to(torch.bfloat16).float()
+    scores = scores * inside[None].to(ae.dtype)
+    return torch.bmm(scores, v).reshape(B, h, w, 27)
+
+
+def gn_fused_solve_plain(ae, vals, radius: int = 32, lm: float = 1e-4,
+                         ep: float = 10.0, bf16_scores: bool = False):
+    """ae (B,h,w,C) pre-scaled embeddings, vals (B,h,w,27) -> dx (B,h,w,6)."""
+    return damped_solve(gn_window_aggregate_plain(ae, vals, radius,
+                                                  bf16_scores), lm, ep)
+
+
+def _check_gn(name, ae, vals):
+    B, h, w, C = ae.shape
+    kernels.check_cuda(name, ae, vals, dtypes=(torch.float32, torch.float32))
+    if C != 32 or tuple(vals.shape) != (B, h, w, 27):
+        raise ValueError(f"{name}: bad shapes ae {tuple(ae.shape)} "
+                         f"vals {tuple(vals.shape)} (needs C == 32)")
+    return B, h, w
 
 
 def gn_fused_solve(ae, vals, radius: int = 32, lm: float = 1e-4,
-                   ep: float = 10.0):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+                   ep: float = 10.0, bf16_scores: bool = False):
+    """Kernel 3 for CUDA tensors, the plain version for CPU tensors."""
     if not ae.is_cuda:
-        return gn_fused_solve_plain(ae, vals, radius, lm, ep)
-    B, h, w, C = ae.shape
-    kernels.check_cuda("gn_fused_solve", ae, vals,
-                       dtypes=(torch.float32, torch.float32))
-    if C != 32 or tuple(vals.shape) != (B, h, w, 27):
-        raise ValueError(f"gn_fused_solve: bad shapes ae {tuple(ae.shape)} "
-                         f"vals {tuple(vals.shape)} (needs C == 32)")
+        return gn_fused_solve_plain(ae, vals, radius, lm, ep, bf16_scores)
+    B, h, w = _check_gn("gn_fused_solve", ae, vals)
     out = torch.empty((B, h, w, 6), dtype=torch.float32, device=ae.device)
     kernels.launch("gn_fused_solve", ae.data_ptr(), vals.data_ptr(),
                    out.data_ptr(), B, h, w, radius, float(lm), float(ep),
+                   int(bool(bf16_scores)), kernels.stream_ptr(ae.device))
+    return out
+
+
+def gn_window_aggregate(ae, vals, radius: int = 32,
+                        bf16_scores: bool = False):
+    """Kernel 5 for CUDA tensors, the plain version for CPU tensors."""
+    if not ae.is_cuda:
+        return gn_window_aggregate_plain(ae, vals, radius, bf16_scores)
+    B, h, w = _check_gn("gn_window_aggregate", ae, vals)
+    out = torch.empty((B, h, w, 27), dtype=torch.float32, device=ae.device)
+    kernels.launch("gn_window_aggregate", ae.data_ptr(), vals.data_ptr(),
+                   out.data_ptr(), B, h, w, radius, int(bool(bf16_scores)),
                    kernels.stream_ptr(ae.device))
     return out
 
 
+def resolve_impl(impl: str, radius: int, w: int) -> str:
+    """The aggregation path ``codd_tpu`` takes for ``impl`` on a 1/8-res
+    field of width ``w`` (``codd_tpu/ops/gn.py:132-142``).  The port's
+    kernels take every shape, so this picks no route here; it only says
+    where ``codd_tpu`` runs its dense form, which keeps f32 scores whatever
+    ``bf16_scores`` says."""
+    windowed_ok = (radius == _GN_BLOCK and w % _GN_BLOCK == 0
+                   and w > 3 * _GN_BLOCK)
+    if impl == "auto":
+        return "windowed" if windowed_ok else "dense"
+    if impl in ("windowed", "pallas_window", "fused") and not windowed_ok:
+        return "dense"
+    return impl
+
+
+_ROUTES = {"auto": "fused", "fused": "fused", "windowed": "window",
+           "pallas_window": "window", "dense": "dense"}
+
+
+def _route(impl: str, radius: int, w: int, bf16_scores: bool = False):
+    """(route, bf16): which code computes the sums for ``impl`` (``fused``
+    kernel 3, ``window`` kernel 5, ``dense`` the (n, n) form), at every
+    shape, and whether the scores are rounded to bf16: only where
+    ``codd_tpu`` would not run its dense form."""
+    if impl not in GN_IMPLS:
+        raise ValueError(f"bad GN impl {impl!r}; one of {GN_IMPLS}")
+    bf16 = bool(bf16_scores) and resolve_impl(impl, radius, w) != "dense"
+    return _ROUTES[impl], bf16
+
+
+def _aggregate(ae, vals, radius, route, bf16):
+    """ae pre-scaled; the (B,h,w,27) sums by kernel 5 (``window``) or, for
+    an explicit ``dense``, the (n, n) form on whichever device."""
+    if route == "dense":
+        return gn_window_aggregate_plain(ae, vals, radius, bf16)
+    return gn_window_aggregate(ae, vals, radius, bf16)
+
+
+def build_system(Ts, ae, target, weight, depth, intrinsics, radius: int = 32,
+                 impl: str = "auto", bf16_scores: bool = False):
+    """Attention-aggregated normal equations (H (B,h,w,6,6), b (B,h,w,6));
+    ``ae`` pre-scaled.  Where ``gn_step`` would take kernel 3, which
+    returns the solved update and not the system, the sums come from
+    ``windowed``'s route."""
+    vals = build_vals(Ts, target, weight, depth, intrinsics).contiguous()
+    route, bf16 = _route(impl, radius, Ts.shape[2], bf16_scores)
+    if route == "fused":
+        route = "window"
+    agg = _aggregate(ae.float().contiguous(), vals, radius, route, bf16)
+    return sym_unpack(agg[..., :21]), agg[..., 21:]
+
+
 def gn_step(Ts, ae, target, weight, depth, intrinsics, radius: int = 32,
-            lm: float = 1e-4, ep: float = 10.0):
+            lm: float = 1e-4, ep: float = 10.0, impl: str = "auto",
+            bf16_scores: bool = False):
     """One damped GN update of the SE(3) field Ts (B,h,w,7); ae is scaled
     by 1/8 as in the reference (se3_field.py:150-170)."""
-    vals = build_vals(Ts, target, weight, depth, intrinsics)
-    dx = gn_fused_solve((ae / 8.0).contiguous(), vals.contiguous(), radius,
-                        lm, ep)
+    vals = build_vals(Ts, target, weight, depth, intrinsics).contiguous()
+    ae = (ae / 8.0).contiguous()
+    route, bf16 = _route(impl, radius, Ts.shape[2], bf16_scores)
+    if route == "fused":
+        dx = gn_fused_solve(ae, vals, radius, lm, ep, bf16)
+    else:
+        dx = damped_solve(_aggregate(ae, vals, radius, route, bf16), lm, ep)
     return se3.mul(se3.exp(dx), Ts)

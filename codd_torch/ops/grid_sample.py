@@ -23,11 +23,22 @@ def _gather_2d(img, ix, iy):
 
 def grid_sample(img, coords, mode: str = "bilinear",
                 padding_mode: str = "zeros"):
-    """Bilinearly sample img (B,H,W,C) at coords (B,*Q,2) = (x, y) pixels
-    with "zeros" or "border" padding.  Returns (B,*Q,C)."""
+    """Sample img (B,H,W,C) at coords (B,*Q,2) = (x, y) pixels, mode
+    "bilinear" or "nearest", with "zeros" or "border" padding.  Returns
+    (B,*Q,C)."""
     B, H, W, C = img.shape
     x = coords[..., 0]
     y = coords[..., 1]
+    if mode == "nearest":
+        # round half to even, like jnp.round and torch's nearbyint
+        xr = torch.round(x)
+        yr = torch.round(y)
+        out = _gather_2d(img, xr.clamp(0, W - 1).long(),
+                         yr.clamp(0, H - 1).long())
+        if padding_mode == "zeros":
+            valid = (xr >= 0) & (xr <= W - 1) & (yr >= 0) & (yr <= H - 1)
+            out = out * valid[..., None].to(img.dtype)
+        return out
     if mode != "bilinear":
         raise ValueError(f"unsupported mode: {mode}")
 

@@ -1,10 +1,12 @@
 """Build, load and count the hand-written CUDA kernels (``csrc/*.cu``).
 
-Each source is a self-contained ``sm_90a`` translation unit with a plain C
-launch function that returns its ``cudaError_t``.  ``load()`` compiles every
-source with its own ``nvcc`` process, all started together, into
+Each source is an ``sm_90a`` translation unit with a plain C launch
+function that returns its ``cudaError_t``; sources may share code through
+the headers in ``csrc/*.cuh``.  ``load()`` compiles every source with its
+own ``nvcc`` process, all started together, into
 ``<repo>/build/kernels/<name>-<content hash>.so`` and opens each library with
-``ctypes``; a library whose source is unchanged is reused.  Nothing is built
+``ctypes``; the hash covers the source and every header, so a library is
+reused only while both are unchanged.  Nothing is built
 or imported when this module is imported: the first CUDA launch builds.
 
 Launch counts: ``launch()`` adds one to a kernel's count each time it
@@ -39,10 +41,15 @@ KERNELS = {
     "corr_lookup": ("corr_lookup.cu", "corr_lookup_launch",
                     [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
     "gn_fused_solve": ("gn_fused.cu", "gn_fused_solve_launch",
-                       [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P]),
+                       [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P]),
     "splat_composite": ("splat_composite.cu", "splat_composite_launch",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _P]),
+    "gn_window_aggregate": ("gn_window.cu", "gn_window_aggregate_launch",
+                            [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "corr_patch_lookup": ("corr_patch.cu", "corr_patch_lookup_launch",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                           _P]),
 }
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -72,8 +79,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f"{src.stem}-{digest}.so"
+    """Library path keyed by the source and every shared header."""
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    return BUILD / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def load(verbose: bool = False) -> Dict[str, ctypes.CDLL]:

@@ -17,6 +17,10 @@ leaf kind:
 
 Input: a nested dict of numpy arrays, either the whole variables dict
 (``{"params": ..., "batch_stats": ...}``) or the ``params`` tree alone.
+The tree of a stereo-only or a stereo + motion ``codd_tpu`` model simply
+lacks the ``motion`` / ``fusion`` subtrees; the result loads strictly
+(``load_state_dict(strict=True)``) into the port's model built from the
+same config, and into no other.
 """
 
 from __future__ import annotations

@@ -236,3 +236,60 @@ def test_free_running_stream(slice_run):
             off = np.abs(a - b) > 1e-3 * (1 + np.abs(b))
             print(f"free-running frame {frame} {k}: share off {off.mean():.4f}")
             assert np.isfinite(a).all() and off.mean() < 0.35, (k, frame)
+
+
+# ---------------------------------------------------------------------------
+# the second runtime configuration: gn_impl="pallas_window", corr_impl="patch"
+# ---------------------------------------------------------------------------
+
+RUNTIME = dict(gn_impl="pallas_window", corr_impl="patch")
+
+
+@pytest.fixture(scope="module")
+def runtime_run():
+    """first_step + 2 steps with the same runtime on both sides,
+    teacher-forced.  At w/8 = 16 the windowed GN paths resolve to ``dense``
+    on both sides (test_torch_gn.py holds them at a width where they do
+    not); the patch lookup runs as such."""
+    rng = np.random.RandomState(1)
+    left = rng.rand(B, T_FRAMES, H, W, 3).astype(np.float32)
+    right = rng.rand(B, T_FRAMES, H, W, 3).astype(np.float32)
+    intr = np.array([[100.0, 100.0, W / 2, H / 2]], np.float32)
+    jm = JCODD(max_disp=64, iters=2, **RUNTIME)
+    variables = jax.jit(lambda k: jm.init(k, left[:, :2], right[:, :2],
+                                          intr))(jax.random.PRNGKey(0))
+    first = jax.jit(lambda v, l, r, i: jm.apply(v, l, r, i,
+                                                method=JCODD.first_step))
+    step = jax.jit(lambda v, c, l, r, i: jm.apply(v, c, l, r, i,
+                                                  method=JCODD.step))
+    np_ = lambda tree: jax.tree_util.tree_map(np.asarray,
+                                              jax.device_get(tree))
+    tm = TCODD(max_disp=64, iters=2, **RUNTIME).eval()
+    tm.load_state_dict(torch_state_dict_from_jax(np_(variables)), strict=True)
+    carry, out = first(variables, left[:, 0], right[:, 0], intr)
+    pairs = []
+    for t in range(1, T_FRAMES):
+        prev = {k: np.asarray(getattr(carry, k)) for k in CARRY}
+        carry, out = step(variables, carry, left[:, t], right[:, t], intr)
+        _, t_out = tm.step(CoddCarry(**{k: _t(v) for k, v in prev.items()}),
+                           _t(left[:, t]), _t(right[:, t]), _t(intr))
+        pairs.append((np_(out), t_out))
+    return tm, pairs
+
+
+@pytest.mark.parametrize("frame", [1, 2])
+def test_second_runtime_matches(runtime_run, frame):
+    """Everything not downstream of the splat agrees as in the default
+    configuration: rel 1e-4 after two GN iterations through bf16
+    correlations recomputed per lookup from bf16 features."""
+    tm, pairs = runtime_run
+    assert tm.motion.raft3d.pyramid_impl == "patch"
+    assert tm.motion.raft3d.gn_iter.gn_impl == "pallas_window"
+    j, t = pairs[frame - 1]
+    assert rel(t["pred_curr"], j["pred_curr"]) < 1e-5
+    for k in ("Ts", "flow2d_est_induced", "weight"):
+        assert t[k].shape == j[k].shape and rel(t[k], j[k]) < 1e-4, k
+    for k in ("pred_disp", "pred_warp"):
+        a, b = t[k].numpy(), j[k]
+        off = np.abs(a - b) > 1e-3 * (1 + np.abs(b))
+        assert np.isfinite(a).all() and off.mean() < 0.35, (k, off.mean())

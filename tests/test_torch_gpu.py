@@ -1,4 +1,4 @@
-"""The four CUDA kernels on the card: each against its plain PyTorch
+"""The six CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors, and a small streaming run whose launch
 counts show that every step went through them.  Marked ``gpu``; each test
 skips itself when there is no CUDA card (chip_smoke.py runs the same
@@ -63,9 +63,8 @@ def test_corr_lookup_kernel(dev):
         torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
 
 
-def test_gn_fused_kernel(dev):
+def _gn_inputs(dev, h=12, w=72):   # a partial 32-query block at the right
     g = _g()
-    h, w = 12, 72   # a partial 32-query block at the right edge
     depth = (torch.rand(1, h, w, generator=g) * 30 + 2).to(dev)
     intr = torch.tensor([[60.0, 60.0, w / 2, h / 2]], device=dev)
     Ts = se3.exp((torch.randn(1, h, w, 6, generator=g) * 0.01).to(dev))
@@ -73,10 +72,116 @@ def test_gn_fused_kernel(dev):
     weight = torch.rand(1, h, w, 3, generator=g).to(dev)
     vals = gn.build_vals(Ts, target, weight, depth, intr).contiguous()
     ae = (torch.randn(1, h, w, 32, generator=g) / 8).to(dev)
+    return ae, vals
+
+
+def test_gn_fused_kernel(dev):
+    ae, vals = _gn_inputs(dev)
     got = _launched("gn_fused_solve", lambda: gn.gn_fused_solve(ae, vals))
     ref = gn.gn_fused_solve_plain(ae, vals)
     torch.testing.assert_close(got, ref, atol=1e-5,
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gn_window_kernel(dev, bf16):
+    ae, vals = _gn_inputs(dev)
+    got = _launched("gn_window_aggregate",
+                    lambda: gn.gn_window_aggregate(ae, vals, 32, bf16))
+    ref = gn.gn_window_aggregate_plain(ae, vals, 32, bf16)
+    # ~800-term f32 sums in another order, relative to the largest sum;
+    # with bf16 scores a score on a rounding boundary may move by 2^-8 of
+    # its term
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, atol=(1e-3 if bf16 else 1e-5) * scale,
+                               rtol=1e-4)
+    # kernel 3 solves on the same sums
+    fused = _launched("gn_fused_solve",
+                      lambda: gn.gn_fused_solve(ae, vals, bf16_scores=bf16))
+    torch.testing.assert_close(fused, gn.damped_solve(got), atol=1e-5,
+                               rtol=1e-3)
+
+
+def test_gn_step_routes(dev):
+    """windowed / pallas_window launch kernel 5, auto / fused kernel 3,
+    dense neither; all agree."""
+    g = _g()
+    h, w = 8, 128
+    depth = (torch.rand(1, h, w, generator=g) * 30 + 2).to(dev)
+    intr = torch.tensor([[60.0, 60.0, w / 2, h / 2]], device=dev)
+    Ts = se3.exp((torch.randn(1, h, w, 6, generator=g) * 0.01).to(dev))
+    target = torch.randn(1, h, w, 3, generator=g).to(dev)
+    weight = torch.rand(1, h, w, 3, generator=g).to(dev)
+    ae = torch.randn(1, h, w, 32, generator=g).to(dev)
+    outs = {}
+    for impl, name in (("auto", "gn_fused_solve"), ("fused", "gn_fused_solve"),
+                       ("windowed", "gn_window_aggregate"),
+                       ("pallas_window", "gn_window_aggregate"),
+                       ("dense", None)):
+        kernels.reset_counts()
+        outs[impl] = gn.gn_step(Ts, ae, target, weight, depth, intr, impl=impl)
+        torch.cuda.synchronize()
+        want = {k: int(k == name) for k in kernels.KERNELS}
+        assert kernels.counts() == want, impl
+    for impl in outs:
+        torch.testing.assert_close(outs[impl], outs["dense"], atol=1e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gn_step_routes_at_every_width(dev, bf16):
+    """12x72 (w not a multiple of 32, where codd_tpu runs its dense form):
+    the kernels still launch, with f32 scores, and agree with dense."""
+    g = _g()
+    h, w = 12, 72
+    depth = (torch.rand(1, h, w, generator=g) * 30 + 2).to(dev)
+    intr = torch.tensor([[60.0, 60.0, w / 2, h / 2]], device=dev)
+    Ts = se3.exp((torch.randn(1, h, w, 6, generator=g) * 0.01).to(dev))
+    target = torch.randn(1, h, w, 3, generator=g).to(dev)
+    weight = torch.rand(1, h, w, 3, generator=g).to(dev)
+    ae = torch.randn(1, h, w, 32, generator=g).to(dev)
+    assert gn.resolve_impl("windowed", 32, w) == "dense"
+    dense = gn.gn_step(Ts, ae, target, weight, depth, intr, impl="dense")
+    for impl, name in (("auto", "gn_fused_solve"), ("fused", "gn_fused_solve"),
+                       ("windowed", "gn_window_aggregate"),
+                       ("pallas_window", "gn_window_aggregate")):
+        kernels.reset_counts()
+        out = gn.gn_step(Ts, ae, target, weight, depth, intr, impl=impl,
+                         bf16_scores=bf16)
+        torch.cuda.synchronize()
+        want = {k: int(k == name) for k in kernels.KERNELS}
+        assert kernels.counts() == want, impl
+        torch.testing.assert_close(out, dense, atol=1e-5, rtol=1e-4)
+
+
+def test_corr_patch_kernel(dev):
+    g = _g()
+    f1, f2 = (torch.randn(2, 12, 20, 128, generator=g).to(dev)
+              for _ in range(2))
+    pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
+    coords = (torch.rand(2, 12, 20, 2, generator=g) * 40 - 10).to(dev)
+    coords[:, 0, 0] = torch.tensor([3.0, 4.0], device=dev)
+    coords[:, 0, 1] = torch.tensor([-30.0, 2.0], device=dev)
+    for lvl, f2p in enumerate(pyr["levels"]):
+        got = _launched("corr_patch_lookup",
+                        lambda: corr.corr_patch_lookup_level(
+                            pyr["f1"], f2p, coords, 3, 1.0 / 2 ** lvl))
+        ref = corr.corr_patch_lookup_level_plain(pyr["f1"], f2p,
+                                                 coords / 2 ** lvl, 3)
+        # f32 sums of 128 exact products in another order
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+    kernels.reset_counts()
+    out = corr.corr_lookup(pyr, coords, 3)
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_patch_lookup"] == 4
+    assert kernels.counts()["corr_lookup"] == 0 and out.shape[-1] == 196
+    bad = {"f1": pyr["f1"][..., :64].contiguous(),
+           "levels": [l[..., :64].contiguous() for l in pyr["levels"]]}
+    with pytest.raises(ValueError):
+        corr.corr_lookup(bad, coords, 3)
+    with pytest.raises(NotImplementedError):
+        corr.corr_patch_lookup_level(pyr["f1"], pyr["levels"][0],
+                                     coords.clone().requires_grad_(), 3)
 
 
 def test_splat_composite_kernel(dev):
@@ -110,5 +215,45 @@ def test_streaming_goes_through_the_kernels(dev):
     torch.cuda.synchronize()
     # 9 tile warps a frame; 4 corr levels, 1 GN solve an iteration; 2 splats
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 16,
-                                "gn_fused_solve": 4, "splat_composite": 4}
+                                "gn_fused_solve": 4, "splat_composite": 4,
+                                "gn_window_aggregate": 0,
+                                "corr_patch_lookup": 0}
     assert torch.isfinite(out["pred_disp"]).all()
+
+
+def test_eval_path_goes_through_kernels_5_and_6(dev):
+    """run_inference with gn_impl="pallas_window", corr_impl="patch" at a
+    width where the windowed path applies (w/8 = 128)."""
+    import numpy as np
+    from codd_torch.apis.inference import run_inference
+
+    model = CODD(max_disp=64, iters=2, gn_impl="pallas_window",
+                 corr_impl="patch").to(dev).eval()
+    rng = np.random.RandomState(0)
+    T, H, W = 3, 64, 1024
+
+    class OneClip:
+        def __len__(self):
+            return 1
+
+        def __getitem__(self, i):
+            return {"imgs": rng.rand(T, H, W, 3).astype(np.float32),
+                    "r_imgs": rng.rand(T, H, W, 3).astype(np.float32),
+                    "gt_disp": rng.uniform(2, 40, (T, H, W, 1)
+                                           ).astype(np.float32),
+                    "gt_flow": rng.uniform(-2, 2, (T, H, W, 2)
+                                           ).astype(np.float32),
+                    "gt_disp_change": np.zeros((T, H, W, 1), np.float32),
+                    "meta": {"filename": "clip/0000.png",
+                             "img_shape": (H, W), "disp_range": (1.0, 210.0),
+                             "intrinsics": [100.0, 100.0, W / 2, H / 2]}}
+
+    kernels.reset_counts()
+    metrics = run_inference(model, OneClip(), evaluate=True,
+                            log=lambda *_: None)
+    assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 0,
+                                "gn_fused_solve": 0, "splat_composite": 4,
+                                "gn_window_aggregate": 4,
+                                "corr_patch_lookup": 16}
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert metrics["count"] > 0

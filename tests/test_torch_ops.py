@@ -19,13 +19,17 @@ from codd_tpu.ops.grid_sample import grid_sample as jgrid
 from codd_tpu.ops import projective as jproj
 from codd_tpu.ops import se3 as jse3
 from codd_tpu.ops import upsample as jup
+from codd_tpu.ops import metrics as jmetrics
 from codd_tpu.ops import warp as jwarp
+from codd_tpu.utils import masks as jmasks
 from codd_torch.models import layers as tlayers
 from codd_torch.ops.grid_sample import grid_sample as tgrid
 from codd_torch.ops import projective as tproj
 from codd_torch.ops import se3 as tse3
 from codd_torch.ops import upsample as tup
+from codd_torch.ops import metrics as tmetrics
 from codd_torch.ops import warp as twarp
+from codd_torch.utils import masks as tmasks
 from codd_torch.utils.params import torch_state_dict_from_jax
 
 
@@ -191,3 +195,91 @@ def test_projective():
                     jproj.induced_flow(jnp.asarray(Ts), jnp.asarray(depth),
                                        jnp.asarray(intr))):
         close(a, b, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_grid_sample_nearest_rounds_half_to_even(padding):
+    """Nearest mode gathers, so the two sides are equal exactly; ties at
+    .5 coordinates round half to even on both (0.5 -> 0, 1.5 -> 2), also
+    at the borders (-0.5 -> -0 inside, W - 0.5 -> W outside or W - 1)."""
+    rng = np.random.RandomState(0)
+    img = rng.randn(2, 6, 9, 3).astype(np.float32)
+    halves = np.arange(-3, 24, dtype=np.float32) / 2.0 - 0.5
+    xs, ys = np.meshgrid(halves, halves[:18])
+    coords = np.broadcast_to(np.stack([xs, ys], -1)[None],
+                             (2,) + xs.shape + (2,)).astype(np.float32).copy()
+    assert (np.modf(coords)[0] != 0).any() and (coords % 1 == 0.5).any()
+    coords[1] += rng.uniform(-3, 3, coords[1].shape).astype(np.float32)
+    ref = jgrid(jnp.asarray(img), jnp.asarray(coords), mode="nearest",
+                padding_mode=padding)
+    got = tgrid(T(img), T(coords), mode="nearest", padding_mode=padding)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    with pytest.raises(ValueError):
+        tgrid(T(img), T(coords), mode="bicubic")
+
+
+def test_flow_warp_nearest():
+    rng = np.random.RandomState(1)
+    img = rng.randn(1, 8, 12, 4).astype(np.float32)
+    flow = rng.uniform(-4, 4, (1, 8, 12, 2)).astype(np.float32)
+    flow[0, :4] = np.round(flow[0, :4] * 2) / 2   # exact halves and integers
+    jw, jv = jwarp.flow_warp(jnp.asarray(img), jnp.asarray(flow),
+                             padding_mode="zeros", mode="nearest")
+    tw, tv = twarp.flow_warp(T(img), T(flow), padding_mode="zeros",
+                             mode="nearest")
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert 0 < tv.float().mean() < 1
+
+
+def test_metrics_match():
+    """Masked means of the same f32 terms; the sums run in another order
+    (rtol 1e-5)."""
+    rng = np.random.RandomState(2)
+    a, b, c, d = (rng.uniform(0, 20, (1, 16, 24, 1)).astype(np.float32)
+                  for _ in range(4))
+    m0 = rng.rand(1, 16, 24, 1) > 0.3
+    m1 = rng.rand(1, 16, 24, 1) > 0.3
+    J = jnp.asarray
+    close(tmetrics.masked_mean(T(a), torch.from_numpy(m0)),
+          jmetrics.masked_mean(J(a), J(m0)))
+    close(tmetrics.masked_mean(T(a), torch.zeros(a.shape, dtype=torch.bool)),
+          0.0)
+    close(tmetrics.epe_metric(T(a), T(b), torch.from_numpy(m0)),
+          jmetrics.epe_metric(J(a), J(b), J(m0)))
+    close(tmetrics.thres_metric(T(a), T(b), torch.from_numpy(m0), 3.0),
+          jmetrics.thres_metric(J(a), J(b), J(m0), 3.0))
+    got = tmetrics.t_epe_metric(T(a), T(b), T(c), T(d), torch.from_numpy(m0),
+                                torch.from_numpy(m1))
+    ref = jmetrics.t_epe_metric(J(a), J(b), J(c), J(d), J(m0), J(m1))
+    for g, r in zip(got, ref):
+        close(g, r)
+    depth = rng.uniform(1, 5, (10, 14)).astype(np.float32)
+    close(tmetrics.depth2normal(T(depth)), jmetrics.depth2normal(J(depth)))
+
+
+def test_masks_match():
+    rng = np.random.RandomState(3)
+    shape = (1, 12, 20, 1)
+    disp = rng.uniform(0, 230, shape).astype(np.float32)
+    disp2 = rng.uniform(0, 60, shape).astype(np.float32)
+    seg = (rng.rand(*shape) > 0.2).astype(np.float32)
+    flow = rng.uniform(-200, 200, (1, 12, 20, 2)).astype(np.float32)
+    change = rng.uniform(-300, 300, shape).astype(np.float32)
+    occ = rng.rand(*shape) > 0.8
+    J = jnp.asarray
+    assert tmasks.BF_DEFAULT == jmasks.BF_DEFAULT
+    for kw in ({}, {"gt_semantic_seg": seg}, {"gt_flow_prev": flow},
+               {"gt_semantic_seg": seg, "gt_flow_prev": flow,
+                "gt_disp_change": change}):
+        ref = jmasks.compute_valid_mask(J(disp), (1.0, 210.0),
+                                        **{k: J(v) for k, v in kw.items()})
+        got = tmasks.compute_valid_mask(T(disp), (1.0, 210.0),
+                                        **{k: T(v) for k, v in kw.items()})
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    small = (flow / 40).astype(np.float32)
+    ref = jmasks.compute_gt_disp_change(J(occ), J(disp), J(disp2), J(small))
+    got = tmasks.compute_gt_disp_change(torch.from_numpy(occ), T(disp),
+                                        T(disp2), T(small))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))

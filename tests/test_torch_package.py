@@ -16,12 +16,17 @@ from codd_torch.models.builder import RUNTIME_DEFAULTS, build_estimator
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = ROOT / "configs" / "models" / "codd.py"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "codd_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "codd_tpu")
 
 
 def _port_files():
     files = sorted((ROOT / "codd_torch").rglob("*.py"))
-    assert len(files) > 15
+    names = {str(f.relative_to(ROOT / "codd_torch")) for f in files}
+    # the scan must reach every subpackage of the port
+    assert {"apis/evaluation.py", "apis/inference.py", "data/datasets.py",
+            "data/io.py", "tools/inference.py", "utils/checkpoint.py",
+            "models/motion/others.py", "models/fusion/others.py",
+            "ops/metrics.py", "utils/masks.py"} <= names, names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -68,30 +73,106 @@ def test_build_estimator_needs_cuda_unless_cpu(monkeypatch):
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-@pytest.mark.parametrize("runtime,err", [
-    ({"gn_impl": "fused"}, NotImplementedError),
-    ({"tile_warp_variant": "pallas"}, NotImplementedError),
-    ({"corr_impl": "patch"}, NotImplementedError),
-    ({"splat_impl": "pallas"}, NotImplementedError),
-    ({"pixel_center_offset": -0.5}, NotImplementedError),
-    ({"gn_impll": "auto"}, ValueError),
+def _cfg(name="codd.py", **over):
+    return dict(load_config(str(ROOT / "configs" / "models" / name))["model"],
+                **over)
+
+
+@pytest.mark.parametrize("runtime", [
+    {"gn_impl": "fused"},
+    {"gn_impl": "pallas_window", "gn_bf16_scores": True},
+    {"gn_impl": "windowed"},
+    {"gn_impl": "dense"},
+    {"tile_warp_variant": "pallas"},
+    {"tile_warp_variant": "tilewin", "init_cost_variant": "phases"},
+    {"corr_impl": "patch"},
+    {"corr_impl": "volume_pallas"},
+    {"splat_impl": "pallas", "splat_impl_lr": "xla_window",
+     "splat_impl_train": "xla_sort_window"},
+    {"pixel_center_offset": -0.5, "gn_unroll": 4},
 ])
-def test_runtime_knobs_are_strict(runtime, err):
-    cfg = dict(load_config(str(CFG))["model"])
-    cfg["runtime"] = runtime
-    with pytest.raises(err):
-        build_estimator(cfg, device="cpu", seed=None)
+def test_runtime_knobs_are_strict(runtime):
+    """Every value codd_tpu accepts builds, in both packages."""
+    from codd_tpu.models.builder import build_estimator as jax_build
+    cfg = _cfg(runtime=runtime)
+    jm = jax_build(cfg)
+    tm = build_estimator(cfg, device="cpu", seed=None)
+    raft = tm.motion.raft3d
+    assert raft.gn_iter.gn_impl == jm.gn_impl
+    assert raft.gn_iter.gn_bf16_scores == jm.gn_bf16_scores
+    assert raft.pyramid_impl == ("patch" if jm.corr_impl == "patch"
+                                 else "volume")
+    assert tm.motion.pixel_center_offset == jm.pixel_center_offset
+    # validated only: no training path reads it yet
+    assert not hasattr(tm, "splat_impl_train")
 
 
-def test_defaults_and_other_types():
-    cfg = dict(load_config(str(CFG))["model"])
-    cfg["runtime"] = dict(RUNTIME_DEFAULTS)
-    build_estimator(cfg, device="cpu", seed=None)
-    for key, val in (("motion", {"type": "GTMotion"}),
-                     ("fusion", {"type": "KalmanFusion"}), ("fusion", None)):
-        bad = dict(cfg, **{key: val})
-        with pytest.raises(NotImplementedError):
-            build_estimator(bad, device="cpu", seed=None)
+@pytest.mark.parametrize("runtime", [
+    {"gn_impll": "auto"},            # unknown key
+    {"gn_impl": "flash"},            # unknown values
+    {"corr_impl": "volumes"},
+    {"tile_warp_variant": "fast"},
+    {"init_cost_variant": "x"},
+    {"splat_impl": "cuda"},
+    {"splat_impl_train": ""},
+    {"gn_unroll": 0},
+    {"gn_bf16_scores": "yes"},
+    {"pixel_center_offset": "half"},
+])
+def test_runtime_unknown_key_or_value_raises(runtime):
+    with pytest.raises(ValueError):
+        build_estimator(_cfg(runtime=runtime), device="cpu", seed=None)
+
+
+@pytest.mark.parametrize("over,mtype,ftype", [
+    ({"runtime": dict(RUNTIME_DEFAULTS)}, "Motion", "Fusion"),
+    ({"motion": {"type": "GTMotion"}}, "GTMotion", "Fusion"),
+    ({"fusion": {"type": "KalmanFusion"}}, "Motion", "KalmanFusion"),
+    ({"fusion": {"type": "GTFusion"}, "motion": {"type": "GTMotion"}},
+     "GTMotion", "GTFusion"),
+    ({"fusion": {"type": "NullFusion"}}, "Motion", "NullFusion"),
+    ({"fusion": None}, "Motion", "none"),
+    ({"motion": None, "fusion": None}, "none", "none"),
+])
+def test_defaults_and_other_types(over, mtype, ftype):
+    model = build_estimator(_cfg(**over), device="cpu", seed=None)
+    assert (model.motion_type, model.fusion_type) == (mtype, ftype)
+    assert hasattr(model, "motion") == (mtype == "Motion")
+    assert hasattr(model, "fusion") == (ftype == "Fusion")
+
+
+def test_unknown_types_raise():
+    for over in ({"motion": {"type": "RAFT"}}, {"fusion": {"type": "Mean"}}):
+        with pytest.raises(ValueError):
+            build_estimator(_cfg(**over), device="cpu", seed=None)
+
+
+@pytest.mark.parametrize("name,mtype,ftype", [
+    ("codd.py", "Motion", "Fusion"), ("stereo.py", "none", "none"),
+    ("stereo_motion.py", "Motion", "none")])
+def test_model_configs_build_like_codd_tpu(name, mtype, ftype):
+    from codd_tpu.models.builder import build_estimator as jax_build
+    cfg = _cfg(name)
+    jm = jax_build(cfg)
+    tm = build_estimator(cfg, device="cpu", seed=None)
+    assert (tm.motion_type, tm.fusion_type) == (mtype, ftype)
+    assert (jm.motion_type, jm.fusion_type) == (mtype, ftype)
+    assert tm.stereo.tile_init.max_disp == jm.max_disp == 320
+
+
+def test_kernel_library_key_covers_headers(tmp_path, monkeypatch):
+    """A change to a shared header must change the built library's name."""
+    from codd_torch.ops import kernels
+    src = tmp_path / "k.cu"
+    src.write_text('#include "c.cuh"\n')
+    (tmp_path / "c.cuh").write_text("// a\n")
+    before = kernels._lib_path(src)
+    assert kernels._lib_path(src) == before
+    (tmp_path / "c.cuh").write_text("// b\n")
+    assert kernels._lib_path(src) != before
+    assert {"gn_window_aggregate", "corr_patch_lookup"} <= set(kernels.KERNELS)
+    for name, (source, _, _) in kernels.KERNELS.items():
+        assert (kernels.CSRC / source).exists(), name
 
 
 @pytest.mark.parametrize("name", ["models/codd.py", "inference_config.py",
@@ -100,3 +181,45 @@ def test_config_loader_matches_codd_tpu(name):
     path = str(ROOT / "configs" / name)
     opts = ["model.motion.iters=4", "data.tag=x"]
     assert dict(load_config(path, opts)) == dict(jax_load_config(path, opts))
+
+
+@pytest.fixture(scope="module")
+def jax_variable_shapes():
+    """Variable trees of the three model kinds, by shape only
+    (``jax.eval_shape``: no compile), filled with seeded numbers."""
+    import jax.numpy as jnp
+    import numpy as np
+    from codd_tpu.models.builder import build_estimator as jax_build
+    z = jnp.zeros((1, 2, 64, 128, 3))
+    intr = jnp.zeros((1, 4))
+    rng = np.random.RandomState(0)
+    out = {}
+    for name in ("codd.py", "stereo.py", "stereo_motion.py"):
+        jm = jax_build(_cfg(name))
+        shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), z, z, intr)
+        out[name] = jax.tree_util.tree_map(
+            lambda s: rng.rand(*s.shape).astype(np.float32), shapes)
+    return out
+
+
+@pytest.mark.parametrize("name", ["codd.py", "stereo.py", "stereo_motion.py"])
+def test_weights_carry_for_every_model_kind(jax_variable_shapes, name):
+    """A stereo-only, a stereo + motion and a full codd_tpu variable tree
+    each load strictly into the port's model of the same config (a missing
+    motion / fusion subtree is legal exactly when the model has none); a
+    tree of another kind does not."""
+    import numpy as np
+    from codd_torch.utils.params import torch_state_dict_from_jax
+    variables = jax_variable_shapes[name]
+    tm = build_estimator(_cfg(name), device="cpu", seed=None)
+    sd = torch_state_dict_from_jax(variables)
+    tm.load_state_dict(sd, strict=True)
+    top = {k.split(".")[0] for k in sd}
+    assert top == {"stereo"} | ({"motion"} if hasattr(tm, "motion") else set()) \
+        | ({"fusion"} if hasattr(tm, "fusion") else set())
+    got = tm.state_dict()
+    assert all(np.array_equal(got[k].numpy(), v.numpy()) for k, v in sd.items())
+    other = "stereo.py" if name != "stereo.py" else "codd.py"
+    with pytest.raises(RuntimeError):
+        tm.load_state_dict(
+            torch_state_dict_from_jax(jax_variable_shapes[other]), strict=True)
