@@ -3,10 +3,13 @@
 // sm_90a, f32 (optionally bf16-rounded scores and values).
 //
 // Replaces codd_tpu/ops/pallas/gn_fused.py:gn_fused_solve.  The
-// aggregation is gn_common.cuh's (one block per 32-query row segment,
-// 8 warps splitting the key columns, fixed-order sums); its epilogue damps
-// H += (lm*diag(H) + ep) I, solves H dx = b and zeroes a non-finite dx.
-// Bound by operations; see codd_torch/ops/gn.py.
+// aggregation is gn_common.cuh's: a block of 16 x 2 queries, two mma.sync
+// m-tiles of five warps each, key rows staged by the copy engine
+// (cp.async.bulk) through a ring of three buffers, both products in split
+// TF32 (or bf16 for the second) with the f32 norms outside, fixed-order
+// sums.  Its epilogue damps H += (lm*diag(H) + ep) I, solves H dx = b and
+// zeroes a non-finite dx, one thread a query.  Bound by the warp schedulers
+// around the mma.sync pipe; see gn_common.cuh and codd_torch/ops/gn.py.
 #include "gn_common.cuh"
 
 __device__ __forceinline__ int tri(int i, int j) {
@@ -15,7 +18,8 @@ __device__ __forceinline__ int tri(int i, int j) {
   return i * 6 - i * (i - 1) / 2 + (j - i);
 }
 
-// warp 0's epilogue: damp, solve, zero a non-finite update, store
+// the epilogue, one thread a query: damp, solve, zero a non-finite update,
+// store
 struct DampedSolve {
   float* out;
   int h, w;
@@ -66,12 +70,12 @@ struct DampedSolve {
 };
 
 template <bool BF16>
-__global__ void __launch_bounds__(QX * G)
+__global__ void __launch_bounds__(GN_THREADS, 2)
 gn_fused_solve_kernel(const float* __restrict__ ae,
                       const float* __restrict__ vals,
                       float* __restrict__ out, int h, int w, int R,
                       float lm, float ep) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   gn_window_sums<BF16>(ae, vals, smem, h, w, R,
                        DampedSolve{out, h, w, lm, ep});
 }
@@ -84,8 +88,13 @@ static int launch(const void* ae, const void* vals, void* out, int B, int h,
       gn_fused_solve_kernel<BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + QX - 1) / QX, h, B);
-  gn_fused_solve_kernel<BF16><<<grid, QX * G, bytes, (cudaStream_t)stream>>>(
+  // two blocks an SM need more than the default split of L1 and shared memory
+  err = cudaFuncSetAttribute(gn_fused_solve_kernel<BF16>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid = gn_grid(B, h, w);
+  gn_fused_solve_kernel<BF16><<<grid, GN_THREADS, bytes, (cudaStream_t)stream>>>(
       (const float*)ae, (const float*)vals, (float*)out, h, w, R, lm, ep);
   return (int)cudaGetLastError();
 }

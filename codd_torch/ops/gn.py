@@ -21,18 +21,30 @@ Two kernels share one aggregation (``csrc/gn_common.cuh``):
   ``damped_solve`` runs in PyTorch, as ``codd_tpu`` solves in XLA on that
   path.
 
-On the H100 both are bound by operations: at 48x160 each query meets up to
-65x65 keys, ~130 f32 flops each (a 32-wide dot, a sigmoid, 27
-multiply-adds), ~3 GFLOP per call against 2 MB of operands.  One block
-per 32-query row segment streams the key rows of its 65-row window
-through shared memory, where every warp reads one key at a time as a
-broadcast; eight warps split the columns of a row and sum their partials
-in a fixed order.  The logits are ``2 q.k - |q|^2 - |k|^2`` with the norms
-subtracted outside the dot product, as in the oracle: folding them into
-the product is what failed on the TPU (``gn_fused.py:37-47``,
-``codd_tpu/ops/gn.py:181-194``).  With ``bf16_scores`` the sigmoid score
-and the value are rounded to bf16 before their product and the sum stays
-f32 (``gn_window.py:96-100``, ``codd_tpu/ops/gn.py:310-313``).
+The work is two small matrix products around a sigmoid, S = Q K^T and
+A = sigmoid(S) V: at 48x160 each query meets up to 65x65 keys, ~2.4 GFLOP
+per call against 2 MB of operands.  Both run on the tensor cores
+(``mma.sync``).  A block takes 16 query columns of 2 rows, one 16-row mma
+tile a row, five warps a tile, which take the 16-key chunks of a staged
+key row in turn; 2R+1 of the 2R+16 staged columns are in a query's window
+and only the chunks at a row's ends are masked (``tiling_pairs``).  Key
+rows arrive through a ring of three shared-memory buffers, filled by the
+copy engine (``cp.async.bulk`` on an mbarrier) two rows ahead.  f32
+accuracy on TF32 tensor cores comes from splitting every operand into a
+TF32 high and low part and adding three products (lo.hi + hi.lo + hi.hi).
+The logits are ``2 q.k - |q|^2 - |k|^2`` with the f32 norms subtracted
+outside the product, as in the oracle: folding them into the product is
+what failed on the TPU (``gn_fused.py:37-47``,
+``codd_tpu/ops/gn.py:181-194``).  The sigmoid runs on the accumulator
+fragment in registers, which then is the first operand of the second
+product.  With ``bf16_scores`` the sigmoid score and the value are rounded
+to bf16 before their product (one bf16 mma, exact in its f32 sum) and the
+sum stays f32 (``gn_window.py:96-100``, ``codd_tpu/ops/gn.py:310-313``).
+The partial sums of a tile's five warps are added in a fixed order, so a
+launch gives the same bits every time.  What bounds the kernels now is
+the warp schedulers' work around the mma pipe (splits, sigmoid, masks,
+fragment loads), at about three times the operations bound; see
+``csrc/gn_common.cuh``.
 
 The plain versions aggregate over the dense masked (n, n) score matrix,
 which is ``codd_tpu``'s ``dense`` path and equals its ``windowed`` path.
@@ -57,10 +69,13 @@ from .projective import inv_project, project
 __all__ = ["gn_step", "build_system", "resolve_impl", "gn_fused_solve",
            "gn_fused_solve_plain", "gn_window_aggregate",
            "gn_window_aggregate_plain", "cholesky_solve_small", "build_vals",
-           "sym_pack", "sym_unpack", "damped_solve", "GN_IMPLS"]
+           "sym_pack", "sym_unpack", "damped_solve", "tiling_pairs",
+           "GN_IMPLS"]
 
 GN_IMPLS = ("auto", "fused", "windowed", "pallas_window", "dense")
 _GN_BLOCK = 32  # codd_tpu's column block: the windowed paths need r == 32
+_GN_QX = 16     # query columns of a block of csrc/gn_common.cuh (its QX)
+_GN_CHUNK = 16  # keys a warp of it takes at a time (its CHUNK)
 
 _TRI = [(i, j) for i in range(6) for j in range(i, 6)]
 
@@ -184,7 +199,25 @@ def _check_gn(name, ae, vals):
     if C != 32 or tuple(vals.shape) != (B, h, w, 27):
         raise ValueError(f"{name}: bad shapes ae {tuple(ae.shape)} "
                          f"vals {tuple(vals.shape)} (needs C == 32)")
+    if ae.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError(f"{name}: ae or vals is not 16-byte aligned (the "
+                         "kernel stages their rows as 16-byte copies)")
     return B, h, w
+
+
+def tiling_pairs(h: int, w: int, radius: int = 32) -> int:
+    """Query-key pairs the CUDA aggregation evaluates on an (h, w) field:
+    every tile of ``_GN_QX`` queries of a row meets each staged column, in
+    whole chunks of ``_GN_CHUNK``, of each row of its window, inside a
+    query's own window or masked.  Against the useful pairs this is the
+    share of its work the tiling throws away."""
+    rows = sum(min(y + radius, h - 1) - max(y - radius, 0) + 1
+               for y in range(h))
+    cols = 0
+    for x0 in range(0, w, _GN_QX):
+        nk = min(x0 + _GN_QX - 1 + radius, w - 1) - max(x0 - radius, 0) + 1
+        cols += -(-nk // _GN_CHUNK) * _GN_CHUNK
+    return _GN_QX * rows * cols
 
 
 def gn_fused_solve(ae, vals, radius: int = 32, lm: float = 1e-4,

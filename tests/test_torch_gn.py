@@ -3,7 +3,9 @@ plain versions against codd_tpu's ``dense`` path (what ``gn_impl="auto"``
 takes at these small widths), its ``windowed`` path (``auto`` at w8 > 96)
 and the Pallas ``gn_fused_solve`` / ``gn_window_aggregate`` in interpret
 mode, and ``gn_step`` for every ``impl``.  The CUDA kernels are held
-against the plain versions in test_torch_gpu.py."""
+against the plain versions in test_torch_gpu.py; the arithmetic of their
+tensor-core products (f32 operands split into TF32 halves) is emulated
+here, rounding by rounding, to size its error without a card."""
 
 import numpy as np
 import pytest
@@ -23,18 +25,18 @@ def T(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _field(h, w, seed=0):
+def _field(h, w, seed=0, B=1):
     rng = np.random.RandomState(seed)
-    intr = np.array([[90.0, 90.0, w / 2, h / 2]], np.float32)
-    depth = rng.uniform(2.0, 40.0, (1, h, w)).astype(np.float32)
-    Ts = np.asarray(jse3.exp(jnp.asarray(rng.randn(1, h, w, 6) * 0.01,
+    intr = np.tile(np.array([[90.0, 90.0, w / 2, h / 2]], np.float32), (B, 1))
+    depth = rng.uniform(2.0, 40.0, (B, h, w)).astype(np.float32)
+    Ts = np.asarray(jse3.exp(jnp.asarray(rng.randn(B, h, w, 6) * 0.01,
                                          jnp.float32)))
-    target = (rng.randn(1, h, w, 3) * 0.5).astype(np.float32)
+    target = (rng.randn(B, h, w, 3) * 0.5).astype(np.float32)
     target[..., 0] += np.arange(w)
     target[..., 1] += np.arange(h)[:, None]
     target[..., 2] = 1.0 / depth
-    weight = rng.rand(1, h, w, 3).astype(np.float32)
-    ae = (rng.randn(1, h, w, 32) * 0.5).astype(np.float32)
+    weight = rng.rand(B, h, w, 3).astype(np.float32)
+    ae = (rng.randn(B, h, w, 32) * 0.5).astype(np.float32)
     return Ts, ae, target, weight, depth, intr
 
 
@@ -199,3 +201,137 @@ def test_gn_step_where_codd_tpu_resolves_to_dense(impl):
                                  bf16_scores=True))
     got = tgn.gn_step(*(T(a) for a in arrs), impl=impl, bf16_scores=True)
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA aggregation's tensor-core products, emulated in PyTorch.  The
+# tensor cores take TF32 operands (10 mantissa bits; they ignore the 13 low
+# bits of what they are given) and add exact products in f32, so an f32
+# operand goes in as x = hi + lo, hi = x rounded to TF32, lo = x - hi rounded
+# to TF32, and a product a.b as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi ("3xTF32":
+# lo.lo, 2^-22 of the product, is dropped).  A product of two TF32 values is
+# exact in f32, so an f32 bmm of such operands is the tensor core's sum up to
+# its order.
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """f32 -> TF32: to nearest, ties away from zero (cvt.rna)."""
+    bits = x.contiguous().view(torch.int32) + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_split(a, b, products):
+    """bmm(a, b) from split operands, the small terms first."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if products == 1:
+        return torch.bmm(ah, bh)
+    return (torch.bmm(al, bh) + torch.bmm(ah, bl)) + torch.bmm(ah, bh)
+
+
+def _aggregate_split(ae, vals, radius, bf16, products=3):
+    """gn_window_aggregate_plain's function with both products in split
+    TF32 (``products`` 3) or plain TF32 (1), the f32 norms outside the dot;
+    with ``bf16`` the second product takes bf16 operands (exact in f32)."""
+    B, h, w, C = ae.shape
+    n = h * w
+    q = ae.reshape(B, n, C)
+    sq = torch.sum(q * q, -1)
+    logits = (2.0 * _mm_split(q, q.transpose(1, 2).contiguous(), products)
+              - sq[:, :, None] - sq[:, None, :])
+    ys, xs = torch.arange(n) // w, torch.arange(n) % w
+    inside = (((ys[:, None] - ys[None, :]).abs() <= radius)
+              & ((xs[:, None] - xs[None, :]).abs() <= radius))
+    p = torch.sigmoid(logits) * inside[None].float()
+    v = vals.reshape(B, n, 27)
+    if bf16:
+        agg = torch.bmm(p.bfloat16().float(), v.bfloat16().float())
+    else:
+        agg = _mm_split(p, v, products)
+    return agg.reshape(B, h, w, 27)
+
+
+def _embeddings(kind, scale, h, w, rng):
+    """``random``: iid N(0, scale^2), so at scale >= 1 only a query's own
+    term survives and its logit is the bare cancellation 2 q.q - 2 |q|^2.
+    ``smooth``: one direction of that size plus a 0.05 ripple, so thousands
+    of terms with logits near 0 ride on norms of 32 scale^2."""
+    if kind == "random":
+        ae = scale * rng.randn(1, h, w, 32)
+    else:
+        ae = scale * rng.randn(1, 1, 1, 32) + 0.05 * rng.randn(1, h, w, 32)
+    return T(ae)
+
+
+def _split_case(kind, scale, seed=11, h=12, w=72):
+    rng = np.random.RandomState(seed)
+    ae = _embeddings(kind, scale, h, w, rng)
+    # 27 columns spread over five decades, as sym_pack(J^T W J) | J^T W r is
+    vals = T(rng.randn(1, h, w, 27) * np.logspace(-2, 3, 27))
+    absum = tgn.gn_window_aggregate_plain(ae, vals.abs())
+    # Whatever computes 2 q.k - |q|^2 - |k|^2 in f32 rounds three terms of
+    # size |q|^2 + |k|^2, and the plain version's own sums stand that far
+    # from an f64 evaluation (1.8e-4 of the sum of |terms| at scale 4,
+    # 1e-7 at 1/8).  A logit off by d moves its term by at most d of
+    # itself, so 8 ulp of 2 max|q|^2 is allowed beside the flat share; at
+    # the model's scale (1/8) that adds 5e-7 to the 1e-5.
+    noise = 8 * 2.0 ** -24 * 2 * float((ae * ae).sum(-1).max())
+    return ae, vals, absum, noise
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("scale", [0.125, 1.0, 4.0])
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_split_tf32_products_keep_the_sums(kind, scale, bf16):
+    """Each of the 27 sums from 3xTF32 logits and a split (or bf16) second
+    product stays within 1e-5 (bf16 scores: 2^-12) of its sum of |terms|,
+    plus the f32 rounding of the logit itself, of the plain version and of
+    an f64 evaluation; a fourth product (lo.lo) is not needed."""
+    ae, vals, absum, noise = _split_case(kind, scale)
+    got = _aggregate_split(ae, vals, 32, bf16)
+    ref = tgn.gn_window_aggregate_plain(ae, vals, 32, bf16)
+    tol = ((2.0 ** -12 if bf16 else 1e-5) + noise) * absum
+    assert (torch.abs(got - ref) <= tol).all()
+    if not bf16:
+        exact = tgn.gn_window_aggregate_plain(ae.double(), vals.double(), 32)
+        assert (torch.abs(got.double() - exact) <= tol).all()
+
+
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_single_tf32_breaks_the_sums_at_scale_4(kind):
+    """The guard: one TF32 product for the logits (no split) is out by
+    orders of magnitude more than the bound at scale 4, where
+    |q|^2 ~ 512 meets a 2^-11 rounding of every operand."""
+    ae, vals, absum, noise = _split_case(kind, 4.0)
+    got = _aggregate_split(ae, vals, 32, False, products=1)
+    ref = tgn.gn_window_aggregate_plain(ae, vals, 32)
+    ratio = torch.abs(got - ref) / ((1e-5 + noise) * absum)
+    assert float(ratio.max()) > 10.0
+
+
+@pytest.mark.parametrize("h,w,radius,B", [(5, 19, 3, 2), (9, 40, 32, 1),
+                                          (12, 72, 32, 1)])
+def test_window_aggregate_plain_matches_dense_at_odd_shapes(h, w, radius, B):
+    """The shapes whose edges the CUDA tiling has to mask (a ragged last
+    tile, w < R, h < R, R = 3, B = 2): the plain version the kernels are
+    held to equals codd_tpu's dense build_system there."""
+    arrs = _field(h, w, seed=8, B=B)
+    Ts, ae, target, weight, depth, intr = arrs
+    J = [jnp.asarray(a) for a in (Ts, ae / 8.0, target, weight, depth, intr)]
+    vals = np.asarray(jgn._build_vals(J[0], J[2], J[3], J[4], J[5]))
+    Hm, b = jgn.build_system(*J, radius=radius, impl="dense")
+    dense = np.concatenate([np.asarray(jgn._sym_pack(Hm)), np.asarray(b)], -1)
+    got = tgn.gn_window_aggregate_plain(T(ae / 8.0), T(vals), radius).numpy()
+    assert got.shape == dense.shape == (B, h, w, 27)
+    absum = tgn.gn_window_aggregate_plain(T(ae / 8.0), T(np.abs(vals)),
+                                          radius).numpy()
+    assert (np.abs(got - dense) <= 1e-5 * absum + 1e-6).all()
+    # the window really is smaller than the image where R = 3
+    if radius < max(h, w):
+        full = tgn.gn_window_aggregate_plain(T(ae / 8.0), T(np.abs(vals)),
+                                             max(h, w)).numpy()
+        assert (full > absum * (1 + 1e-3)).any()

@@ -63,15 +63,16 @@ def test_corr_lookup_kernel(dev):
         torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
 
 
-def _gn_inputs(dev, h=12, w=72):   # a partial 32-query block at the right
+def _gn_inputs(dev, h=12, w=72, B=1, scale=1 / 8):
+    # the default shape has a partial tile at the right
     g = _g()
-    depth = (torch.rand(1, h, w, generator=g) * 30 + 2).to(dev)
-    intr = torch.tensor([[60.0, 60.0, w / 2, h / 2]], device=dev)
-    Ts = se3.exp((torch.randn(1, h, w, 6, generator=g) * 0.01).to(dev))
-    target = torch.randn(1, h, w, 3, generator=g).to(dev)
-    weight = torch.rand(1, h, w, 3, generator=g).to(dev)
+    depth = (torch.rand(B, h, w, generator=g) * 30 + 2).to(dev)
+    intr = torch.tensor([[60.0, 60.0, w / 2, h / 2]] * B, device=dev)
+    Ts = se3.exp((torch.randn(B, h, w, 6, generator=g) * 0.01).to(dev))
+    target = torch.randn(B, h, w, 3, generator=g).to(dev)
+    weight = torch.rand(B, h, w, 3, generator=g).to(dev)
     vals = gn.build_vals(Ts, target, weight, depth, intr).contiguous()
-    ae = (torch.randn(1, h, w, 32, generator=g) / 8).to(dev)
+    ae = (torch.randn(B, h, w, 32, generator=g) * scale).to(dev)
     return ae, vals
 
 
@@ -100,6 +101,37 @@ def test_gn_window_kernel(dev, bf16):
                       lambda: gn.gn_fused_solve(ae, vals, bf16_scores=bf16))
     torch.testing.assert_close(fused, gn.damped_solve(got), atol=1e-5,
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("scale", [1 / 8, 1.0])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("h,w,radius,B", [(5, 19, 3, 2), (9, 40, 32, 1),
+                                          (12, 72, 32, 1), (48, 160, 32, 1)])
+def test_gn_kernels_at_every_shape(dev, h, w, radius, B, scale, bf16):
+    """A ragged last tile, w < R, h < R, R = 3, B = 2 and the main path's
+    48x160, at the model's embedding scale and at 1.0 (|q|^2 ~ 32, where
+    the norms' cancellation bites).  Each of the 27 sums is held to 1e-5
+    (bf16 scores: 2^-12) of its own sum of |terms|, plus what f32 rounding
+    of the logit's three terms allows (8 ulp of 2 max|q|^2: 5e-7 at the
+    model's scale; see tests/test_torch_gn.py); kernel 3 solves on the
+    same sums; two launches on one input give the same bits."""
+    ae, vals = _gn_inputs(dev, h, w, B, scale)
+    got = _launched("gn_window_aggregate",
+                    lambda: gn.gn_window_aggregate(ae, vals, radius, bf16))
+    ref = gn.gn_window_aggregate_plain(ae, vals, radius, bf16)
+    absum = gn.gn_window_aggregate_plain(ae, vals.abs(), radius)
+    noise = 8 * 2.0 ** -24 * 2 * float((ae * ae).sum(-1).max())
+    tol = ((2.0 ** -12 if bf16 else 1e-5) + noise) * absum + 1e-6
+    assert got.shape == (B, h, w, 27) and torch.isfinite(got).all()
+    assert ((got - ref).abs() <= tol).all()
+    fused = _launched("gn_fused_solve", lambda: gn.gn_fused_solve(
+        ae, vals, radius, bf16_scores=bf16))
+    assert fused.shape == (B, h, w, 6)
+    torch.testing.assert_close(fused, gn.damped_solve(got), atol=1e-5,
+                               rtol=1e-3)
+    assert torch.equal(got, gn.gn_window_aggregate(ae, vals, radius, bf16))
+    assert torch.equal(fused, gn.gn_fused_solve(ae, vals, radius,
+                                                bf16_scores=bf16))
 
 
 def test_gn_step_routes(dev):
