@@ -11,11 +11,15 @@ Phases, in order:
   3. kernels: each kernel against its plain PyTorch version on the card, on
      seeded inputs at the largest call site of the 384x1280 streaming path,
      with its error, its time and the plain version's (CUDA events), and
-     the least time the card could take (bytes over 3.35 TB/s or f32
-     operations over 67 TFLOP/s, whichever is larger); the two GN kernels
-     also at embedding scale 1.0, f32 and bf16 scores, twice for equal
-     bits, with their time over that bound and the pairs their tiling
-     evaluates for each useful one;
+     the least time the card could take (bytes over 3.35 TB/s or
+     operations over the peak for their type, whichever is larger); the
+     two GN kernels also at embedding scale 1.0, f32 and bf16 scores, twice
+     for equal bits, with their time over that bound and the pairs their
+     tiling evaluates for each useful one; the two corr lookups as the
+     model calls them, four levels in one launch (equal in bits to one
+     launch a level), on a smooth and a scattered coordinate field, with
+     the share of the patch lookup's blocks that stage their window box in
+     shared memory, and grid_sample's time beside the volume lookup's;
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -30,7 +34,8 @@ Phases, in order:
      and the stereo-only configs/models/stereo.py;
   6. plain: one frame pair at full width through the plain versions on
      the card, for the default and for the eval phase's configuration,
-     the fused disparity held against the kernel run's.
+     the fused disparity held against the kernel run's, with the share of
+     moved pixels at each stage of the cascade and the first that moved.
 
 Any failure exits non-zero.  The line before the last holds the kernel
 table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -126,6 +131,134 @@ def _compare(name, got, ref, atol, rtol):
     return max_err
 
 
+def corr_fields(noise, h8, w8, dev):
+    """The lookups' two coordinate fields at 1/8 resolution: "scattered",
+    the grid plus ``noise`` (i.i.d. N(0, 6^2) px), and "smooth", the grid
+    plus a bilinearly upsampled (6, 20) field of +-8 px plus 0.25 px of
+    jitter, seeded on its own (coherent, as the main path's targets are)."""
+    import torch
+    g = torch.Generator().manual_seed(5)
+    ys, xs = torch.meshgrid(torch.arange(h8), torch.arange(w8), indexing="ij")
+    grid = torch.stack([xs, ys], -1)[None].float().to(dev)
+    coarse = torch.rand((1, 2, 6, 20), generator=g) * 16 - 8
+    flow = torch.nn.functional.interpolate(
+        coarse, size=(h8, w8), mode="bilinear", align_corners=False)
+    smooth = (flow.permute(0, 2, 3, 1)
+              + torch.randn((1, h8, w8, 2), generator=g) * 0.25)
+    return {"smooth": (grid + smooth.to(dev)).contiguous(),
+            "scattered": (grid + noise).contiguous()}
+
+
+def _four_levels_equal(name, fn_all, fn_one, n_levels, K=49):
+    """The four-level launch against one launch a level: equal bits."""
+    import torch
+    got = fn_all()
+    per = torch.empty_like(got)
+    for i in range(n_levels):
+        fn_one(i, per, i * K)
+    torch.cuda.synchronize()
+    if not torch.equal(got, per):
+        fail(f"{name}: the four-level launch differs from four one-level "
+             "launches")
+
+
+def corr_volume_check(vols, fields):
+    """Kernel 2 on both fields against the plain version; its time, bound
+    and the nearest library call: grid_sample on each bf16 volume viewed as
+    (B*N, 1, Hp, Wp) at the query's 7 x 7 window points (align_corners,
+    zero padding; bf16 output), one call a level, timed alone."""
+    import torch
+    from codd_torch.ops import corr
+    errs, ms = [], {}
+    for fname, c in fields.items():
+        got = corr.corr_lookup(vols, c, 3)
+        ref = torch.cat([corr.corr_lookup_level_plain(v, c / 2 ** i, 3)
+                         for i, v in enumerate(vols)], -1)
+        torch.cuda.synchronize()
+        # the same bf16 taps and the same bilinear arithmetic order
+        errs.append(_compare(f"corr_lookup ({fname})", got, ref, 1e-5, 1e-6))
+        _four_levels_equal(
+            "corr_lookup", lambda: corr.corr_lookup(vols, c, 3),
+            lambda i, out, off: corr.corr_lookup_level(
+                vols[i], c, 3, 1.0 / 2 ** i, out=out, offset=off), len(vols))
+        ms[fname] = cuda_ms(lambda: corr.corr_lookup(vols, c, 3))
+    coords = fields["smooth"]
+    plain_ms = cuda_ms(lambda: [corr.corr_lookup_level_plain(
+        v, coords / 2 ** i, 3) for i, v in enumerate(vols)])
+    B, N = vols[0].shape[:2]
+    d = torch.arange(-3, 4, device=coords.device, dtype=torch.float32)
+    lib = []
+    for i, v in enumerate(vols):
+        Hp, Wp = v.shape[2:]
+        c = coords.reshape(B * N, 1, 1, 2) / 2 ** i + 7.0  # padded grid
+        pts = torch.stack(torch.broadcast_tensors(
+            c[..., 0] + d[None, None, :], c[..., 1] + d[None, :, None]), -1)
+        grid = (2 * pts / torch.tensor([Wp - 1.0, Hp - 1.0],
+                                       device=coords.device) - 1
+                ).to(torch.bfloat16)
+        img = v.reshape(B * N, 1, Hp, Wp)
+        lib.append(cuda_ms(lambda: torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)))
+    print(f"  corr_lookup, four levels in one launch: smooth {ms['smooth']:.4f}"
+          f" ms, scattered {ms['scattered']:.4f} ms; library (grid_sample, "
+          f"bf16 out) {sum(lib):.4f} ms = "
+          f"{' + '.join('%.4f' % t for t in lib)} by level")
+    return dict(
+        name="corr_lookup", source="codd_torch/csrc/corr_lookup.cu",
+        replaces="codd_tpu/ops/pallas/corr_select.py:60",
+        max_abs_err=max(errs), ms=ms["smooth"], plain_ms=plain_ms,
+        # per query: 64 bf16 taps and 49 f32 outputs a level, 2 coords
+        bytes=float(N * (len(vols) * (64 * 2 + 49 * 4) + 2 * 4)),
+        flops=len(vols) * N * 49 * 9, library_ms=sum(lib))
+
+
+def corr_patch_check(pyr, fields):
+    """Kernel 6 on both fields against the plain version, with the share
+    of its blocks that stage their window box in shared memory."""
+    import torch
+    from codd_torch.ops import corr
+    errs, ms = [], {}
+    shapes = [tuple(l.shape[1:3]) for l in pyr["levels"]]
+    for fname, c in fields.items():
+        got = corr.corr_lookup(pyr, c, 3)
+        ref = torch.cat([corr.corr_patch_lookup_level_plain(
+            pyr["f1"], l, c / 2 ** i, 3) for i, l in enumerate(pyr["levels"])],
+            -1)
+        torch.cuda.synchronize()
+        # 128 exact bf16 x bf16 products summed in f32 in another order
+        # than torch.sum's: a few ulps of sum |f1 . f2| ~ 128 * |f1| |f2|
+        errs.append(_compare(f"corr_patch_lookup ({fname})", got, ref, 2e-5,
+                             1e-5))
+        _four_levels_equal(
+            "corr_patch_lookup", lambda: corr.corr_lookup(pyr, c, 3),
+            lambda i, out, off: corr.corr_patch_lookup_level(
+                pyr["f1"], pyr["levels"][i], c, 3, 1.0 / 2 ** i, out=out,
+                offset=off), len(shapes))
+        ms[fname] = cuda_ms(lambda: corr.corr_lookup(pyr, c, 3))
+        plan = corr.patch_lookup_plan(c, shapes, 3)
+        share = [round(float(p.float().mean()), 3) for p in plan]
+        print(f"  corr_patch_lookup ({fname}): four levels in one launch "
+              f"{ms[fname]:.4f} ms; blocks staged in shared memory by level "
+              f"{share} (of {plan[0].numel()} a level, box budget "
+              f"{corr.PATCH_BOX_BYTES} B)")
+    coords = fields["smooth"]
+    plain_ms = cuda_ms(lambda: [corr.corr_patch_lookup_level_plain(
+        pyr["f1"], l, coords / 2 ** i, 3) for i, l in enumerate(pyr["levels"])])
+    N = pyr["f1"].shape[1]
+    L = len(shapes)
+    return dict(
+        name="corr_patch_lookup", source="codd_torch/csrc/corr_patch.cu",
+        replaces="scripts/kernel_corr_pallas.py:73", max_abs_err=max(errs),
+        ms=ms["smooth"], plain_ms=plain_ms,
+        # f1, every level, coords, each read once; 49 f32 outputs a level
+        bytes=float(pyr["f1"].numel() * 2
+                    + sum(l.numel() * 2 for l in pyr["levels"])
+                    + N * (2 * 4 + L * 49 * 4)),
+        flops=L * N * (64 * 256 + 49 * 9), peak=BF16_FLOPS_PER_S,
+        library_ms=None)
+
+
 def kernel_checks(dev):
     import torch
     from codd_torch.ops import corr, gn, se3, splat, tile_warp
@@ -163,28 +296,14 @@ def kernel_checks(dev):
         plain_ms=cuda_ms(lambda: tile_warp.tile_warp_cost_plain(hyp3, fl, fr)),
         bytes=nbytes, flops=flops, library_ms=None))
 
-    # -- kernel 2: corr lookup in the level-0 volume (48x160 queries) --
+    # -- kernels 2 and 6: the corr lookups, four levels in one launch, on
+    # two coordinate fields of the 48x160 queries --
     h8, w8 = H // 8, W // 8
-    f1, f2 = randn(1, h8, w8, 128), randn(1, h8, w8, 128)
-    vols = corr.build_corr_pyramid(f1, f2, 4, 3)
-    ys, xs = torch.meshgrid(torch.arange(h8, device=dev),
-                            torch.arange(w8, device=dev), indexing="ij")
-    coords = (torch.stack([xs, ys], -1)[None].float()
-              + randn(1, h8, w8, 2, scale=6.0)).contiguous()
-    got = corr.corr_lookup_level(vols[0], coords, 3, 1.0)
-    ref = corr.corr_lookup_level_plain(vols[0], coords, 3)
-    torch.cuda.synchronize()
-    # the same bf16 taps and the same bilinear arithmetic order
-    err = _compare("corr_lookup", got, ref, 1e-5, 1e-6)
     n = h8 * w8
-    rows.append(dict(
-        name="corr_lookup", source="codd_torch/csrc/corr_lookup.cu",
-        replaces="codd_tpu/ops/pallas/corr_select.py:60", max_abs_err=err,
-        ms=cuda_ms(lambda: corr.corr_lookup_level(vols[0], coords, 3, 1.0)),
-        plain_ms=cuda_ms(lambda: corr.corr_lookup_level_plain(
-            vols[0], coords, 3)),
-        bytes=n * (64 * 2 + 2 * 4 + 49 * 4), flops=n * 49 * 9,
-        library_ms=None))
+    f1, f2 = randn(1, h8, w8, 128), randn(1, h8, w8, 128)
+    fields = corr_fields(randn(1, h8, w8, 2, scale=6.0), h8, w8, dev)
+    vols = corr.build_corr_pyramid(f1, f2, 4, 3)
+    rows.append(corr_volume_check(vols, fields))
 
     # -- kernels 3 and 5: GN aggregate (+ solve) at 48x160, C=32 --
     intr8 = torch.tensor([[721.5 / 8, 721.5 / 8, 609.6 / 8, 172.9 / 8]],
@@ -276,37 +395,8 @@ def kernel_checks(dev):
               f"bound; the tiling evaluates {evaluated:.0f} pairs for "
               f"{pairs:.0f} useful ({evaluated / pairs:.3f})")
 
-    # -- kernel 6: corr patch lookup, all four levels (48x160 queries) --
     pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
-    per_level = []
-    for lvl, f2p in enumerate(pyr["levels"]):
-        sc = 1.0 / 2 ** lvl
-        got = corr.corr_patch_lookup_level(pyr["f1"], f2p, coords, 3, sc)
-        ref = corr.corr_patch_lookup_level_plain(pyr["f1"], f2p, coords * sc, 3)
-        torch.cuda.synchronize()
-        # 128 exact bf16 x bf16 products summed in f32 in another order
-        # than torch.sum's: a few ulps of sum |f1 . f2| ~ 128 * |f1| |f2|
-        err = _compare(f"corr_patch_lookup L{lvl}", got, ref, 2e-5, 1e-5)
-        nbytes = (pyr["f1"].numel() * 2 + f2p.numel() * 2 + coords.numel() * 4
-                  + n * 49 * 4)
-        per_level.append(dict(
-            err=err, bytes=nbytes, flops=n * (64 * 256 + 49 * 9),
-            ms=cuda_ms(lambda: corr.corr_patch_lookup_level(
-                pyr["f1"], f2p, coords, 3, sc)),
-            plain_ms=cuda_ms(lambda: corr.corr_patch_lookup_level_plain(
-                pyr["f1"], f2p, coords * sc, 3))))
-        lb, _ = bound_ms(nbytes, per_level[-1]["flops"], BF16_FLOPS_PER_S)
-        print(f"  corr_patch_lookup L{lvl} {tuple(f2p.shape)}: "
-              f"{per_level[-1]['ms']:.4f} ms  plain "
-              f"{per_level[-1]['plain_ms']:.4f} ms  bound {lb:.4f} ms")
-    rows.append(dict(  # the row is level 0, the largest, as kernel 2's is
-        name="corr_patch_lookup", source="codd_torch/csrc/corr_patch.cu",
-        replaces="scripts/kernel_corr_pallas.py:73",
-        max_abs_err=max(p["err"] for p in per_level), ms=per_level[0]["ms"],
-        plain_ms=per_level[0]["plain_ms"], bytes=per_level[0]["bytes"],
-        flops=per_level[0]["flops"], peak=BF16_FLOPS_PER_S, library_ms=None))
-    print(f"  corr_patch_lookup, four levels: "
-          f"{sum(p['ms'] for p in per_level):.4f} ms")
+    rows.append(corr_patch_check(pyr, fields))
 
     # -- kernel 4: splat compositor at the full-res call (C=6, r=1) --
     intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
@@ -367,32 +457,38 @@ def frames(n: int, dev, seed: int = 1):
 @contextlib.contextmanager
 def plain_versions():
     """Route the six hot ops to their plain PyTorch versions (phase 6)."""
+    import torch
     from codd_torch.models.stereo import hitnet
     from codd_torch.ops import corr, gn, splat, tile_warp
 
-    def corr_plain(vol, coords, radius=3, scale=1.0, out=None, offset=0):
-        return corr._into(out, offset, corr.corr_lookup_level_plain(
-            vol, coords * scale, radius))
+    def corr_plain(vols, coords, radius=3, scales=None, out=None, offset=0):
+        res = torch.cat([corr.corr_lookup_level_plain(v, coords * sc, radius)
+                         for v, sc in zip(vols, corr._scales(len(vols), scales))],
+                        -1)
+        return corr._into(out, offset, res)
 
-    def patch_plain(f1, f2p, coords, radius=3, scale=1.0, out=None, offset=0):
-        return corr._into(out, offset, corr.corr_patch_lookup_level_plain(
-            f1, f2p, coords * scale, radius))
+    def patch_plain(f1, levels, coords, radius=3, scales=None, out=None,
+                    offset=0):
+        res = torch.cat([corr.corr_patch_lookup_level_plain(
+            f1, l, coords * sc, radius)
+            for l, sc in zip(levels, corr._scales(len(levels), scales))], -1)
+        return corr._into(out, offset, res)
 
-    saved = (hitnet.tile_warp_cost, corr.corr_lookup_level,
+    saved = (hitnet.tile_warp_cost, corr.corr_lookup_levels,
              gn.gn_fused_solve, splat.composite, gn.gn_window_aggregate,
-             corr.corr_patch_lookup_level)
+             corr.corr_patch_lookup_levels)
     hitnet.tile_warp_cost = tile_warp.tile_warp_cost_plain
-    corr.corr_lookup_level = corr_plain
+    corr.corr_lookup_levels = corr_plain
     gn.gn_fused_solve = gn.gn_fused_solve_plain
     splat.composite = splat.composite_plain
     gn.gn_window_aggregate = gn.gn_window_aggregate_plain
-    corr.corr_patch_lookup_level = patch_plain
+    corr.corr_patch_lookup_levels = patch_plain
     try:
         yield
     finally:
-        (hitnet.tile_warp_cost, corr.corr_lookup_level, gn.gn_fused_solve,
+        (hitnet.tile_warp_cost, corr.corr_lookup_levels, gn.gn_fused_solve,
          splat.composite, gn.gn_window_aggregate,
-         corr.corr_patch_lookup_level) = saved
+         corr.corr_patch_lookup_levels) = saved
 
 
 def build_model(name: str = "codd.py", **overrides):
@@ -439,7 +535,7 @@ def main_path(dev, steps: int):
     t_first, step_ms, outs = stream(model, intr, seq)
     launches = kernels.counts()
 
-    expect = {"tile_warp_cost": 9 * (steps + 1), "corr_lookup": 64 * steps,
+    expect = {"tile_warp_cost": 9 * (steps + 1), "corr_lookup": 16 * steps,
               "gn_fused_solve": 16 * steps, "splat_composite": 2 * steps,
               "gn_window_aggregate": 0, "corr_patch_lookup": 0}
     print(f"  launches {launches} (expected {expect})")
@@ -580,7 +676,7 @@ def eval_phase(dev, steps, default_ms):
     launches, _ = _eval_run(
         "pallas_window + patch", model, 2,
         dict(zero, tile_warp_cost=tile, gn_window_aggregate=16 * esteps,
-             corr_patch_lookup=64 * esteps, splat_composite=2 * esteps))
+             corr_patch_lookup=16 * esteps, splat_composite=2 * esteps))
     # the main path's stream once more in this configuration; the step is
     # host-bound, so one stream each orders the two loosely (the profile
     # phase repeats them in turns and splits the device time)
@@ -596,7 +692,7 @@ def eval_phase(dev, steps, default_ms):
               dict(zero, tile_warp_cost=tile))
     _eval_run("Motion + KalmanFusion",
               build_model(fusion={"type": "KalmanFusion"}), 1,
-              dict(zero, tile_warp_cost=tile, corr_lookup=64 * esteps,
+              dict(zero, tile_warp_cost=tile, corr_lookup=16 * esteps,
                    gn_fused_solve=16 * esteps, splat_composite=2 * esteps))
     _eval_run("stereo only (configs/models/stereo.py)",
               build_model("stereo.py"), 1, dict(zero, tile_warp_cost=tile),
@@ -605,23 +701,45 @@ def eval_phase(dev, steps, default_ms):
 
 
 def plain_check(model, intr, seq, label: str):
+    """One frame pair through the kernels and through the plain versions.
+    Each stage's share of moved pixels (> 1e-2 * (1 + |plain|)) is printed:
+    frame 0's stereo disparity, frame 1's stereo disparity, its induced
+    flow, the motion-warped disparity, the fusion weights and the fused
+    disparity; the first stage that moved names where the runs part."""
     import torch
     print(f"  {label}:")
-    carry, _ = model.first_step(*seq[0], intr)
+    carry, out0_k = model.first_step(*seq[0], intr)
     _, out_k = model.step(carry, *seq[1], intr)
     with plain_versions():
-        carry, _ = model.first_step(*seq[0], intr)
+        carry, out0_p = model.first_step(*seq[0], intr)
         _, out_p = model.step(carry, *seq[1], intr)
     torch.cuda.synchronize()
-    for key in ("pred_curr", "pred_warp", "pred_disp"):
-        a, b = out_k[key], out_p[key]
+    stages = [("stereo, frame 0", out0_k["pred_disp"], out0_p["pred_disp"]),
+              ("stereo, frame 1", out_k["pred_curr"], out_p["pred_curr"]),
+              ("induced flow", out_k["flow2d_est_induced"],
+               out_p["flow2d_est_induced"]),
+              ("motion-warped", out_k["pred_warp"], out_p["pred_warp"]),
+              ("fusion weights", out_k["fusion_weights"],
+               out_p["fusion_weights"]),
+              ("fused", out_k["pred_disp"], out_p["pred_disp"])]
+    shares = []
+    for name, a, b in stages:
         err = (a - b).abs()
         # random weights: argmax/floor decisions on near-ties may flip on
         # f32 sum-order differences, so a small share of pixels may move
         share = float((err > 1e-2 * (1 + b.abs())).float().mean())
-        print(f"  {key}: max_abs_err {float(err.max()):.3e}  median "
-              f"{float(err.median()):.3e}  share > 1e-2*(1+|plain|) {share:.2e}")
-        if not torch.isfinite(a).all() or share > 1e-3:
+        shares.append(share)
+        print(f"  {name}: max_abs_err {float(err.max()):.3e}  median "
+              f"{float(err.median()):.3e}  share > 1e-2*(1+|plain|) "
+              f"{share:.2e}")
+        if not torch.isfinite(a).all():
+            fail(f"{name}: non-finite kernel output")
+    first = next((st[0] for st, sh in zip(stages, shares) if sh > 0), None)
+    print(f"  the runs part at: {first or 'no stage'}")
+    for key in ("pred_curr", "pred_warp", "pred_disp"):
+        a, b = out_k[key], out_p[key]
+        share = float(((a - b).abs() > 1e-2 * (1 + b.abs())).float().mean())
+        if share > 1e-3:
             fail(f"{key}: kernel run disagrees with the plain run")
 
 

@@ -1,9 +1,13 @@
 """Format codecs for the supported datasets (host-side, numpy; the port's
-own copy of ``codd_tpu/data/io.py`` without the native C++ decoder).
+own copy of ``codd_tpu/data/io.py``).
 
-PNGs are read through ``imageio``, imported inside the reader: nothing
-else in this package needs it, and a machine that only streams tensors
-through the model need not have it.
+KITTI's 16-bit PNGs go through ``read_png``, a decoder in numpy and the
+standard library's ``zlib``: imageio's PIL backend decodes a 16-bit RGB
+PNG (KITTI flow) to 8 bits.  It covers what ``codd_tpu``'s native decoder
+covers (non-interlaced; 8 or 16 bits; gray, gray+alpha, RGB, RGBA; the
+five filter types).  Other PNGs are read through ``imageio``, imported
+inside the reader: a machine that only streams tensors through the model
+need not have it.
 
 Formats:
   * PFM (SceneFlow/FlyingThings3D disparities)
@@ -18,6 +22,8 @@ Formats:
 from __future__ import annotations
 
 import re
+import struct
+import zlib
 from typing import Tuple
 
 import numpy as np
@@ -25,7 +31,7 @@ import numpy as np
 _FLO_MAGIC = 202021.25
 
 __all__ = [
-    "imread", "read_pfm", "write_pfm", "read_flo", "write_flo",
+    "imread", "read_png", "read_pfm", "write_pfm", "read_flo", "write_flo",
     "read_sintel_disparity", "read_sintel_segmentation",
     "read_kitti_disparity", "read_kitti_flow", "read_tartanair_npy",
 ]
@@ -35,6 +41,85 @@ def imread(path) -> np.ndarray:
     """PNG (or any imageio format) -> array of raw samples."""
     import imageio.v2 as imageio
     return np.asarray(imageio.imread(path))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples a pixel
+
+
+def _unfilter_sequential(kind, raw, up, bpp):
+    """Average (3) or Paeth (4) filter of one row: each byte depends on the
+    reconstructed byte ``bpp`` to its left, so this runs byte by byte."""
+    cur = bytearray(raw)
+    n = len(cur)
+    if kind == 3:
+        for i in range(n):
+            a = cur[i - bpp] if i >= bpp else 0
+            cur[i] = (cur[i] + ((a + up[i]) >> 1)) & 255
+        return cur
+    for i in range(min(bpp, n)):          # a = c = 0: the predictor is b
+        cur[i] = (cur[i] + up[i]) & 255
+    for i in range(bpp, n):
+        a, b, c = cur[i - bpp], up[i], up[i - bpp]
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 255
+    return cur
+
+
+def read_png(path: str) -> np.ndarray:
+    """PNG -> (H, W) for gray, else (H, W, C) raw samples, uint8 or uint16
+    (16-bit samples are big-endian in the file).  Raises ``ValueError`` on
+    what it does not cover: palette, interlaced, 1/2/4-bit."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos + 8 <= len(buf):
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        data = buf[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data[:13])
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    width, height, depth, color, _, _, interlace = header
+    if interlace or depth not in (8, 16) or color not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, "
+                         f"color type {color}, interlace {interlace})")
+    channels = _PNG_CHANNELS[color]
+    bpp = channels * depth // 8                    # bytes a pixel
+    stride = width * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < height * (stride + 1):
+        raise ValueError(f"{path}: truncated PNG data")
+    rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
+    px = np.empty((height, stride), np.uint8)
+    up = np.zeros(stride, np.uint8)
+    for y in range(height):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            px[y] = line
+        elif kind == 1:   # Sub: a running sum mod 256 along each byte lane
+            px[y] = np.cumsum(line.reshape(width, bpp), 0,
+                              dtype=np.uint8).reshape(-1)
+        elif kind == 2:   # Up
+            px[y] = line + up
+        elif kind in (3, 4):
+            px[y] = np.frombuffer(_unfilter_sequential(
+                kind, line.tobytes(), up.tobytes(), bpp), np.uint8)
+        else:
+            raise ValueError(f"{path}: bad PNG filter type {kind} in row {y}")
+        up = px[y]
+    if depth == 16:
+        px = px.view(">u2").astype(np.uint16)
+    img = px.reshape(height, width, channels)
+    return img[..., 0] if channels == 1 else img
 
 
 def read_pfm(path: str) -> Tuple[np.ndarray, float]:
@@ -103,19 +188,12 @@ def read_sintel_segmentation(path: str) -> np.ndarray:
 
 def read_kitti_disparity(path: str) -> np.ndarray:
     """16-bit PNG; disparity = value / 256 (0 = invalid)."""
-    return imread(path).squeeze().astype(np.float32) / 256.0
+    return read_png(path).squeeze().astype(np.float32) / 256.0
 
 
 def read_kitti_flow(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    """16-bit RGB PNG -> (flow (H,W,2), valid (H,W)).  imageio's PIL
-    backend decodes 16-bit RGB to 8 bits; that would be wrong flow, so it
-    raises instead."""
-    img = imread(path)
-    if img.dtype != np.uint16:
-        raise ValueError(
-            f"{path}: decoded as {img.dtype}, not 16-bit; this imageio "
-            "backend cannot read 16-bit RGB PNGs (KITTI flow)")
-    img = img.astype(np.float32)
+    """16-bit RGB PNG -> (flow (H,W,2), valid (H,W))."""
+    img = read_png(path).astype(np.float32)
     flow = (img[..., :2] - 2 ** 15) / 64.0
     valid = img[..., 2]
     return flow, valid

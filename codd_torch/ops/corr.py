@@ -9,7 +9,10 @@ iteration and level, each query reads the t x t = 8 x 8 integer taps
 around its target, masks queries whose window lies wholly outside the
 level, and combines the taps bilinearly into (2r+1)^2 = 49 values.
 
-Two layouts, as in ``codd_tpu`` (``corr_lookup`` dispatches on them):
+Two layouts, as in ``codd_tpu`` (``corr_lookup`` dispatches on them), each
+with one kernel that looks up every level of the pyramid in one launch
+(``corr_lookup_levels`` / ``corr_patch_lookup_levels``; the per-level
+functions launch it for one level):
 
 * ``impl="volume"`` (a list of volumes; ``runtime.corr_impl`` ``auto``,
   ``volume``, ``volume_reduce``, ``volume_pallas``): per frame one padded
@@ -19,41 +22,51 @@ Two layouts, as in ``codd_tpu`` (``corr_lookup`` dispatches on them):
   select ``codd_tpu/ops/pallas/corr_select.py:window_select``
   (``pl.pallas_call`` at :60) and the bilinear combine of
   ``corr.py:152-205`` with one pass that reads the 64 taps straight from
-  the bf16 volume.  Bound by bytes: per query 64 bf16 taps, 2 coords and
-  49 f32 outputs (~340 B; 2.6 MB per level-0 call at 48x160).  One thread
-  per (query, output row).
+  the bf16 volume.  Bound by bytes: per query and level 64 bf16 taps, 2
+  coords and 49 f32 outputs (~340 B; 10 MB for the four levels at
+  48x160).  One warp a query, a lane a tap row of one level, 16-byte
+  loads.
 * ``impl="patch"`` (a dict ``{"f1", "levels"}``; ``runtime.corr_impl``
   ``patch``): no volume is built; every lookup recomputes the 64 tap dots
   of a query from the level's features.  Kernel 6
   (``csrc/corr_patch.cu``) replaces the prototype TPU kernel
   ``scripts/kernel_corr_pallas.py:corr_dots_pallas`` (``pl.pallas_call``
   at :73) and the window starts, patch gather, mask and combine of
-  ``corr.py:103-134,208-246`` around it.  Bound by bytes: f1 (2 MB), one
-  level (at most 3.7 MB), coords and 49 f32 outputs a query, each once;
-  the 16 KB of taps a query re-reads come from L2.  One warp per query,
-  8 channels a lane, fixed-order shuffle sums.  Forward only: it raises
-  on a CUDA input that requires grad.
+  ``corr.py:103-134,208-246`` around it.  Bound by bytes: f1 (2 MB), the
+  levels, coords and 49 f32 outputs a query and level, each once.  A
+  block takes ``PATCH_TILE`` queries of one level and stages the bounding
+  box of their windows in shared memory when it fits in
+  ``PATCH_BOX_BYTES``, else reads the taps from global memory
+  (``patch_lookup_plan`` says which); one warp a query, fixed-order f32
+  sums.  Forward only: it raises on a CUDA input that requires grad.
 
-Both write their 49 values into the level's slice of the (B, h, w, L*49)
-lookup.
+Both write their 49 values a level into the level's slice of the
+(B, h, w, L*49) lookup.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Union
+import ctypes
+from typing import Dict, List, Sequence, Union
 
 import torch
 
 from . import kernels
 
-__all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_level",
-           "corr_lookup_level_plain", "corr_patch_lookup_level",
-           "corr_patch_lookup_level_plain", "CORR_IMPLS"]
+__all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_levels",
+           "corr_lookup_level", "corr_lookup_level_plain",
+           "corr_patch_lookup_levels", "corr_patch_lookup_level",
+           "corr_patch_lookup_level_plain", "patch_lookup_plan", "CORR_IMPLS",
+           "PATCH_TILE", "PATCH_BOX_BYTES"]
 
 # runtime.corr_impl values; the three volume selects of codd_tpu are
 # bit-identical there and are one lookup (kernel 2) here
 CORR_IMPLS = ("auto", "volume", "volume_reduce", "volume_pallas", "patch")
 Pyramid = Union[List[torch.Tensor], Dict[str, object]]
+# kernel 6: a block's queries (rows, columns), and the shared memory it may
+# stage its window box in; 96 KB lets two blocks share an SM
+PATCH_TILE = (4, 8)
+PATCH_BOX_BYTES = 96 * 1024
 
 
 def _pool2(x):
@@ -158,32 +171,71 @@ def _into(out, offset, res):
     return out
 
 
+def _scales(n, scales):
+    return [1.0 / 2 ** i for i in range(n)] if scales is None else list(scales)
+
+
+def _levels_args(levels, hw, scales):
+    """The C arrays of a launch: level pointers, (Hp, Wp) pairs, scales."""
+    n = len(levels)
+    return ((ctypes.c_void_p * n)(*[l.data_ptr() for l in levels]),
+            (ctypes.c_int * (2 * n))(*[d for pair in hw for d in pair]),
+            (ctypes.c_float * n)(*scales))
+
+
+def _check_levels(name, levels, coords, out, offset, radius, K):
+    """Shapes shared by both kernels' wrappers; raises on what they do not
+    take.  Every pointer a kernel loads 16 bytes from is 16-byte aligned."""
+    B, h, w = coords.shape[:3]
+    if (not 1 <= len(levels) <= 4 or not 0 <= radius <= 3
+            or tuple(coords.shape) != (B, h, w, 2)
+            or tuple(out.shape[:3]) != (B, h, w)
+            or offset + len(levels) * K > out.shape[-1]):
+        raise ValueError(f"{name}: bad shapes: {len(levels)} levels, coords "
+                         f"{tuple(coords.shape)}, out {tuple(out.shape)}, "
+                         f"offset {offset}, r {radius}")
+    if any(l.data_ptr() % 16 for l in levels):
+        raise ValueError(f"{name}: a level is not 16-byte aligned")
+
+
+def corr_lookup_levels(vols: Sequence[torch.Tensor], coords, radius: int = 3,
+                       scales=None, out=None, offset: int = 0):
+    """Volumes ``vols`` (each (B,N,Hp,Wp) bf16) looked up at ``coords *
+    scales[i]`` (default 1/2^i), level i into channels [offset + i*49, ...)
+    of ``out`` (B,h,w,C) f32, which is made when not given: one launch of
+    kernel 2 for CUDA tensors, the plain version level by level for CPU
+    tensors."""
+    B, h, w = coords.shape[:3]
+    K = (2 * radius + 1) ** 2
+    scales = _scales(len(vols), scales)
+    if out is None:
+        out = torch.empty((B, h, w, len(vols) * K), dtype=torch.float32,
+                          device=coords.device)
+    if not vols[0].is_cuda:
+        for i, (vol, sc) in enumerate(zip(vols, scales)):
+            _into(out, offset + i * K,
+                  corr_lookup_level_plain(vol, coords * sc, radius))
+        return out
+    kernels.check_cuda("corr_lookup", *vols, coords, out,
+                       dtypes=(torch.bfloat16,) * len(vols)
+                       + (torch.float32, torch.float32))
+    _check_levels("corr_lookup", vols, coords, out, offset, radius, K)
+    if any(tuple(v.shape[:2]) != (B, h * w) for v in vols):
+        raise ValueError(f"corr_lookup: volumes {[tuple(v.shape) for v in vols]}"
+                         f" do not match coords {tuple(coords.shape)}")
+    ptrs, hw, sc = _levels_args(vols, [v.shape[2:] for v in vols], scales)
+    kernels.launch("corr_lookup", ptrs, hw, sc, len(vols), coords.data_ptr(),
+                   out.data_ptr(), B, h * w, radius, out.shape[-1], offset,
+                   kernels.stream_ptr(coords.device))
+    return out
+
+
 def corr_lookup_level(vol, coords, radius: int = 3, scale: float = 1.0,
                       out=None, offset: int = 0):
     """One level's lookup at ``coords * scale``; the kernel for CUDA
     tensors (writing channels [offset, offset+49) of ``out`` when given),
     the plain version for CPU tensors."""
-    if not vol.is_cuda:
-        return _into(out, offset, corr_lookup_level_plain(
-            vol, coords * scale, radius))
-    B, N, Hp, Wp = vol.shape
-    h, w = coords.shape[1:3]
-    K = (2 * radius + 1) ** 2
-    if out is None:
-        out = torch.empty((B, h, w, K), dtype=torch.float32,
-                          device=vol.device)
-    kernels.check_cuda("corr_lookup", vol, coords, out,
-                       dtypes=(torch.bfloat16, torch.float32, torch.float32))
-    if (tuple(coords.shape) != (B, h, w, 2) or h * w != N
-            or out.shape[:3] != (B, h, w) or offset + K > out.shape[-1]
-            or radius > 3):
-        raise ValueError(f"corr_lookup: bad shapes vol {tuple(vol.shape)} "
-                         f"coords {tuple(coords.shape)} out "
-                         f"{tuple(out.shape)} offset {offset} r {radius}")
-    kernels.launch("corr_lookup", vol.data_ptr(), coords.data_ptr(),
-                   out.data_ptr(), B, N, Hp, Wp, radius, float(scale),
-                   out.shape[-1], offset, kernels.stream_ptr(vol.device))
-    return out
+    return corr_lookup_levels([vol], coords, radius, [scale], out, offset)
 
 
 def corr_patch_lookup_level_plain(f1, f2p, coords, radius: int = 3):
@@ -208,58 +260,106 @@ def corr_patch_lookup_level_plain(f1, f2p, coords, radius: int = 3):
     return _bilinear_combine(dots, fy, fx, h, w)
 
 
+def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
+                      box_bytes: int = PATCH_BOX_BYTES):
+    """Which blocks of kernel 6 stage their window box in shared memory
+    (True) and which read their taps from global memory (False), by the
+    kernel's own rule.  A block takes ``PATCH_TILE`` queries of one level;
+    its box spans the window starts (sx, sy) of those of its queries whose
+    window touches the level, plus t = 2r+2 taps, a box row takes
+    bw * 256 + 16 bytes, and it stages when its bh rows fit in
+    ``box_bytes``.  A block none of whose windows touches the level reads
+    nothing and counts as staged.  ``level_shapes``: (Hp, Wp) of each
+    padded level.  Returns (L, B, tiles_y, tiles_x) bool."""
+    B, h, w, _ = coords.shape
+    th, tw = PATCH_TILE
+    ny, nx = -(-h // th), -(-w // tw)
+    t, P = 2 * radius + 2, 2 * radius + 1
+    plans = []
+    for (Hp, Wp), sc in zip(level_shapes, _scales(len(level_shapes), scales)):
+        sy, sx, _, _, vq = _window_starts(coords * sc, Hp - 2 * P, Wp - 2 * P,
+                                          radius)
+
+        def tiles(v, fill):   # (B, h*w) -> (B, ny, nx, th*tw), padded
+            full = torch.full((B, ny * th, nx * tw), fill, dtype=torch.long,
+                              device=coords.device)
+            full[:, :h, :w] = v.reshape(B, h, w)
+            return (full.reshape(B, ny, th, nx, tw).permute(0, 1, 3, 2, 4)
+                    .reshape(B, ny, nx, th * tw))
+
+        big = 2 ** 40
+        x_lo = tiles(torch.where(vq, sx, big), big).amin(-1)
+        y_lo = tiles(torch.where(vq, sy, big), big).amin(-1)
+        x_hi = tiles(torch.where(vq, sx, -1), -1).amax(-1)
+        y_hi = tiles(torch.where(vq, sy, -1), -1).amax(-1)
+        touched = x_hi >= 0
+        nbytes = ((x_hi - x_lo + t) * 256 + 16) * (y_hi - y_lo + t)
+        plans.append(~touched | (nbytes <= box_bytes))
+    return torch.stack(plans)
+
+
+def corr_patch_lookup_levels(f1, levels: Sequence[torch.Tensor], coords,
+                             radius: int = 3, scales=None, out=None,
+                             offset: int = 0):
+    """Padded feature levels ``levels`` (each (B,Hp,Wp,128) bf16) looked up
+    for ``f1`` (B,N,128) bf16 at ``coords * scales[i]`` (default 1/2^i),
+    level i into channels [offset + i*49, ...) of ``out`` (B,h,w,C) f32,
+    which is made when not given: one launch of kernel 6 for CUDA tensors,
+    the plain version level by level for CPU tensors."""
+    B, h, w = coords.shape[:3]
+    K = (2 * radius + 1) ** 2
+    scales = _scales(len(levels), scales)
+    if out is None:
+        out = torch.empty((B, h, w, len(levels) * K), dtype=torch.float32,
+                          device=coords.device)
+    if not levels[0].is_cuda:
+        for i, (f2p, sc) in enumerate(zip(levels, scales)):
+            _into(out, offset + i * K,
+                  corr_patch_lookup_level_plain(f1, f2p, coords * sc, radius))
+        return out
+    if (f1.requires_grad or coords.requires_grad
+            or any(l.requires_grad for l in levels)):
+        raise NotImplementedError("corr_patch_lookup: forward only; the "
+                                  "kernel has no backward yet")
+    kernels.check_cuda("corr_patch_lookup", f1, *levels, coords, out,
+                       dtypes=(torch.bfloat16,) * (1 + len(levels))
+                       + (torch.float32, torch.float32))
+    _check_levels("corr_patch_lookup", levels, coords, out, offset, radius,
+                  K)
+    P = 2 * radius + 1
+    if (tuple(f1.shape) != (B, h * w, 128) or f1.data_ptr() % 16
+            or any(l.dim() != 4 or l.shape[0] != B or l.shape[3] != 128
+                   or min(l.shape[1:3]) <= 2 * P for l in levels)):
+        raise ValueError(f"corr_patch_lookup: bad shapes f1 "
+                         f"{tuple(f1.shape)} levels "
+                         f"{[tuple(l.shape) for l in levels]} coords "
+                         f"{tuple(coords.shape)} (needs C == 128 and f1 "
+                         "16-byte aligned)")
+    ptrs, hw, sc = _levels_args(levels, [l.shape[1:3] for l in levels],
+                                scales)
+    kernels.launch("corr_patch_lookup", f1.data_ptr(), ptrs, hw, sc,
+                   len(levels), coords.data_ptr(), out.data_ptr(), B, h, w,
+                   radius, out.shape[-1], offset, PATCH_BOX_BYTES,
+                   kernels.stream_ptr(coords.device))
+    return out
+
+
 def corr_patch_lookup_level(f1, f2p, coords, radius: int = 3,
                             scale: float = 1.0, out=None, offset: int = 0):
     """One level's patch lookup at ``coords * scale``; kernel 6 for CUDA
     tensors (writing channels [offset, offset+49) of ``out`` when given),
     the plain version for CPU tensors."""
-    if not f2p.is_cuda:
-        return _into(out, offset, corr_patch_lookup_level_plain(
-            f1, f2p, coords * scale, radius))
-    if f1.requires_grad or f2p.requires_grad or coords.requires_grad:
-        raise NotImplementedError("corr_patch_lookup: forward only; the "
-                                  "kernel has no backward yet")
-    B, Hp, Wp, C = f2p.shape
-    N = f1.shape[1]
-    h, w = coords.shape[1:3]
-    K = (2 * radius + 1) ** 2
-    if out is None:
-        out = torch.empty((B, h, w, K), dtype=torch.float32,
-                          device=f2p.device)
-    kernels.check_cuda("corr_patch_lookup", f1, f2p, coords, out,
-                       dtypes=(torch.bfloat16, torch.bfloat16, torch.float32,
-                               torch.float32))
-    if (C != 128 or tuple(f1.shape) != (B, N, C)
-            or tuple(coords.shape) != (B, h, w, 2) or h * w != N
-            or out.shape[:3] != (B, h, w) or offset + K > out.shape[-1]
-            or not 0 <= radius <= 3 or min(Hp, Wp) <= 2 * (2 * radius + 1)):
-        raise ValueError(f"corr_patch_lookup: bad shapes f1 "
-                         f"{tuple(f1.shape)} level {tuple(f2p.shape)} coords "
-                         f"{tuple(coords.shape)} out {tuple(out.shape)} "
-                         f"offset {offset} r {radius} (needs C == 128)")
-    kernels.launch("corr_patch_lookup", f1.data_ptr(), f2p.data_ptr(),
-                   coords.data_ptr(), out.data_ptr(), B, N, Hp, Wp, radius,
-                   float(scale), out.shape[-1], offset,
-                   kernels.stream_ptr(f2p.device))
-    return out
+    return corr_patch_lookup_levels(f1, [f2p], coords, radius, [scale], out,
+                                    offset)
 
 
 def corr_lookup(pyramid: Pyramid, coords, radius: int = 3):
     """coords (B,h,w,2) in level-0 pixels -> (B,h,w,L*(2r+1)^2), level-major
-    then window row-major (dy outer, dx inner).  Dispatches on the
-    pyramid's layout: a list of volumes or a ``{"f1", "levels"}`` dict."""
-    B, h, w, _ = coords.shape
-    K = (2 * radius + 1) ** 2
-    patch = isinstance(pyramid, dict)
-    levels = pyramid["levels"] if patch else pyramid
-    out = torch.empty((B, h, w, len(levels) * K), dtype=torch.float32,
-                      device=coords.device)
+    then window row-major (dy outer, dx inner), in one launch.  Dispatches
+    on the pyramid's layout: a list of volumes or a ``{"f1", "levels"}``
+    dict."""
     coords = coords.contiguous()
-    for i, lvl in enumerate(levels):
-        if patch:
-            corr_patch_lookup_level(pyramid["f1"], lvl, coords, radius,
-                                    1.0 / 2 ** i, out=out, offset=i * K)
-        else:
-            corr_lookup_level(lvl, coords, radius, 1.0 / 2 ** i, out=out,
-                              offset=i * K)
-    return out
+    if isinstance(pyramid, dict):
+        return corr_patch_lookup_levels(pyramid["f1"], pyramid["levels"],
+                                        coords, radius)
+    return corr_lookup_levels(pyramid, coords, radius)

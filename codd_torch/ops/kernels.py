@@ -39,7 +39,7 @@ KERNELS = {
     "tile_warp_cost": ("tile_warp.cu", "tile_warp_cost_launch",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "corr_lookup": ("corr_lookup.cu", "corr_lookup_launch",
-                    [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+                    [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gn_fused_solve": ("gn_fused.cu", "gn_fused_solve_launch",
                        [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P]),
     "splat_composite": ("splat_composite.cu", "splat_composite_launch",
@@ -48,8 +48,8 @@ KERNELS = {
     "gn_window_aggregate": ("gn_window.cu", "gn_window_aggregate_launch",
                             [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "corr_patch_lookup": ("corr_patch.cu", "corr_patch_lookup_launch",
-                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                           _P]),
+                          [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P]),
 }
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

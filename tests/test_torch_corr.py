@@ -169,3 +169,105 @@ def test_corr_lookup_dispatches_on_patch_layout():
         torch.from_numpy(coords), 3).numpy()
     np.testing.assert_allclose(got, vol, atol=2.0 ** -8 * np.abs(got).max(),
                                rtol=0)
+
+
+def _plan_brute(coords, shapes, radius, box_bytes, tile=(4, 8)):
+    """Kernel 6's staging rule, tile by tile in numpy."""
+    B, h, w, _ = coords.shape
+    t, P = 2 * radius + 2, 2 * radius + 1
+    th, tw = tile
+    ny, nx = -(-h // th), -(-w // tw)
+    out = np.zeros((len(shapes), B, ny, nx), bool)
+    for lvl, (Hp, Wp) in enumerate(shapes):
+        hl, wl = Hp - 2 * P, Wp - 2 * P
+        c = coords * np.float32(1.0 / 2 ** lvl)
+        for b in range(B):
+            for ty in range(ny):
+                for tx in range(nx):
+                    sxs, sys_ = [], []
+                    for y in range(ty * th, min(h, ty * th + th)):
+                        for x in range(tx * tw, min(w, tx * tw + tw)):
+                            x0, y0 = np.floor(c[b, y, x])
+                            if (-(radius + 1) <= x0 <= wl - 1 + radius
+                                    and -(radius + 1) <= y0 <= hl - 1 + radius):
+                                sxs.append(int(x0) - radius + P)
+                                sys_.append(int(y0) - radius + P)
+                    if not sxs:
+                        out[lvl, b, ty, tx] = True
+                        continue
+                    bw = max(sxs) - min(sxs) + t
+                    bh = max(sys_) - min(sys_) + t
+                    out[lvl, b, ty, tx] = (bw * 256 + 16) * bh <= box_bytes
+    return out
+
+
+@pytest.mark.parametrize("radius", [1, 3])
+@pytest.mark.parametrize("box_bytes", [0, 40 * 1024, 96 * 1024])
+def test_patch_lookup_plan(radius, box_bytes):
+    """The plain planner of kernel 6 says, block by block, which blocks
+    stage their window box: against the rule written out tile by tile, on
+    a field that is coherent in one batch element and scattered in the
+    other, with windows wholly outside the level and ragged edge tiles."""
+    rng = np.random.RandomState(7)
+    B, h, w = 2, 10, 21
+    grid = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+    coords = np.stack([grid + 0.3 * rng.randn(h, w, 2) + 1.5,
+                       grid + 6 * rng.randn(h, w, 2)]).astype(np.float32)
+    coords[0, :4, :8] = (-40.0, 3.0)            # a whole tile outside
+    coords[1, 9, 20] = (w + 30.0, h + 30.0)
+    shapes = [(h + 2 * (2 * radius + 1), w + 2 * (2 * radius + 1)),
+              (h // 2 + 2 * (2 * radius + 1), w // 2 + 2 * (2 * radius + 1))]
+    got = tcorr.patch_lookup_plan(torch.from_numpy(coords), shapes, radius,
+                                  box_bytes=box_bytes)
+    ref = _plan_brute(coords, shapes, radius, box_bytes)
+    assert got.dtype == torch.bool and tuple(got.shape) == ref.shape
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert got[0, 0, 0, 0]          # reads nothing: counts as staged
+    if box_bytes == 96 * 1024:      # both paths in one launch
+        assert got[0, 0].all() and not got[0, 1].all()
+    if box_bytes == 0:
+        assert not got[0, 0, 1:].any()
+
+
+@pytest.mark.parametrize("layout", ["volume", "patch"])
+def test_four_level_lookup_at_batch_two(layout):
+    """``corr_lookup`` on a B = 2 pyramid, four levels in one call, against
+    codd_tpu's ``corr_lookup`` (tolerances as in the tests above), and
+    ``corr_*_levels`` writing into an offset slice of a wider output equal
+    to the per-level functions."""
+    if layout == "volume":
+        f1, f2, coords, jp = _setup(B=2, h=6, w=20, seed=30)
+        ref = np.asarray(jcorr.corr_lookup(jp, jnp.asarray(coords), 3,
+                                           select="reduce"))
+        pyr = tcorr.build_corr_pyramid(torch.from_numpy(f1),
+                                       torch.from_numpy(f2), 4, 3)
+        atol = 2.0 ** -8 * max(float(np.abs(np.asarray(v, np.float32)).max())
+                               for v in jp["vols"])
+    else:
+        f1, f2, coords, jp = _patch_setup(31, B=2, h=6, w=20)
+        ref = np.asarray(jcorr.corr_lookup(jp, jnp.asarray(coords), 3))
+        pyr = tcorr.build_corr_pyramid(torch.from_numpy(f1),
+                                       torch.from_numpy(f2), 4, 3,
+                                       impl="patch")
+        atol = 1e-5
+    c = torch.from_numpy(coords)
+    got = tcorr.corr_lookup(pyr, c, 3)
+    assert tuple(got.shape) == ref.shape == (2, 6, 20, 196)
+    np.testing.assert_allclose(got.numpy(), ref, atol=atol, rtol=0)
+    wide = torch.full((2, 6, 20, 200), -1.0)
+    per = torch.full((2, 6, 20, 200), -1.0)
+    for i in range(4):
+        if layout == "volume":
+            tcorr.corr_lookup_level(pyr[i], c, 3, 1.0 / 2 ** i, out=per,
+                                    offset=3 + 49 * i)
+        else:
+            tcorr.corr_patch_lookup_level(pyr["f1"], pyr["levels"][i], c, 3,
+                                          1.0 / 2 ** i, out=per,
+                                          offset=3 + 49 * i)
+    if layout == "volume":
+        tcorr.corr_lookup_levels(pyr, c, 3, out=wide, offset=3)
+    else:
+        tcorr.corr_patch_lookup_levels(pyr["f1"], pyr["levels"], c, 3,
+                                       out=wide, offset=3)
+    assert torch.equal(wide, per) and torch.equal(wide[..., 3:199], got)
+    assert (wide[..., :3] == -1).all() and (wide[..., 199:] == -1).all()

@@ -82,10 +82,106 @@ def test_pfm_and_flo_roundtrip(tmp_path):
         tio.read_pfm(str(tmp_path / "bad.pfm"))
 
 
-def test_png_codecs_match(tmp_path, monkeypatch):
-    """KITTI 16-bit disparity, Sintel disparity and segmentation: the port
-    reads PNGs through imageio, codd_tpu through its native decoder when
-    it is built; the decoded values agree."""
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _write_png(path, img, filters=(0, 1, 2, 3, 4)):
+    """A PNG written by hand (``zlib`` + ``struct``), row y filtered with
+    ``filters[y % len(filters)]``: PIL writes no 16-bit RGB."""
+    import struct
+    import zlib
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    depth = 16 if img.dtype == np.uint16 else 8
+    bpp = c * depth // 8
+    px = np.ascontiguousarray(img.astype(">u2" if depth == 16 else "u1")
+                              ).view(np.uint8).reshape(h, w * bpp
+                                                       ).astype(np.int64)
+    out = b""
+    for y in range(h):
+        x = px[y]
+        up = px[y - 1] if y else np.zeros_like(x)
+        a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
+        c_ = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        kind = filters[y % len(filters)]
+        pred = (0, a, up, (a + up) // 2, _paeth(a, up, c_))[kind]
+        out += bytes([kind]) + ((x - pred) % 256).astype(np.uint8).tobytes()
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                           0, 0, 0)))
+        raw = zlib.compress(out)  # two IDAT chunks, as encoders may split
+        f.write(chunk(b"IDAT", raw[:len(raw) // 2]))
+        f.write(chunk(b"IDAT", raw[len(raw) // 2:]))
+        f.write(chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("kind", ["flow16", "gray16", "rgb8", "ga16",
+                                  "rgba8"])
+def test_png_decoder_every_filter(tmp_path, kind):
+    """Hand-written PNGs whose rows use all five filter types: the port's
+    decoder gives back the samples exactly, and KITTI's readers agree with
+    codd_tpu's, which decode through its native C++ decoder."""
+    from codd_tpu.data import native
+    rng = np.random.RandomState(5)
+    shape, dtype = {"flow16": ((11, 13, 3), np.uint16),
+                    "gray16": ((11, 13), np.uint16),
+                    "rgb8": ((11, 13, 3), np.uint8),
+                    "ga16": ((7, 9, 2), np.uint16),
+                    "rgba8": ((7, 9, 4), np.uint8)}[kind]
+    img = rng.randint(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    img[2] = img[1]                         # runs that Sub / Up / Paeth see
+    img[:, 4] = img[:, 3]
+    path = str(tmp_path / f"{kind}.png")
+    _write_png(path, img)
+    got = tio.read_png(path)
+    assert got.dtype == dtype and got.shape == img.shape
+    np.testing.assert_array_equal(got, img)
+    assert native.native_available(), "codd_tpu's native decoder is built here"
+    np.testing.assert_array_equal(native.decode(path), img.astype(np.float32))
+    if kind == "flow16":
+        flow, valid = tio.read_kitti_flow(path)
+        rflow, rvalid = jio.read_kitti_flow(path)
+        np.testing.assert_array_equal(flow, rflow)
+        np.testing.assert_array_equal(valid, rvalid)
+        np.testing.assert_array_equal(
+            flow, (img[..., :2].astype(np.float32) - 2 ** 15) / 64.0)
+        assert flow.dtype == valid.dtype == np.float32
+    if kind == "gray16":
+        got = tio.read_kitti_disparity(path)
+        np.testing.assert_array_equal(got, jio.read_kitti_disparity(path))
+        np.testing.assert_array_equal(got, img.astype(np.float32) / 256.0)
+
+
+def test_png_decoder_rejects_what_it_does_not_cover(tmp_path):
+    import struct
+    import zlib
+    (tmp_path / "x.png").write_bytes(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="not a PNG"):
+        tio.read_png(str(tmp_path / "x.png"))
+    ihdr = struct.pack(">IIBBBBB", 2, 2, 8, 3, 0, 0, 0)      # palette
+    body = (b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + b"IHDR" + ihdr
+            + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr)))
+    (tmp_path / "p.png").write_bytes(body)
+    with pytest.raises(ValueError, match="unsupported"):
+        tio.read_png(str(tmp_path / "p.png"))
+
+
+def test_png_codecs_match(tmp_path):
+    """KITTI 16-bit disparity and flow, Sintel disparity and segmentation:
+    the port reads KITTI's PNGs with its own decoder and Sintel's through
+    imageio, codd_tpu through its native decoder; the decoded values are
+    equal.  The 16-bit RGB flow file is written by hand (PIL writes none);
+    the port read it as 8 bits through imageio before it had a decoder."""
     import imageio.v2 as imageio
     rng = np.random.RandomState(2)
     d16 = (rng.rand(6, 8) * 60000).astype(np.uint16)
@@ -93,19 +189,18 @@ def test_png_codecs_match(tmp_path, monkeypatch):
     np.testing.assert_array_equal(
         tio.read_kitti_disparity(str(tmp_path / "d.png")),
         jio.read_kitti_disparity(str(tmp_path / "d.png")))
-    # KITTI flow is 16-bit RGB, which PIL can neither write nor read in
-    # full: the arithmetic is held on a stubbed decode, and a file that
-    # decodes to 8 bits raises instead of giving wrong flow
+    np.testing.assert_array_equal(
+        tio.read_kitti_disparity(str(tmp_path / "d.png")),
+        d16.astype(np.float32) / 256.0)
     f16 = (rng.rand(6, 8, 3) * 60000).astype(np.uint16)
-    monkeypatch.setattr(tio, "imread", lambda path: f16)
-    flow, valid = tio.read_kitti_flow("x.png")
+    _write_png(str(tmp_path / "f.png"), f16)
+    flow, valid = tio.read_kitti_flow(str(tmp_path / "f.png"))
+    rflow, rvalid = jio.read_kitti_flow(str(tmp_path / "f.png"))
     np.testing.assert_array_equal(
         flow, (f16[..., :2].astype(np.float32) - 2 ** 15) / 64.0)
     np.testing.assert_array_equal(valid, f16[..., 2].astype(np.float32))
-    monkeypatch.setattr(tio, "imread", lambda path: f16.astype(np.uint8))
-    with pytest.raises(ValueError, match="16-bit"):
-        tio.read_kitti_flow("x.png")
-    monkeypatch.undo()
+    np.testing.assert_array_equal(flow, rflow)
+    np.testing.assert_array_equal(valid, rvalid)
     rgb = (rng.rand(6, 8, 3) * 255).astype(np.uint8)
     imageio.imwrite(str(tmp_path / "s.png"), rgb)
     np.testing.assert_allclose(

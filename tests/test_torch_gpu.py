@@ -50,17 +50,101 @@ def test_tile_warp_kernel(dev):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
 
 
-def test_corr_lookup_kernel(dev):
+def _corr_coords(dev, r, B=2, h=12, w=40):
+    """Batch element 0 coherent (the grid plus 0.3 px), element 1 scattered
+    (plus N(0, 8^2) px); in both, windows wholly outside the level, partly
+    outside (the first and last valid starts) and at the padded edge."""
     g = _g()
-    f1, f2 = (torch.randn(2, 12, 20, 64, generator=g).to(dev)
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    grid = torch.stack([xs, ys], -1).float()
+    c = torch.stack([grid + torch.randn(h, w, 2, generator=g) * 0.3,
+                     grid + torch.randn(h, w, 2, generator=g) * 8.0])[:B]
+    c[:, 0, 0] = torch.tensor([-30.0, 2.0])                 # wholly outside
+    c[:, 0, 1] = torch.tensor([-(r + 0.5), 2.0])            # first valid
+    c[:, 0, 2] = torch.tensor([-(r + 1.5), 2.0])            # just outside
+    c[:, 5, 3] = torch.tensor([w - 1 + r + 0.5, h - 1 + r + 0.5])  # edge
+    c[:, 5, 4] = torch.tensor([w + r + 0.5, 1.0])           # right, outside
+    c[:, 6, 6] = torch.tensor([3.0, 4.0])                   # exact integers
+    return c.to(dev).contiguous()
+
+
+def _four_levels(pyr, coords, r, per_level):
+    """corr_lookup's one launch, and one launch a level into the same
+    channels: equal bits."""
+    got = corr.corr_lookup(pyr, coords, r)
+    per = torch.full_like(got, float("nan"))
+    for i in range(4):
+        per_level(i, per)
+    torch.cuda.synchronize()
+    assert torch.equal(got, per)
+    return got
+
+
+@pytest.mark.parametrize("r", [0, 1, 3])
+def test_corr_lookup_kernel(dev, r):
+    g = _g()
+    f1, f2 = (torch.randn(2, 12, 40, 64, generator=g).to(dev)
               for _ in range(2))
-    vols = corr.build_corr_pyramid(f1, f2, 4, 3)
-    coords = (torch.rand(2, 12, 20, 2, generator=g) * 30 - 5).to(dev)
-    for lvl, vol in enumerate(vols):
-        got = _launched("corr_lookup", lambda: corr.corr_lookup_level(
-            vol, coords, 3, 1.0 / 2 ** lvl))
-        ref = corr.corr_lookup_level_plain(vol, coords / 2 ** lvl, 3)
-        torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+    vols = corr.build_corr_pyramid(f1, f2, 4, r)
+    coords = _corr_coords(dev, r)
+    K = (2 * r + 1) ** 2
+    kernels.reset_counts()
+    got = _four_levels(vols, coords, r, lambda i, out: corr.corr_lookup_level(
+        vols[i], coords, r, 1.0 / 2 ** i, out=out, offset=i * K))
+    assert kernels.counts()["corr_lookup"] == 1 + 4
+    ref = torch.cat([corr.corr_lookup_level_plain(v, coords / 2 ** i, r)
+                     for i, v in enumerate(vols)], -1)
+    # the same bf16 taps and the same bilinear arithmetic order
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+    # level 0: masked outside, not at the first valid start
+    assert not got[:, 0, 0, :K].any() and got[:, 0, 1, :K].any()
+    with pytest.raises(ValueError):
+        corr.corr_lookup_level(vols[0][:, :-1].contiguous(), coords, r)
+
+
+@pytest.mark.parametrize("r", [0, 1, 3])
+def test_corr_patch_kernel(dev, r, monkeypatch):
+    """Both of kernel 6's paths in one launch (the plain planner shows
+    that the inputs reach both), against the plain version, four levels
+    equal to one launch a level, and every block through global memory
+    (box budget 0) equal in bits to the staged run."""
+    g = _g()
+    f1, f2 = (torch.randn(2, 12, 40, 128, generator=g).to(dev)
+              for _ in range(2))
+    pyr = corr.build_corr_pyramid(f1, f2, 4, r, impl="patch")
+    coords = _corr_coords(dev, r)
+    K = (2 * r + 1) ** 2
+    plan = corr.patch_lookup_plan(
+        coords, [tuple(l.shape[1:3]) for l in pyr["levels"]], r)
+    assert plan[0].any() and not plan[0].all()
+    got = _four_levels(pyr, coords, r,
+                       lambda i, out: corr.corr_patch_lookup_level(
+                           pyr["f1"], pyr["levels"][i], coords, r,
+                           1.0 / 2 ** i, out=out, offset=i * K))
+    ref = torch.cat([corr.corr_patch_lookup_level_plain(
+        pyr["f1"], l, coords / 2 ** i, r) for i, l in enumerate(pyr["levels"])],
+        -1)
+    # f32 sums of 128 exact products in another order
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+    # level 0: masked outside, not at the first valid start
+    assert not got[:, 0, 0, :K].any() and got[:, 0, 1, :K].any()
+    monkeypatch.setattr(corr, "PATCH_BOX_BYTES", 0)
+    direct = corr.corr_lookup(pyr, coords, r)
+    torch.cuda.synchronize()
+    assert torch.equal(direct, got)
+    monkeypatch.undo()
+    kernels.reset_counts()
+    out = corr.corr_lookup(pyr, coords, r)
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_patch_lookup"] == 1
+    assert kernels.counts()["corr_lookup"] == 0 and out.shape[-1] == 4 * K
+    bad = {"f1": pyr["f1"][..., :64].contiguous(),
+           "levels": [l[..., :64].contiguous() for l in pyr["levels"]]}
+    with pytest.raises(ValueError):
+        corr.corr_lookup(bad, coords, r)
+    with pytest.raises(NotImplementedError):
+        corr.corr_patch_lookup_level(pyr["f1"], pyr["levels"][0],
+                                     coords.clone().requires_grad_(), r)
 
 
 def _gn_inputs(dev, h=12, w=72, B=1, scale=1 / 8):
@@ -186,36 +270,6 @@ def test_gn_step_routes_at_every_width(dev, bf16):
         torch.testing.assert_close(out, dense, atol=1e-5, rtol=1e-4)
 
 
-def test_corr_patch_kernel(dev):
-    g = _g()
-    f1, f2 = (torch.randn(2, 12, 20, 128, generator=g).to(dev)
-              for _ in range(2))
-    pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
-    coords = (torch.rand(2, 12, 20, 2, generator=g) * 40 - 10).to(dev)
-    coords[:, 0, 0] = torch.tensor([3.0, 4.0], device=dev)
-    coords[:, 0, 1] = torch.tensor([-30.0, 2.0], device=dev)
-    for lvl, f2p in enumerate(pyr["levels"]):
-        got = _launched("corr_patch_lookup",
-                        lambda: corr.corr_patch_lookup_level(
-                            pyr["f1"], f2p, coords, 3, 1.0 / 2 ** lvl))
-        ref = corr.corr_patch_lookup_level_plain(pyr["f1"], f2p,
-                                                 coords / 2 ** lvl, 3)
-        # f32 sums of 128 exact products in another order
-        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
-    kernels.reset_counts()
-    out = corr.corr_lookup(pyr, coords, 3)
-    torch.cuda.synchronize()
-    assert kernels.counts()["corr_patch_lookup"] == 4
-    assert kernels.counts()["corr_lookup"] == 0 and out.shape[-1] == 196
-    bad = {"f1": pyr["f1"][..., :64].contiguous(),
-           "levels": [l[..., :64].contiguous() for l in pyr["levels"]]}
-    with pytest.raises(ValueError):
-        corr.corr_lookup(bad, coords, 3)
-    with pytest.raises(NotImplementedError):
-        corr.corr_patch_lookup_level(pyr["f1"], pyr["levels"][0],
-                                     coords.clone().requires_grad_(), 3)
-
-
 def test_splat_composite_kernel(dev):
     g = _g()
     h, w = 48, 80
@@ -245,8 +299,9 @@ def test_streaming_goes_through_the_kernels(dev):
     for left, right in frames[1:]:
         carry, out = model.step(carry, left, right, intr)
     torch.cuda.synchronize()
-    # 9 tile warps a frame; 4 corr levels, 1 GN solve an iteration; 2 splats
-    assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 16,
+    # 9 tile warps a frame; one corr lookup (four levels) and one GN solve
+    # an iteration; 2 splats
+    assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 4,
                                 "gn_fused_solve": 4, "splat_composite": 4,
                                 "gn_window_aggregate": 0,
                                 "corr_patch_lookup": 0}
@@ -286,6 +341,6 @@ def test_eval_path_goes_through_kernels_5_and_6(dev):
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 0,
                                 "gn_fused_solve": 0, "splat_composite": 4,
                                 "gn_window_aggregate": 4,
-                                "corr_patch_lookup": 16}
+                                "corr_patch_lookup": 4}
     assert all(np.isfinite(v) for v in metrics.values())
     assert metrics["count"] > 0
