@@ -20,10 +20,16 @@ Phases, in order:
      launch a level), on a smooth and a scattered coordinate field, with
      the share of the patch lookup's blocks that stage their window box in
      shared memory, and grid_sample's time beside the volume lookup's;
+     the splat compositor at both call sites of the motion module (full
+     res C=6 r=1, the row's time; quarter res 96x320 C=32 r=2, its time
+     and bound as extra fields of the row) and at C=8, each form of it
+     timed and equal in bits to the one chosen, with the run lengths and
+     sort_fragments' time (projection, torch.sort, searchsorted) beside;
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
-     the launch count of every kernel, ms/frame and peak memory;
+     the launch count of every kernel, ms/frame and peak memory; then the
+     splat compositor's forms on the last step's own two inputs;
   5. eval: the dataset evaluation path, ``run_inference(evaluate=True)``
      over an in-memory dataset of 2 synthetic sequences x 4 frames at
      384x1280 with exact ground truth, with ``runtime = {gn_impl:
@@ -259,6 +265,81 @@ def corr_patch_check(pyr, fields):
         library_ms=None)
 
 
+def splat_work(order, offsets, N, C, ppp=8):
+    """Bytes and operations of kernel 4 on one input, as this input needs
+    them: per pixel its offset and outputs; the ids and alphas of the
+    fragments it composites (the first ``ppp`` of each run; for zbuf the
+    first id at least); the feature rows of their distinct points; the
+    depths of the distinct points in front."""
+    import torch
+    dev = offsets.device
+    npix = offsets.numel() - 1
+    used = (offsets[1:] - offsets[:-1]).clamp(max=max(ppp, 1))
+    pid = torch.repeat_interleave(torch.arange(npix, device=dev), used)
+    start = torch.cumsum(used, 0) - used
+    rank = torch.arange(pid.numel(), device=dev) - start[pid]
+    n = order[offsets[:-1][pid] + rank] % N
+    comp = rank < ppp
+    ncomp = int(comp.sum())
+    rows = torch.unique(n[comp]).numel()
+    front = torch.unique(n[rank == 0]).numel()
+    nbytes = (8 * pid.numel() + 4 * ncomp + 8 * (npix + 1) + 4 * front
+              + 4 * C * rows + 4 * npix * (C + 2))
+    return nbytes, float(ncomp) * (2 * C + 6)
+
+
+def splat_forms(label, args, ppp=8):
+    """Kernel 4 on one input: its error against the plain version, every
+    form of it equal in bits to the chosen one and to a second launch, the
+    run lengths, each form's time, and the bound.  ``args`` are
+    composite's (order, offsets, alpha, z, feat)."""
+    import torch
+    from codd_torch.ops import splat
+    got = splat.composite(*args, ppp)
+    ref = splat.composite_plain(*args, ppp)
+    torch.cuda.synchronize()
+    # same fragment order; the plain version sums log-transmittance in f64
+    err = _compare(f"splat_composite ({label})", got, ref, 1e-5, 1e-4)
+    offsets, feat = args[1], args[4]
+    N, C = feat.shape
+    forms = [f for f in splat.FORMS if f != "auto"
+             and (f != "walk" or C <= splat.WALK_C)]
+    for f in ["auto"] + forms:
+        again = splat.composite_form(*args, f, ppp)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"splat_composite ({label}): form {f} differs in bits")
+    npix = offsets.numel() - 1
+    run = offsets[1:] - offsets[:-1]
+    nbytes, flops = splat_work(args[0], offsets, N, C, ppp)
+    lb, _ = bound_ms(nbytes, flops)
+    ms = cuda_ms(lambda: splat.composite(*args, ppp))
+    times = {f: cuda_ms(lambda: splat.composite_form(*args, f, ppp))
+             for f in forms}
+    print(f"  splat ({label}): {npix} pixels, {N} points, C={C}, "
+          f"{int(offsets[-1])} fragments, runs up to {int(run.max())} (mean "
+          f"{float(run.float().mean()):.2f}, {float((run > ppp).float().mean()):.3f}"
+          f" past {ppp}, {float((run == 0).float().mean()):.3f} empty); "
+          f"composite {ms:.4f} ms (bound {lb:.4f} ms, {lb / ms:.2f} of it); "
+          "forms, equal in bits: "
+          + "  ".join(f"{f} {t:.4f}" for f, t in times.items()))
+    return dict(err=err, ms=ms, bound_ms=lb, bytes=nbytes, flops=flops)
+
+
+def splat_check(label, X, intr, h, w, radius, feat):
+    """Kernel 4 at one call site on seeded points (``splat_forms``), the
+    plain version's time and sort_fragments's (projection, torch.sort,
+    searchsorted)."""
+    import torch
+    from codd_torch.ops import splat
+    order, offsets, alpha, Z = splat.sort_fragments(X, intr, h, w, radius)
+    args = (order, offsets, alpha, Z.contiguous(), feat)
+    res = splat_forms(label, args)
+    sort_ms = cuda_ms(lambda: splat.sort_fragments(X, intr, h, w, radius))
+    print(f"  splat ({label}): sort_fragments {sort_ms:.4f} ms")
+    return dict(res, plain_ms=cuda_ms(lambda: splat.composite_plain(*args)))
+
+
 def kernel_checks(dev):
     import torch
     from codd_torch.ops import corr, gn, se3, splat, tile_warp
@@ -398,29 +479,32 @@ def kernel_checks(dev):
     pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
     rows.append(corr_patch_check(pyr, fields))
 
-    # -- kernel 4: splat compositor at the full-res call (C=6, r=1) --
+    # -- kernel 4: splat compositor at both call sites of the motion module:
+    # full res (C=6, r=1; the row's time and bound) and quarter res (C=32,
+    # r=2), built as codd_torch/models/motion/motion.py builds them --
     intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
     depth = rand(1, H, W, lo=2.0, hi=60.0)
-    X2 = se3.act(se3.exp(randn(1, H, W, 6, scale=0.01)),
-                 inv_project(depth, intr)).reshape(-1, 3)
-    feat = randn(H * W, 6)
+    Ts = se3.exp(randn(1, H, W, 6, scale=0.01))
+    X2 = se3.act(Ts, inv_project(depth, intr)).reshape(-1, 3)
+    full = splat_check("full res 384x1280, C=6, r=1", X2, intr[0], H, W, 1.0,
+                       randn(H * W, 6))
+    # the forms at the walk's widest C, where the launcher still walks
     order, offsets, alpha, Z = splat.sort_fragments(X2, intr[0], H, W, 1.0)
-    args = (order, offsets, alpha, Z.contiguous(), feat)
-    got = splat.composite(*args)
-    ref = splat.composite_plain(*args)
-    torch.cuda.synchronize()
-    # same fragment order; the plain version sums log-transmittance in f64
-    err = _compare("splat_composite", got, ref, 1e-5, 1e-4)
-    M = int(offsets[-1])
-    run = (offsets[1:] - offsets[:-1]).clamp(max=8)
+    splat_forms(f"full res, C={splat.WALK_C}, the walk's widest",
+                (order, offsets, alpha, Z.contiguous(),
+                 randn(H * W, splat.WALK_C)))
+    intr4 = intr / 4
+    X2q = se3.act(Ts[:, 1::4, 1::4], inv_project(depth[:, 1::4, 1::4], intr4))
+    quarter = splat_check("quarter res 96x320, C=32, r=2", X2q.reshape(-1, 3),
+                          intr4[0], H // 4, W // 4, 2.0,
+                          randn((H // 4) * (W // 4), 32))
     rows.append(dict(
         name="splat_composite", source="codd_torch/csrc/splat_composite.cu",
         replaces="codd_tpu/ops/pallas/splat_composite.py:165",
-        max_abs_err=err, ms=cuda_ms(lambda: splat.composite(*args)),
-        plain_ms=cuda_ms(lambda: splat.composite_plain(*args)),
-        bytes=8 * M + 4 * M + 8 * (H * W + 1) + 4 * Z.numel()
-        + 4 * feat.numel() + 4 * H * W * (6 + 2),
-        flops=float(run.sum()) * (2 * 6 + 6), library_ms=None))
+        max_abs_err=max(full["err"], quarter["err"]), ms=full["ms"],
+        plain_ms=full["plain_ms"], bytes=full["bytes"], flops=full["flops"],
+        library_ms=None, ms_quarter=quarter["ms"],
+        bound_ms_quarter=quarter["bound_ms"]))
 
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound_ms(
@@ -521,6 +605,26 @@ def stream(model, intr, seq):
     return t_first, step_ms, outs
 
 
+@contextlib.contextmanager
+def last_splat_inputs():
+    """Keep the inputs of the last two splat composites run inside (one
+    step's two call sites), features copied."""
+    from codd_torch.ops import splat
+    kept, real = [], splat.composite
+
+    def keep(order, offsets, alpha, z, feat, points_per_pixel=8):
+        kept.append(((order, offsets, alpha, z, feat.clone()),
+                     points_per_pixel))
+        del kept[:-2]
+        return real(order, offsets, alpha, z, feat, points_per_pixel)
+
+    splat.composite = keep
+    try:
+        yield kept
+    finally:
+        splat.composite = real
+
+
 def main_path(dev, steps: int):
     import torch
     from codd_torch.ops import kernels
@@ -532,7 +636,8 @@ def main_path(dev, steps: int):
     torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_counts()
-    t_first, step_ms, outs = stream(model, intr, seq)
+    with last_splat_inputs() as splat_inputs:
+        t_first, step_ms, outs = stream(model, intr, seq)
     launches = kernels.counts()
 
     expect = {"tile_warp_cost": 9 * (steps + 1), "corr_lookup": 16 * steps,
@@ -555,6 +660,10 @@ def main_path(dev, steps: int):
     print(f"  pred_disp frame {steps}: mean {float(outs[-1]['pred_disp'].mean()):.3f}"
           f" min {float(outs[-1]['pred_disp'].min()):.3f}"
           f" max {float(outs[-1]['pred_disp'].max()):.3f}")
+    # kernel 4 on the last step's own inputs (launches after the count)
+    for (args, ppp), label in zip(splat_inputs, ("main path, full res",
+                                                 "main path, quarter res")):
+        splat_forms(label, args, ppp)
     return model, intr, seq, launches, float(np.median(step_ms))
 
 
@@ -768,7 +877,7 @@ def profile_step(model, intr, seq, out_file: Path):
     hand = {"tile_warp_cost_kernel": "tile_warp_cost",
             "corr_lookup_kernel": "corr_lookup",
             "gn_fused_solve_kernel": "gn_fused_solve",
-            "splat_composite_kernel": "splat_composite",
+            "splat_composite_": "splat_composite",  # _walk or _lanes
             "gn_window_aggregate_kernel": "gn_window_aggregate",
             "corr_patch_lookup_kernel": "corr_patch_lookup"}
     mine = {v: sum(r[1] for r in rows if k in r[0]) for k, v in hand.items()}
@@ -897,8 +1006,10 @@ def main():
         if r["launches"] == 0 and {"main", "eval"} <= phases:
             fail(f"{r['name']}: launched no time on the main paths")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "ms_quarter", "bound_ms_quarter")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -44,7 +44,7 @@ KERNELS = {
                        [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P]),
     "splat_composite": ("splat_composite.cu", "splat_composite_launch",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P]),
+                         _I, _P]),
     "gn_window_aggregate": ("gn_window.cu", "gn_window_aggregate_launch",
                             [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "corr_patch_lookup": ("corr_patch.cu", "corr_patch_lookup_launch",

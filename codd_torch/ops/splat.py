@@ -17,13 +17,23 @@ orders them arbitrarily.  ``torch.searchsorted`` gives each pixel's run.
 
 The compositor (``csrc/splat_composite.cu``) replaces the TPU kernel
 ``codd_tpu/ops/pallas/splat_composite.py:composite_tiles``
-(``pl.pallas_call`` at :165): one thread per pixel walks its run in
-log-transmittance, with no per-tile overflow drop (a documented divergence
-of the Pallas kernel that the port does not copy).  On the H100 it is
-bound by bytes: per fragment an 8-byte sort index and a 4-byte alpha, per
-pixel its offsets, features, depth and outputs (~50 MB at the full-res C=6
-call), read once; the XLA path instead runs a segmented scan, a global
-(M, C+2) cumsum and a second sort.
+(``pl.pallas_call`` at :165), with no per-tile overflow drop (a documented
+divergence of the Pallas kernel that the port does not copy), in one
+launch of one of two forms, chosen by C.  For C <= 8 a thread walks its
+pixel's run with the sums in registers (the full-res call: C=6, ~2-3
+fragments a pixel, bound by its gathers' traffic).  For wider features
+eight lanes of a warp take a pixel, four channels each: they read the
+ids and alphas of the run's first ``points_per_pixel`` fragments a lane a
+fragment, share them by shuffles, and load feature rows across the lanes
+(the quarter-res call: C=32, ~9-12 fragments a pixel, too few pixels to
+hide a walk's dependent loads).  Each output is the same sequence of
+rounded operations as a walk of its pixel's run, for any C and any run
+length.  On the H100 the work is bytes: per pixel its offset and outputs;
+for the fragments it composites (the first ``points_per_pixel`` of each
+run) an 8-byte id and a 4-byte alpha; the feature rows and front depths
+of their points (~50 MB at the full-res C=6 call, ~11 MB at the
+quarter-res C=32 call); the XLA path instead runs a segmented scan, a
+global (M, C+2) cumsum and a second sort.
 """
 
 from __future__ import annotations
@@ -35,6 +45,10 @@ import torch
 from . import kernels
 
 __all__ = ["splat_render", "composite", "composite_plain"]
+
+WALK_C = 8  # channels the walk holds in registers (csrc/splat_composite.cu)
+# the kernel's forms, by the launcher's code ("auto" chooses by C)
+FORMS = {"auto": 0, "walk": 1, "lanes": 2}
 
 
 def _quantize_z(z, z_bits: int):
@@ -102,15 +116,31 @@ def composite(order, offsets, alpha, z, feat, points_per_pixel=8):
     if not feat.is_cuda:
         return composite_plain(order, offsets, alpha, z, feat,
                                points_per_pixel)
+    return composite_form(order, offsets, alpha, z, feat, "auto",
+                          points_per_pixel)
+
+
+
+def composite_form(order, offsets, alpha, z, feat, form="auto",
+                   points_per_pixel=8):
+    """The kernel on CUDA tensors in a chosen form (``FORMS``: "walk" holds
+    at most ``WALK_C`` channels, "lanes" any); every form gives the same
+    bits."""
     N, C = feat.shape
     npix = offsets.numel() - 1
     kernels.check_cuda("splat_composite", order, offsets, alpha, z, feat,
                        dtypes=(torch.int64, torch.int64, torch.float32,
                                torch.float32, torch.float32))
-    if C > 32 or z.numel() != N or alpha.numel() != order.numel():
+    if z.numel() != N or alpha.numel() != order.numel():
         raise ValueError(f"splat_composite: bad shapes feat {tuple(feat.shape)}"
                          f" z {tuple(z.shape)} alpha {tuple(alpha.shape)} "
-                         f"order {tuple(order.shape)} (needs C <= 32)")
+                         f"order {tuple(order.shape)}")
+    if order.numel() >= 2 ** 31:
+        raise ValueError(f"splat_composite: {order.numel()} fragments; the "
+                         "kernel indexes them in 32 bits (needs K*N < 2^31)")
+    if form == "walk" and C > WALK_C:
+        raise ValueError(f"splat_composite: the walk holds at most {WALK_C} "
+                         f"channels, not {C}")
     dev = feat.device
     out = torch.empty((npix, C), dtype=torch.float32, device=dev)
     zbuf = torch.empty((npix,), dtype=torch.float32, device=dev)
@@ -118,7 +148,7 @@ def composite(order, offsets, alpha, z, feat, points_per_pixel=8):
     kernels.launch("splat_composite", order.data_ptr(), offsets.data_ptr(),
                    alpha.data_ptr(), z.data_ptr(), feat.data_ptr(),
                    out.data_ptr(), zbuf.data_ptr(), cnt.data_ptr(), npix, N,
-                   C, points_per_pixel, kernels.stream_ptr(dev))
+                   C, points_per_pixel, FORMS[form], kernels.stream_ptr(dev))
     return out, zbuf, cnt
 
 

@@ -6,6 +6,7 @@ checks at the full 384x1280 shapes).  Torch only, so that it also runs
 where JAX is not installed:
 ``python -m pytest tests/test_torch_gpu.py --noconftest -m gpu``."""
 
+import contextlib
 import pytest
 import torch
 
@@ -270,21 +271,64 @@ def test_gn_step_routes_at_every_width(dev, bf16):
         torch.testing.assert_close(out, dense, atol=1e-5, rtol=1e-4)
 
 
-def test_splat_composite_kernel(dev):
+def _splat_points(dev, h, w, cluster):
+    """The motion module's points for an (h, w) frame; ``cluster`` moves
+    3000 of them within a pixel of (40, 8) and the rest into the top third
+    of the frame, so a few pixels hold thousands of fragments and the rows
+    below 18 none."""
     g = _g()
-    h, w = 48, 80
     intr = torch.tensor([60.0, 60.0, w / 2, h / 2], device=dev)
     depth = (torch.rand(1, h, w, generator=g) * 30 + 2).to(dev)
     pts = se3.act(se3.exp((torch.randn(1, h, w, 6, generator=g) * 0.01)
                           .to(dev)), inv_project(depth, intr[None]))
-    feat = torch.randn(h * w, 32, generator=g).to(dev)
-    order, offsets, alpha, Z = splat.sort_fragments(pts.reshape(-1, 3), intr,
-                                                    h, w, 2.0)
-    args = (order, offsets, alpha, Z.contiguous(), feat)
+    pts = pts.reshape(-1, 3)
+    if cluster:
+        u = torch.rand(h * w, 2, generator=g).to(dev)
+        spot = torch.tensor([40.0, 8.0], device=dev)
+        top = torch.tensor([float(w), h / 3], device=dev)
+        first = torch.arange(h * w, device=dev)[:, None] < 3000
+        uv = torch.where(first, u + spot, u * top)
+        Z = pts[:, 2:]
+        pts = torch.cat([(uv - intr[2:]) / intr[:2] * Z, Z], -1)
+    return pts, intr, g
+
+
+@pytest.mark.parametrize("C,radius,cluster,ppp", [
+    (6, 1.0, False, 8),    # the full-res call
+    (32, 2.0, False, 8),   # the quarter-res call
+    (1, 2.0, False, 8),
+    (40, 2.0, False, 8),   # past the 32 channels the first kernel took
+    (6, 1.0, True, 8),
+    (40, 2.0, True, 8),
+    (40, 2.0, True, 50),   # more fragments composited than a warp has lanes
+    (6, 1.0, True, 0)])
+def test_splat_composite_kernel(dev, C, radius, cluster, ppp):
+    """Kernel 4 against the plain version, two launches equal in bits, and
+    every form of it equal in bits to the one it chooses.  A clustered
+    scene has runs of more than 2048 fragments, far past points_per_pixel,
+    beside empty rows."""
+    h, w = 48, 80
+    pts, intr, g = _splat_points(dev, h, w, cluster)
+    feat = torch.randn(h * w, C, generator=g).to(dev)
+    order, offsets, alpha, Z = splat.sort_fragments(pts, intr, h, w, radius)
+    runs = offsets[1:] - offsets[:-1]
+    if cluster:
+        assert int(runs.max()) > 2048 and not runs[18 * w:].any()
+    args = (order, offsets, alpha, Z.contiguous(), feat, ppp)
     got = _launched("splat_composite", lambda: splat.composite(*args))
     ref = splat.composite_plain(*args)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    again = splat.composite(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for form in splat.FORMS:
+        if form != "walk" or C <= splat.WALK_C:
+            other = splat.composite_form(*args[:5], form, ppp)
+            assert all(torch.equal(a, b) for a, b in zip(got, other)), form
+    with pytest.raises(ValueError) if C > splat.WALK_C else \
+            contextlib.nullcontext():
+        splat.composite_form(*args[:5], "walk", ppp)
 
 
 def test_streaming_goes_through_the_kernels(dev):

@@ -90,6 +90,55 @@ def test_splat_matches_gather_pallas_and_bruteforce(H, W, C, N, radius):
     np.testing.assert_allclose(tz[0].numpy(), bz, atol=1e-6)
 
 
+def _clustered_scene(H, W, C, N, n_cluster, seed):
+    """``n_cluster`` of the N points within a pixel of one spot, the rest
+    spread over the frame: a few pixels hold thousands of fragments.
+    Depths 2 + 0.001 i stay distinct in the 25-bit z key of a 10x12 frame
+    and small enough for codd_tpu's cumsum."""
+    rng = np.random.RandomState(seed)
+    fx = fy = 15.0
+    cx, cy = W / 2 - 0.5, H / 2 - 0.5
+    Z = (2.0 + 0.001 * rng.permutation(N)).astype(np.float32)
+    px = rng.uniform(-2, W + 2, N).astype(np.float32)
+    py = rng.uniform(-2, H + 2, N).astype(np.float32)
+    px[:n_cluster] = rng.uniform(3.0, 4.0, n_cluster)
+    py[:n_cluster] = rng.uniform(4.0, 5.0, n_cluster)
+    pts = np.stack([(px - cx) / fx * Z, (py - cy) / fy * Z, Z], -1)[None]
+    feats = rng.randn(1, N, C).astype(np.float32)
+    intr = np.array([[fx, fy, cx, cy]], np.float32)
+    return pts.astype(np.float32), feats, intr
+
+
+def test_clustered_scene_long_runs_wide_features():
+    """Runs of thousands of fragments, far past points_per_pixel, and C=40,
+    past the 32 channels one pass of the card kernel's lane group holds:
+    the port's splat_render and composite_plain on the CPU against the
+    brute-force compositor and codd_tpu's gather path.  The card kernel is
+    held against composite_plain on the same kind of scene in
+    test_torch_gpu.py."""
+    H, W, C, N, radius = 10, 12, 40, 2600, 2.0
+    pts, feats, intr = _clustered_scene(H, W, C, N, 2300, seed=3)
+    args = (torch.from_numpy(pts), torch.from_numpy(feats),
+            torch.from_numpy(intr))
+    order, offsets, alpha, Z = tsplat.sort_fragments(args[0][0], args[2][0],
+                                                     H, W, radius)
+    runs = offsets[1:] - offsets[:-1]
+    assert int(runs.max()) > 2048 and int((runs > 8).sum()) > 4
+    out, zbuf, cnt = tsplat.composite_plain(order, offsets, alpha, Z,
+                                            args[1][0])
+    assert torch.equal(cnt, runs.float())
+    to, tz = tsplat.splat_render(*args, H, W, radius)
+    assert torch.equal(to[0].reshape(-1, C), out)
+    assert torch.equal(tz[0].reshape(-1), zbuf)
+    jo, jz = jsplat(*(jnp.asarray(a) for a in (pts, feats, intr)), H=H, W=W,
+                    radius_px=radius, impl="xla_gather")
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-4)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-3)
+    bo, bz = _brute(pts, feats, intr, H, W, radius)
+    np.testing.assert_allclose(to[0].numpy(), bo, atol=1e-5)
+    np.testing.assert_allclose(tz[0].numpy(), bz, atol=1e-6)
+
+
 def test_ties_break_on_fragment_index():
     """Equal packed keys keep fragment-index order (stable sort): of two
     points at the same depth on one pixel, the lower point id is in front."""
