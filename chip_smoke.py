@@ -25,6 +25,8 @@ Phases, in order:
      and bound as extra fields of the row) and at C=8, each form of it
      timed and equal in bits to the one chosen, with the run lengths and
      sort_fragments' time (projection, torch.sort, searchsorted) beside;
+     kernel 1 also in its two bf16 forms ("exact", "pallas") against
+     their plain bf16 versions, each timed beside the f32 form;
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -41,7 +43,17 @@ Phases, in order:
   6. plain: one frame pair at full width through the plain versions on
      the card, for the default and for the eval phase's configuration,
      the fused disparity held against the kernel run's, with the share of
-     moved pixels at each stage of the cascade and the first that moved.
+     moved pixels at each stage of the cascade and the first that moved;
+     then the default model in bf16 the same way, reported and not gated
+     (at random weights bf16 is chaotic).
+  bench: ``codd_torch/tools/bench.py`` in this process at 384x1280, a few
+     calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
+     lines (ms a call, stream ms, launches a call, peak memory, the card)
+     and its JSON line; the launches a call must be the main path's.
+  profile (not in the default phases): one step of each configuration,
+     and of the default one in bf16, under torch.profiler, split by
+     category into chiprun_out/profile_step*.txt; both configurations
+     streamed in turns.
 
 Any failure exits non-zero.  The line before the last holds the kernel
 table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -370,12 +382,44 @@ def kernel_checks(dev):
     npx = H * W
     nbytes = 4 * (2 * npx * C + hyp3.numel() + got.numel())
     flops = npx * (18 * C + 10)
-    rows.append(dict(
+    row = dict(
         name="tile_warp_cost", source="codd_torch/csrc/tile_warp.cu",
         replaces="codd_tpu/ops/pallas/tile_warp.py:123", max_abs_err=err,
         ms=cuda_ms(lambda: tile_warp.tile_warp_cost(hyp3, fl, fr)),
         plain_ms=cuda_ms(lambda: tile_warp.tile_warp_cost_plain(hyp3, fl, fr)),
-        bytes=nbytes, flops=flops, library_ms=None))
+        bytes=nbytes, flops=flops, library_ms=None)
+    # the bf16 forms on the same inputs rounded to bf16, each against its
+    # plain version in bf16: within 1 bf16 ulp (a pixel's 16 channels are
+    # summed in f32 in another order before the one rounding), almost all
+    # equal; half the bytes of the f32 form
+    b16 = [t.to(torch.bfloat16) for t in (hyp3, fl, fr)]
+    row["bound_ms_bf16"], _ = bound_ms(nbytes / 2, flops)
+    for form in ("exact", "pallas"):
+        got = tile_warp.tile_warp_cost(*b16, form)
+        ref = tile_warp.tile_warp_cost_plain(*b16, form)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+            fail(f"tile_warp_cost {form}: dtype {got.dtype} / {ref.dtype}")
+        diff = (got.float() - ref.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            ref.float().abs().clamp(min=1e-30))) - 7)
+        ulps, unequal = float((diff / ulp).max()), float(
+            (diff > 0).float().mean())
+        row[f"max_abs_err_bf16_{form}"] = float(diff.max())
+        row[f"ms_bf16_{form}"] = cuda_ms(
+            lambda: tile_warp.tile_warp_cost(*b16, form))
+        row[f"plain_ms_bf16_{form}"] = cuda_ms(
+            lambda: tile_warp.tile_warp_cost_plain(*b16, form))
+        print(f"  tile_warp_cost bf16 {form}: max_abs_err "
+              f"{float(diff.max()):.3e} ({ulps:.2f} bf16 ulps, bound 1; "
+              f"unequal share {unequal:.2e}, bound 1e-2); "
+              f"{row[f'ms_bf16_{form}']:.4f} ms (f32 form {row['ms']:.4f}), "
+              f"plain {row[f'plain_ms_bf16_{form}']:.4f} ms, bound "
+              f"{row['bound_ms_bf16']:.4f} ms")
+        if ulps > 1.0 or unequal > 1e-2:
+            fail(f"tile_warp_cost bf16 {form}: kernel and plain version "
+                 "disagree")
+    rows.append(row)
 
     # -- kernels 2 and 6: the corr lookups, four levels in one launch, on
     # two coordinate fields of the 48x160 queries --
@@ -573,6 +617,14 @@ def plain_versions():
         (hitnet.tile_warp_cost, corr.corr_lookup_levels, gn.gn_fused_solve,
          splat.composite, gn.gn_window_aggregate,
          corr.corr_patch_lookup_levels) = saved
+
+
+def bf16_copy(model):
+    """A bf16 copy of ``model`` (parameters and buffers cast), as
+    ``tools/bench.py --bf16`` runs it."""
+    import copy
+    from codd_torch.utils.precision import cast_floats
+    return cast_floats(copy.deepcopy(model))
 
 
 def build_model(name: str = "codd.py", **overrides):
@@ -809,12 +861,14 @@ def eval_phase(dev, steps, default_ms):
     return model, launches
 
 
-def plain_check(model, intr, seq, label: str):
+def plain_check(model, intr, seq, label: str, gate: bool = True):
     """One frame pair through the kernels and through the plain versions.
     Each stage's share of moved pixels (> 1e-2 * (1 + |plain|)) is printed:
     frame 0's stereo disparity, frame 1's stereo disparity, its induced
     flow, the motion-warped disparity, the fusion weights and the fused
-    disparity; the first stage that moved names where the runs part."""
+    disparity; the first stage that moved names where the runs part.
+    ``gate`` fails the run where more than 1e-3 of a disparity moved (the
+    bf16 model is reported only: at random weights bf16 is chaotic)."""
     import torch
     print(f"  {label}:")
     carry, out0_k = model.first_step(*seq[0], intr)
@@ -833,6 +887,7 @@ def plain_check(model, intr, seq, label: str):
               ("fused", out_k["pred_disp"], out_p["pred_disp"])]
     shares = []
     for name, a, b in stages:
+        a, b = a.float(), b.float()
         err = (a - b).abs()
         # random weights: argmax/floor decisions on near-ties may flip on
         # f32 sum-order differences, so a small share of pixels may move
@@ -845,11 +900,41 @@ def plain_check(model, intr, seq, label: str):
             fail(f"{name}: non-finite kernel output")
     first = next((st[0] for st, sh in zip(stages, shares) if sh > 0), None)
     print(f"  the runs part at: {first or 'no stage'}")
+    if not gate:
+        return
     for key in ("pred_curr", "pred_warp", "pred_disp"):
         a, b = out_k[key], out_p[key]
         share = float(((a - b).abs() > 1e-2 * (1 + b.abs())).float().mean())
         if share > 1e-3:
             fail(f"{key}: kernel run disagrees with the plain run")
+
+
+def bench_phase():
+    """``codd_torch/tools/bench.py`` in this process, a few calls each: f32
+    and bf16 at 384x1280, and bf16 --batch 2; each run's lines and its
+    JSON line.  The bf16 run's launches a call must be the f32 path's
+    (kernel 1 in its bf16 form).  Returns the bf16 run's launches."""
+    from codd_torch.tools import bench
+
+    base = ["--height", str(H), "--width", str(W), "--iters", "5",
+            "--warmup", "2"]
+    res = {}
+    for label, extra, B in (("f32", [], 1), ("bf16", ["--bf16"], 1),
+                            ("bf16 batch 2", ["--bf16", "--batch", "2"], 2)):
+        # the splats run image by image: two a batch element
+        per_call = {"tile_warp_cost": 9, "corr_lookup": 16,
+                    "gn_fused_solve": 16, "splat_composite": 2 * B}
+        print(f"  tools/bench.py {' '.join(base + extra)}", flush=True)
+        r = bench.run(bench.parse_args(base + extra),
+                      log=lambda line: print(f"    {line}"))
+        print("    " + json.dumps(r["line"]), flush=True)
+        if r["launches_per_call"] != per_call:
+            fail(f"bench {label}: launches a call {r['launches_per_call']} "
+                 f"!= {per_call}")
+        if not r["line"]["value"] > 0:
+            fail(f"bench {label}: no throughput: {r['line']}")
+        res[label] = r
+    return {k: int(v * 5) for k, v in res["bf16"]["launches_per_call"].items()}
 
 
 def profile_step(model, intr, seq, out_file: Path):
@@ -922,21 +1007,24 @@ def _category(kernel: str, hand) -> str:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,eval,plain",
-                    help="comma list of kernels, main, eval, plain, profile "
-                         "(profile writes chiprun_out/profile_step*.txt and streams "
-                         "both configurations in turns)")
+    ap.add_argument("--phases", default="kernels,main,eval,plain,bench",
+                    help="comma list of kernels, main, eval, plain, bench, "
+                         "profile (profile writes chiprun_out/profile_step*.txt"
+                         ", the bf16 model's too, and streams both "
+                         "configurations in turns)")
     ap.add_argument("--steps", type=int, default=3,
                     help="step calls of the main path after first_step")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    unknown = phases - {"kernels", "main", "eval", "plain", "profile"}
+    unknown = phases - {"kernels", "main", "eval", "plain", "bench",
+                        "profile"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
 
     try:
         import torch
         from codd_torch.ops import kernels
+        from codd_torch.utils.precision import cast_floats
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
     if not torch.cuda.is_available():
@@ -979,20 +1067,31 @@ def main():
             plain_check(model, intr, seq, "default runtime")
         if eval_model is not None:
             plain_check(eval_model, intr, seq, f"runtime {EVAL_RUNTIME}")
+        if model is not None:
+            plain_check(bf16_copy(model), intr, cast_floats(seq),
+                        "default runtime, bf16 (reported, not gated)",
+                        gate=False)
+    bf16_launches = {}
+    if "bench" in phases:
+        print("[bench] tools/bench.py at 384x1280: f32, bf16, bf16 batch 2",
+              flush=True)
+        bf16_launches = bench_phase()
     if "profile" in phases:
         if model is None and eval_model is None:
             fail("the profile phase needs the main or the eval phase")
         out_dir = Path(__file__).resolve().parent / "chiprun_out"
         intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
         seq = frames(2, dev)
-        for m, label, fname in (
-                (model, "default runtime", "profile_step.txt"),
+        for m, label, fname, fr in (
+                (model, "default runtime", "profile_step.txt", seq),
                 (eval_model, f"runtime {EVAL_RUNTIME}",
-                 "profile_step_eval.txt")):
+                 "profile_step_eval.txt", seq),
+                (model and bf16_copy(model), "default runtime, bf16",
+                 "profile_step_bf16.txt", cast_floats(seq))):
             if m is not None:
                 print(f"[profile] one step under torch.profiler, {label}",
                       flush=True)
-                profile_step(m, intr, seq, out_dir / fname)
+                profile_step(m, intr, fr, out_dir / fname)
         if model is not None and eval_model is not None:
             print("[profile] both configurations streamed in turns",
                   flush=True)
@@ -1005,9 +1104,14 @@ def main():
                          + eval_launches.get(r["name"], 0))
         if r["launches"] == 0 and {"main", "eval"} <= phases:
             fail(f"{r['name']}: launched no time on the main paths")
+        if r["name"] == "tile_warp_cost" and bf16_launches:
+            r["launches_bf16"] = bf16_launches["tile_warp_cost"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "ms_quarter", "bound_ms_quarter")
+            "ms_quarter", "bound_ms_quarter", "launches_bf16",
+            "max_abs_err_bf16_exact", "ms_bf16_exact", "plain_ms_bf16_exact",
+            "max_abs_err_bf16_pallas", "ms_bf16_pallas",
+            "plain_ms_bf16_pallas", "bound_ms_bf16")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

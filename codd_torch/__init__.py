@@ -8,6 +8,8 @@ ground-truth oracles, Kalman, none) and every ``model.runtime`` value
 
 * ``python -m codd_torch.tools.inference CONFIG [CHECKPOINT] --eval`` (or
   ``--show-dir``): a dataset's sequences through the model;
+* ``python -m codd_torch.tools.bench`` / ``codd_torch.tools.
+  benchmark_speed``: the speed benchmarks, in f32 or bf16;
 * ``apis.inference.run_inference`` / ``apis.evaluation.
   make_sequence_evaluator``: the same from Python, metrics accumulated on
   the device with one transfer a sequence;
@@ -38,7 +40,12 @@ Conventions:
   use and counts launches.
 * **Precision.**  Everything is float32 except the bf16 correlation
   features and volumes (and, with ``gn_bf16_scores``, the GN scores), as
-  in ``codd_tpu``.  ``build_estimator`` turns TF32 off for
+  in ``codd_tpu``.  A model cast to bf16 with ``utils.precision.
+  cast_floats`` and fed bf16 frames computes as ``codd_tpu`` under
+  ``bench.py --bf16``: compute follows the dtypes (convolutions promote
+  like flax's), f32 is kept for the SE(3) math, the GN system and solve,
+  the splat and the correlation products, and every carry and output
+  leaf takes ``codd_tpu``'s dtype.  ``build_estimator`` turns TF32 off for
   cuDNN convolutions and cuBLAS matmuls
   (``torch.backends.cudnn.allow_tf32 = False``,
   ``torch.backends.cuda.matmul.allow_tf32 = False``): reduced-precision

@@ -23,16 +23,20 @@ through).  What each knob does here:
                        three selects are bit-identical in ``codd_tpu``);
                        ``patch``: kernel 6, no volume.
 ``pixel_center_offset``  passed to both splats.
-``init_cost_variant``, ``tile_warp_variant``, ``splat_impl``,
-``splat_impl_lr``, ``gn_unroll``
+``tile_warp_variant``  kernel 1's form under bf16 features: ``pallas``
+                       computes in f32 and rounds the output, the others
+                       follow ``tile_warping`` step by step in bf16
+                       (``ops/tile_warp.py``).  In f32 they are one
+                       function.  ``tilewin``/``grouped`` are
+                       *approximations* in ``codd_tpu`` (fixed windows);
+                       the port does not reproduce them.
+``init_cost_variant``, ``splat_impl``, ``splat_impl_lr``, ``gn_unroll``
                        formulations of one function for the TPU's
                        compiler.  The port has one kernel per op and runs
                        it whatever the value; the value is validated.
-                       ``tile_warp_variant`` ``tilewin``/``grouped`` and
-                       the ``xla_window`` splats are *approximations* in
-                       ``codd_tpu`` (fixed windows, overflow drop); the
-                       port's kernels are exact and do not reproduce
-                       them.
+                       The ``xla_window`` splats are *approximations* in
+                       ``codd_tpu`` (overflow drop); the port's kernel is
+                       exact and does not reproduce them.
 ``splat_impl_train``   validated only: it names the splat a training
                        path runs, and the port has none yet.
 =====================  ====================================================
@@ -155,7 +159,8 @@ def build_estimator(model_cfg: Dict[str, Any], device=None,
         motion_type=_MOTION_TYPES[mname], fusion_type=_FUSION_TYPES[fname],
         gn_impl=rt["gn_impl"], gn_bf16_scores=bool(rt["gn_bf16_scores"]),
         corr_impl=rt["corr_impl"],
-        pixel_center_offset=float(rt["pixel_center_offset"]))
+        pixel_center_offset=float(rt["pixel_center_offset"]),
+        tile_warp_variant=rt["tile_warp_variant"])
     if seed is not None:
         init_weights(model, seed)
     # full-f32 convolutions and products: TF32 breaks the GN logits' norm

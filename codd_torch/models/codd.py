@@ -50,7 +50,8 @@ class CODD(nn.Module):
                  fusion_channel: int = 32, stereo_feat_channels: int = 24,
                  motion_type: str = "Motion", fusion_type: str = "Fusion",
                  gn_impl: str = "auto", gn_bf16_scores: bool = False,
-                 corr_impl: str = "auto", pixel_center_offset: float = 0.0):
+                 corr_impl: str = "auto", pixel_center_offset: float = 0.0,
+                 tile_warp_variant: str = "auto"):
         super().__init__()
         if motion_type not in MOTION_TYPES or fusion_type not in FUSION_TYPES:
             raise ValueError(f"motion_type {motion_type!r} / fusion_type "
@@ -58,7 +59,7 @@ class CODD(nn.Module):
                              f"{FUSION_TYPES}")
         self.motion_type = motion_type
         self.fusion_type = fusion_type
-        self.stereo = HITNetStereo(max_disp)
+        self.stereo = HITNetStereo(max_disp, tile_warp_variant)
         if motion_type == "Motion":
             self.motion = Motion(iters=iters, gn_impl=gn_impl,
                                  gn_bf16_scores=gn_bf16_scores,

@@ -34,6 +34,22 @@ def to_nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def _conv(fn, x, weight, bias, **kw):
+    """``fn`` (``F.conv2d`` / ``F.conv_transpose2d``) with input, weight and
+    bias in their common dtype, as flax promotes them (``promote_dtype``):
+    a bf16 kernel against an f32 input runs in f32, bf16 against bf16 in
+    bf16.  Below f32 on the CPU the products and sums run in f32 with one
+    rounding of the result (what cuDNN's bf16 kernels do on the card):
+    oneDNN's CPU bf16 kernels return wrong sums for some shapes (a 4x4,
+    stride-4 convolution of an 8x16x24 input, torch 2.13)."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if dt != torch.float32 and x.device.type == "cpu":
+        return _conv(fn, x.float(), weight.float(),
+                     None if bias is None else bias.float(), **kw).to(dt)
+    return fn(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt),
+              **kw)
+
+
 class Conv(nn.Module):
     """2D conv with torch-style integer padding and dilation (flax
     ``Conv`` with explicit symmetric padding)."""
@@ -47,7 +63,10 @@ class Conv(nn.Module):
                               bias=use_bias)
 
     def forward(self, x):
-        return to_nhwc(self.conv(to_nchw(x)))
+        c = self.conv
+        return to_nhwc(_conv(F.conv2d, to_nchw(x), c.weight, c.bias,
+                             stride=c.stride, padding=c.padding,
+                             dilation=c.dilation))
 
 
 class ConvTranspose(nn.Module):
@@ -60,7 +79,9 @@ class ConvTranspose(nn.Module):
         self.conv = nn.ConvTranspose2d(in_ch, features, kernel, stride=stride)
 
     def forward(self, x):
-        return to_nhwc(self.conv(to_nchw(x)))
+        c = self.conv
+        return to_nhwc(_conv(F.conv_transpose2d, to_nchw(x), c.weight, c.bias,
+                             stride=c.stride))
 
 
 class SharedStrideConv(nn.Module):
@@ -74,5 +95,5 @@ class SharedStrideConv(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)  # nn.Conv2d's
 
     def forward(self, x, strides: Tuple[int, int]):
-        return to_nhwc(F.conv2d(to_nchw(x), self.weight, self.bias,
-                                stride=strides))
+        return to_nhwc(_conv(F.conv2d, to_nchw(x), self.weight, self.bias,
+                             stride=strides))

@@ -18,13 +18,14 @@ from ...ops.splat import splat_render
 from .raft3d import RAFT3D
 
 from ...utils.masks import BF_DEFAULT  # baseline * focal = 210
+from ...utils.precision import rdiv
 
 __all__ = ["Motion", "BF_DEFAULT", "disp_to_depth"]
 
 
 def disp_to_depth(disp):
     """Disparity -> depth (up to scale), clipped to [0, BF_DEFAULT]."""
-    return (BF_DEFAULT / (disp + 1e-5)).clamp(0.0, BF_DEFAULT)
+    return rdiv(BF_DEFAULT, disp + 1e-5).clamp(0.0, BF_DEFAULT)
 
 
 class Motion(nn.Module):
@@ -64,7 +65,7 @@ class Motion(nn.Module):
         img_warp = torch.zeros_like(memory_img)
         flow_warp = warped[..., :3]
         confidence_warp = warped[..., 3:6]
-        disp_warp = BF_DEFAULT / (zbuf + 1e-5)
+        disp_warp = rdiv(BF_DEFAULT, zbuf + 1e-5)
         disp_warp = torch.where(disp_warp > W, torch.zeros_like(disp_warp),
                                 disp_warp)
 

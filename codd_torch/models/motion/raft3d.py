@@ -26,6 +26,7 @@ from ...ops.grid_sample import grid_sample
 from ...ops.projective import induced_flow, projective_transform
 from ...ops.upsample import cvx_upsample, upsample_se3
 from ...ops.warp import meshgrid_xy
+from ...utils.precision import rdiv
 from ..layers import Conv
 from .encoders import BasicEncoder
 from .hrnet import HRNetSmall, ResizeConcatConv
@@ -113,12 +114,14 @@ class GNIteration(nn.Module):
         flow = coords1 - coords0
         dz = zinv - zinv_proj
         twist = se3.log(Ts)
-        net, mask, ae, delta, weight = self.update_block(
+        dt = net.dtype  # the carry keeps its dtype under bf16
+        net2, mask, ae, delta, weight = self.update_block(
             net, inp, corr, flow, dz, twist)
-        target = coords1_xyz + delta
+        target = (coords1_xyz + delta).float()
         Ts = gn_step(Ts, ae, target, weight, depth1_r8, intr8,
-                     impl=self.gn_impl, bf16_scores=self.gn_bf16_scores)
-        return net, Ts, mask, weight
+                     impl=self.gn_impl, bf16_scores=self.gn_bf16_scores
+                     ).to(Ts.dtype)
+        return net2.to(dt), Ts, mask.to(dt), weight.to(dt)
 
 
 class RAFT3D(nn.Module):
@@ -160,7 +163,7 @@ class RAFT3D(nn.Module):
         inp = F.relu(netinp_prev[..., 128:])
         intr8 = intrinsics / 8.0
         depth1_r8 = depth_prev[:, 3::8, 3::8]
-        zinv2 = 1.0 / depth_curr[:, 3::8, 3::8].clamp(min=1e-8)
+        zinv2 = rdiv(1.0, depth_curr[:, 3::8, 3::8].clamp(min=1e-8))
         x0, y0 = meshgrid_xy(h8, w8, dt, dev)
         coords0 = torch.stack([x0, y0], -1)[None].expand(B, h8, w8, 2)
         Ts = se3.identity((B, h8, w8), dt, dev)

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.tile_warp import tile_warp_cost
+from ...ops.tile_warp import VARIANT_FORMS, tile_warp_cost
 from ...ops.upsample import hyp_upsample, pixel_unshuffle
 from ..layers import Conv, ConvTranspose, SharedStrideConv, lrelu
 
@@ -159,14 +159,16 @@ class ResBlock(nn.Module):
 
 
 class _CVEncoder(nn.Module):
-    """unshuffled |fea_l| + tile-warp cost -> 16 ch (the `decrease` layer)."""
+    """unshuffled |fea_l| + tile-warp cost -> 16 ch (the `decrease` layer).
+    ``form`` is kernel 1's bf16 form ("exact" or "pallas")."""
 
-    def __init__(self):
+    def __init__(self, form: str = "exact"):
         super().__init__()
+        self.form = form
         self.decrease = Conv(64, 16, 1)
 
     def forward(self, hyp3, fea_l, fea_r, fea_mag):
-        cv = tile_warp_cost(hyp3.contiguous(), fea_l, fea_r)
+        cv = tile_warp_cost(hyp3.contiguous(), fea_l, fea_r, self.form)
         return lrelu(self.decrease(torch.cat([fea_mag, cv], -1)))
 
 
@@ -181,9 +183,9 @@ def _relu_d(h):
 class TileUpdate0(nn.Module):
     """Coarsest-level refinement."""
 
-    def __init__(self):
+    def __init__(self, form: str = "exact"):
         super().__init__()
-        self.cv = _CVEncoder()
+        self.cv = _CVEncoder(form)
         self.conv0 = Conv(32, 32, 1)
         self.resblock0 = ResBlock(32)
         self.resblock1 = ResBlock(32)
@@ -199,9 +201,9 @@ class TileUpdate0(nn.Module):
 class TileUpdate(nn.Module):
     """Two-hypothesis refinement + confidence selection."""
 
-    def __init__(self):
+    def __init__(self, form: str = "exact"):
         super().__init__()
-        self.cv = _CVEncoder()
+        self.cv = _CVEncoder(form)
         self.conv0 = Conv(64, 32, 1)
         self.resblock0 = ResBlock(32)
         self.resblock1 = ResBlock(32)
@@ -263,11 +265,11 @@ class FinalTileUpdate(nn.Module):
 
 
 class TilePropagation(nn.Module):
-    def __init__(self):
+    def __init__(self, form: str = "exact"):
         super().__init__()
-        self.tile_update0 = TileUpdate0()
+        self.tile_update0 = TileUpdate0(form)
         for i in range(1, 5):
-            setattr(self, f"tile_update{i}", TileUpdate())
+            setattr(self, f"tile_update{i}", TileUpdate(form))
         self.tile_update4_1 = PostTileUpdate(FEA_CH[2] + 16)
         self.tile_update5 = PostTileUpdate(FEA_CH[3] + 16)
         self.tile_update6 = FinalTileUpdate(FEA_CH[4] + 16)
@@ -284,13 +286,18 @@ class TilePropagation(nn.Module):
 
 
 class HITNetStereo(nn.Module):
-    """Stereo wrapper: the per-frame outputs dict of the eval branch."""
+    """Stereo wrapper: the per-frame outputs dict of the eval branch.
+    ``tile_warp_variant`` (``runtime.tile_warp_variant``) selects kernel
+    1's bf16 form (``ops/tile_warp.py:VARIANT_FORMS``)."""
 
-    def __init__(self, max_disp: int = 320):
+    def __init__(self, max_disp: int = 320, tile_warp_variant: str = "auto"):
         super().__init__()
+        if tile_warp_variant not in VARIANT_FORMS:
+            raise ValueError(f"bad tile_warp_variant {tile_warp_variant!r}; "
+                             f"one of {tuple(VARIANT_FORMS)}")
         self.backbone = HITUNet()
         self.tile_init = TileInitialization(max_disp)
-        self.tile_update = TilePropagation()
+        self.tile_update = TilePropagation(VARIANT_FORMS[tile_warp_variant])
 
     def forward(self, left_img, right_img):
         B = left_img.shape[0]

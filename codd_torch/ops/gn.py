@@ -64,6 +64,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels, se3
+from ..utils.precision import rdiv
 from .projective import inv_project, project
 
 __all__ = ["gn_step", "build_system", "resolve_impl", "gn_fused_solve",
@@ -130,14 +131,17 @@ def _skew(v):
 
 
 def build_vals(Ts, target, weight, depth, intrinsics):
-    """The per-pixel value field (B,h,w,27): sym_pack(J^T W J) | J^T W r."""
-    X = inv_project(depth, intrinsics)
-    Y = se3.act(Ts, X)
-    r = target - project(Y, intrinsics)
-    fx = intrinsics[:, 0, None, None]
-    fy = intrinsics[:, 1, None, None]
+    """The per-pixel value field (B,h,w,27) f32: sym_pack(J^T W J) | J^T W r.
+    Built in f32 whatever the fields' dtype (``codd_tpu/ops/gn.py:
+    _build_vals``)."""
+    X = inv_project(depth, intrinsics).float()
+    Y = se3.act(Ts.float(), X)
+    r = target.float() - project(Y, intrinsics)
+    fx = intrinsics[:, 0, None, None].float()
+    fy = intrinsics[:, 1, None, None].float()
+    weight = weight.float()
     Yx, Yy, Yz = Y.unbind(-1)
-    Zinv = 1.0 / (Yz + 1e-5)
+    Zinv = rdiv(1.0, Yz + 1e-5)
     Z2inv = Zinv * Zinv
     zero = torch.zeros_like(Zinv)
     Jpi = torch.stack([
@@ -302,12 +306,14 @@ def gn_step(Ts, ae, target, weight, depth, intrinsics, radius: int = 32,
             lm: float = 1e-4, ep: float = 10.0, impl: str = "auto",
             bf16_scores: bool = False):
     """One damped GN update of the SE(3) field Ts (B,h,w,7); ae is scaled
-    by 1/8 as in the reference (se3_field.py:150-170)."""
+    by 1/8 as in the reference (se3_field.py:150-170).  The kernels take
+    ``ae`` and the value field in f32; the f32 update is cast to Ts's
+    dtype before ``exp``, as in ``codd_tpu``."""
     vals = build_vals(Ts, target, weight, depth, intrinsics).contiguous()
-    ae = (ae / 8.0).contiguous()
+    ae = (ae / 8.0).float().contiguous()
     route, bf16 = _route(impl, radius, Ts.shape[2], bf16_scores)
     if route == "fused":
         dx = gn_fused_solve(ae, vals, radius, lm, ep, bf16)
     else:
         dx = damped_solve(_aggregate(ae, vals, radius, route, bf16), lm, ep)
-    return se3.mul(se3.exp(dx), Ts)
+    return se3.mul(se3.exp(dx.to(Ts.dtype)), Ts)

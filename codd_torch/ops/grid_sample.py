@@ -13,6 +13,19 @@ import torch
 __all__ = ["grid_sample"]
 
 
+def clamp_index(xf, n: int):
+    """Integral float coordinates -> indices in [0, n - 1].  Below f32 the
+    float clamp's bound rounds (bf16: 319 -> 320), so the index is clamped
+    again as an integer.  ``codd_tpu`` gathers there with
+    ``take_along_axis``, which reads NaN out of range: at the right edge of
+    a bf16 map wider than 256 its warps are NaN, the port's read the edge
+    column (ROADMAP Queue 3)."""
+    idx = xf.clamp(0, n - 1).long()
+    if xf.dtype not in (torch.float32, torch.float64):
+        idx.clamp_(max=n - 1)
+    return idx
+
+
 def _gather_2d(img, ix, iy):
     """img[b, iy, ix, :] for clamped integer maps ix/iy (B, *Q)."""
     B, H, W, C = img.shape
@@ -33,8 +46,7 @@ def grid_sample(img, coords, mode: str = "bilinear",
         # round half to even, like jnp.round and torch's nearbyint
         xr = torch.round(x)
         yr = torch.round(y)
-        out = _gather_2d(img, xr.clamp(0, W - 1).long(),
-                         yr.clamp(0, H - 1).long())
+        out = _gather_2d(img, clamp_index(xr, W), clamp_index(yr, H))
         if padding_mode == "zeros":
             valid = (xr >= 0) & (xr <= W - 1) & (yr >= 0) & (yr <= H - 1)
             out = out * valid[..., None].to(img.dtype)
@@ -48,8 +60,7 @@ def grid_sample(img, coords, mode: str = "bilinear",
     wy = (y - y0f).to(img.dtype)[..., None]
 
     def corner(xf, yf):
-        v = _gather_2d(img, xf.clamp(0, W - 1).long(),
-                       yf.clamp(0, H - 1).long())
+        v = _gather_2d(img, clamp_index(xf, W), clamp_index(yf, H))
         if padding_mode == "zeros":
             ok = (xf >= 0) & (xf <= W - 1) & (yf >= 0) & (yf <= H - 1)
             v = v * ok[..., None].to(img.dtype)

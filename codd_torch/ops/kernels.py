@@ -37,7 +37,7 @@ BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "tile_warp_cost": ("tile_warp.cu", "tile_warp_cost_launch",
-                       [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "corr_lookup": ("corr_lookup.cu", "corr_lookup_launch",
                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gn_fused_solve": ("gn_fused.cu", "gn_fused_solve_launch",

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.precision import rdiv
 from . import se3
 from .warp import meshgrid_xy
 
@@ -25,7 +26,8 @@ def project(points, intrinsics):
     X, Y, Z = points.unbind(-1)
     Z = Z + EPS
     fx, fy, cx, cy = _intr(intrinsics)
-    return torch.stack([fx * (X / Z) + cx, fy * (Y / Z) + cy, 1.0 / Z], -1)
+    return torch.stack([fx * (X / Z) + cx, fy * (Y / Z) + cy, rdiv(1.0, Z)],
+                       -1)
 
 
 def inv_project(depth, intrinsics):

@@ -2,17 +2,36 @@
 
 A transform is a trailing-7 tensor ``[tx, ty, tz, qx, qy, qz, qw]``
 (translation + unit quaternion, lietorch's layout); a twist is a
-trailing-6 ``[v, w]``.  All functions broadcast over leading dims and
-run in float32.
+trailing-6 ``[v, w]``.  All functions broadcast over leading dims.
+``act``, ``mul``, ``exp`` and ``log`` run in float32 whatever the field's
+dtype and cast the result back to the dtype of their first argument, as
+``codd_tpu``'s ``_f32_internal`` does: the small-angle series and the
+quaternion normalisation cancel catastrophically in bfloat16.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from ..utils.precision import rdiv
 
 __all__ = ["identity", "exp", "log", "mul", "act", "quat_rotate"]
 
 _EPS = 1e-8
+
+
+def _f32_internal(fn):
+    """Run ``fn`` in f32 and cast its result to the first argument's
+    dtype; an f32 first argument runs ``fn`` on the arguments as given."""
+    @functools.wraps(fn)
+    def wrapped(*args):
+        dtype = args[0].dtype
+        if dtype == torch.float32:
+            return fn(*args)
+        return fn(*(a.float() for a in args)).to(dtype)
+    return wrapped
 
 
 def _cross(a, b):
@@ -36,6 +55,7 @@ def quat_rotate(q, p):
     return p + q[..., 3:4] * t + _cross(qv, t)
 
 
+@_f32_internal
 def act(g, p):
     """Group action on points: R p + t.  g (...,7), p (...,3)."""
     return quat_rotate(g[..., 3:7], p) + g[..., :3]
@@ -52,6 +72,7 @@ def _quat_mul(a, b):
     ], -1)
 
 
+@_f32_internal
 def mul(a, b):
     """Compose transforms: (a * b)(p) = a(b(p))."""
     q = _quat_mul(a[..., 3:7], b[..., 3:7])
@@ -71,6 +92,7 @@ def _sinc_coeffs(theta2):
     return A, B, C
 
 
+@_f32_internal
 def exp(tau):
     """Exponential map se(3) -> SE(3).  tau (...,6) = [v, w]."""
     v = tau[..., :3]
@@ -87,6 +109,7 @@ def exp(tau):
     return torch.cat([t, q], -1)
 
 
+@_f32_internal
 def log(g):
     """Logarithm map SE(3) -> se(3) -> (...,6) = [v, w]."""
     t = g[..., :3]
@@ -95,7 +118,8 @@ def log(g):
     qn = torch.sqrt(torch.sum(qv * qv, -1, keepdim=True) + _EPS)
     theta = 2.0 * torch.atan2(qn, torch.abs(qw)) * torch.sign(qw)
     small = qn ** 2 < 1e-8
-    scale = torch.where(small, 2.0 / torch.clamp(qw, min=_EPS), theta / qn)
+    scale = torch.where(small, rdiv(2.0, torch.clamp(qw, min=_EPS)),
+                        theta / qn)
     w = scale * qv
     theta2 = torch.sum(w * w, -1, keepdim=True)
     A, B, _ = _sinc_coeffs(theta2)

@@ -173,7 +173,8 @@ def splat_render(points, features, intrinsics, H: int, W: int,
                  radius_px: float = 1.0, points_per_pixel: int = 8,
                  pixel_center_offset: float = 0.0):
     """points (B,N,3), features (B,N,C), intrinsics (B,4) ->
-    (B,H,W,C) composited features, (B,H,W) nearest-surface depth."""
+    (B,H,W,C) composited features, (B,H,W) nearest-surface depth, both in
+    the features' dtype; everything inside runs in f32."""
     outs, zbufs = [], []
     for b in range(points.shape[0]):
         order, offsets, alpha, Z = sort_fragments(
@@ -184,4 +185,5 @@ def splat_render(points, features, intrinsics, H: int, W: int,
                                  points_per_pixel)
         outs.append(out.reshape(H, W, -1))
         zbufs.append(zbuf.reshape(H, W))
-    return torch.stack(outs), torch.stack(zbufs)
+    dt = features.dtype
+    return torch.stack(outs).to(dt), torch.stack(zbufs).to(dt)

@@ -10,9 +10,9 @@ import torch.nn.functional as F
 from . import se3
 from .grid_sample import grid_sample
 
-__all__ = ["unfold3x3", "cvx_upsample", "upsample_se3", "to_plane",
-           "hyp_upsample", "pixel_unshuffle", "interpolate_nearest",
-           "interpolate_bilinear"]
+__all__ = ["plane_offsets", "unfold3x3", "cvx_upsample", "upsample_se3",
+           "to_plane", "hyp_upsample", "pixel_unshuffle",
+           "interpolate_nearest", "interpolate_bilinear"]
 
 
 def unfold3x3(x, dilation: int = 1):
@@ -39,14 +39,30 @@ def upsample_se3(Ts, mask, factor: int = 8):
     return se3.exp(cvx_upsample(se3.log(Ts), mask, factor))
 
 
+def plane_offsets(size: int, dtype=torch.float32, device=None):
+    """The ``size`` in-tile offsets ``-(size-1)/2 .. (size-1)/2``.
+
+    Below f32 they take the values of ``codd_tpu``'s ``jnp.linspace`` in
+    that dtype, whose arithmetic ``start * (1 - t) + stop * t`` rounds at
+    each step: in bf16 at size 4 the second offset is -0.49609375, not
+    -0.5 (a slant plane then moves by up to a pixel at large disparity).
+    In f32 they are exact (``jnp.linspace`` gives -0.49999994 there; the
+    port keeps -0.5, as kernel 1's f32 form does)."""
+    if dtype == torch.float32:
+        return torch.linspace(-(size - 1) / 2.0, (size - 1) / 2.0, size,
+                              dtype=dtype, device=device)
+    t = torch.arange(size, dtype=dtype, device=device) / (size - 1)
+    half = (size - 1) / 2.0
+    return -half * (1 - t) + half * t
+
+
 def to_plane(d, dx, dy, size: int = 4):
     """Per-tile slant planes (B,h,w) -> per-pixel disparity
     (B, h*size, w*size) = d + a*dx + b*dy, a along x, b along y."""
     if d.ndim == 4:
         d, dx, dy = d[..., 0], dx[..., 0], dy[..., 0]
     B, h, w = d.shape
-    c = torch.linspace(-(size - 1) / 2.0, (size - 1) / 2.0, size,
-                       dtype=d.dtype, device=d.device)
+    c = plane_offsets(size, d.dtype, d.device)
     val = (d[:, :, None, :, None]
            + c[None, None, None, None, :] * dx[:, :, None, :, None]
            + c[None, None, :, None, None] * dy[:, :, None, :, None])

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .grid_sample import grid_sample
+from .grid_sample import clamp_index, grid_sample
 
 __all__ = ["meshgrid_xy", "flow_warp", "disp_warp"]
 
@@ -50,7 +50,7 @@ def _hwarp(img, xs, padding_mode: str):
     wx = (xs - x0f).to(img.dtype)[..., None]
 
     def tap(xf):
-        xi = xf.clamp(0, W - 1).long()[..., None].expand(-1, -1, -1, C)
+        xi = clamp_index(xf, W)[..., None].expand(-1, -1, -1, C)
         v = torch.gather(img, 2, xi)
         if padding_mode == "zeros":
             v = v * ((xf >= 0) & (xf <= W - 1))[..., None].to(img.dtype)

@@ -2,12 +2,16 @@
 
     python -m codd_torch.tools.inference CONFIG [CHECKPOINT] [--eval [mode]]
         [--show-dir D] [--num-frames N] [--out-csv F] [--split val|test]
-        [--img-dir D] [--r-img-dir D] [--device cuda|cpu] [--options k=v ...]
+        [--img-dir D] [--r-img-dir D] [--bf16] [--device cuda|cpu]
+        [--options k=v ...]
 
 ``--eval`` prints the metric tables (and writes ``--out-csv``);
-``--show-dir`` saves per-sequence ``<name>.disp.pred.npz`` files.  The model
-runs on the CUDA card unless ``--device cpu`` is given, and the command
-fails without a card otherwise.  CHECKPOINT is a ``torch.save``d
+``--show-dir`` saves per-sequence ``<name>.disp.pred.npz`` files.
+``--bf16`` rounds the weights to bf16 and computes in f32 on f32 frames,
+as ``inference.py --bf16`` does (flax promotes its bf16 parameters
+against the f32 frames; ``tools/bench.py --bf16`` casts the frames too).
+The model runs on the CUDA card unless ``--device cpu`` is given, and the
+command fails without a card otherwise.  CHECKPOINT is a ``torch.save``d
 ``state_dict`` (omit it for seeded random weights).
 """
 
@@ -15,6 +19,8 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+import torch
 
 
 def parse_args(argv=None):
@@ -35,7 +41,7 @@ def parse_args(argv=None):
                    help="run on a raw stereo image directory (no split file)")
     p.add_argument("--r-img-dir", default=None)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 inference (not implemented in this package)")
+                   help="weights rounded to bfloat16, f32 compute")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--options", nargs="+", default=None)
     return p.parse_args(argv)
@@ -43,8 +49,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError("--bf16: codd_torch runs in float32 only")
 
     from ..apis.inference import run_inference
     from ..config import load_config
@@ -52,6 +56,7 @@ def main(argv=None) -> int:
     from ..data.pipelines import build_test_pipeline
     from ..models.builder import build_estimator
     from ..utils.checkpoint import load_checkpoint
+    from ..utils.precision import round_floats
 
     cfg = load_config(args.config, args.options)
     try:
@@ -61,6 +66,8 @@ def main(argv=None) -> int:
         return 1
     if args.checkpoint:
         load_checkpoint(model, args.checkpoint)
+    if args.bf16:
+        round_floats(model, torch.bfloat16)
 
     if args.img_dir:  # needs no data section; reads intrinsics if given
         dcfg = dict((cfg.get("data") or {}).get(args.split) or {})

@@ -1,8 +1,9 @@
 """The inference CLI of the port, ``python -m codd_torch.tools.inference``,
 in a subprocess on a generated tiny dataset: ``--device cpu --eval`` prints
 the tables and writes the CSV, ``--show-dir`` saves the disparities, a
-checkpoint round-trips, and without ``--device cpu`` (and without a card)
-it exits non-zero with the CUDA message."""
+checkpoint round-trips, ``--bf16`` runs f32 compute on bf16-rounded
+weights, and without ``--device cpu`` (and without a card) it exits
+non-zero with the CUDA message."""
 
 import csv
 import os
@@ -159,5 +160,30 @@ def test_cli_needs_a_card_without_device_cpu(tiny_env):
     assert res.returncode != 0
     assert "CUDA is not available" in res.stderr
     assert "Summary" not in res.stdout
-    res = _run(cfg, "--device", "cpu", "--eval", "--bf16")
-    assert res.returncode != 0 and "NotImplementedError" in res.stderr
+
+
+def test_cli_bf16_is_f32_compute_on_bf16_rounded_weights(tiny_env):
+    """``--bf16`` as ``inference.py --bf16``: the weights rounded to bf16,
+    the frames and the compute f32.  Its metrics equal, bit for bit, those
+    of a checkpoint whose weights were rounded by hand, and differ from
+    the f32 weights'."""
+    root, cfg = tiny_env
+    model = build_estimator(load_config(cfg)["model"], device="cpu", seed=0)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(t.to(torch.bfloat16).to(t.dtype))
+    ckpt = save_checkpoint(model, str(root / "w16" / "model.pt"))
+    rows = {}
+    for name, extra in (("bf16", ["--bf16"]), ("rounded", [ckpt]),
+                        ("f32", [])):
+        out_csv = str(root / f"m_{name}.csv")
+        res = _run(cfg, *extra, "--device", "cpu", "--eval", "--out-csv",
+                   out_csv)
+        assert res.returncode == 0, res.stderr[-2000:]
+        assert res.stdout.count("Summary:") == 2
+        rows[name] = list(csv.reader(open(out_csv)))
+    assert rows["bf16"] == rows["rounded"]
+    assert rows["bf16"][-1] != rows["f32"][-1]
+    vals = [float(v) for r in rows["bf16"][1:] for v in r[1:]]
+    assert all(np.isfinite(vals))

@@ -51,6 +51,37 @@ def test_tile_warp_kernel(dev):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
 
 
+def _bf16_ulps(got, ref):
+    ref = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    return ((got.float() - ref).abs() / ulp)
+
+
+@pytest.mark.parametrize("form", ["exact", "pallas"])
+def test_tile_warp_kernel_bf16_forms(dev, form):
+    """Kernel 1's bf16 forms on the full-res strip (W=1280: the exact
+    form's bf16 x grid rounds above 512 and 1024; taps past both edges)
+    against their plain versions on the card: within 1 bf16 ulp (the
+    kernel sums a pixel's channels in order, PyTorch in its own order,
+    both in f32 before the one rounding), almost all equal."""
+    g = _g()
+    B, H, W, C = 2, 8, 1280, 16
+    fl, fr = (torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    d = torch.rand(B, H // 4, W // 4, generator=g) * 1224 - 200
+    hyp3 = torch.stack([d, torch.rand(B, H // 4, W // 4, generator=g) * 2.4
+                        - 1.2, torch.rand(B, H // 4, W // 4, generator=g)
+                        * 2.4 - 1.2], -1).to(dev, torch.bfloat16)
+    got = _launched("tile_warp_cost",
+                    lambda: tile_warp.tile_warp_cost(hyp3, fl, fr, form))
+    ref = tile_warp.tile_warp_cost_plain(hyp3, fl, fr, form)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    u = _bf16_ulps(got, ref)
+    assert u.max().item() <= 1.0 and (u > 0).float().mean().item() < 1e-2
+    with pytest.raises(TypeError):
+        tile_warp.tile_warp_cost(hyp3.float(), fl, fr, form)
+
+
 def _corr_coords(dev, r, B=2, h=12, w=40):
     """Batch element 0 coherent (the grid plus 0.3 px), element 1 scattered
     (plus N(0, 8^2) px); in both, windows wholly outside the level, partly
@@ -350,6 +381,31 @@ def test_streaming_goes_through_the_kernels(dev):
                                 "gn_window_aggregate": 0,
                                 "corr_patch_lookup": 0}
     assert torch.isfinite(out["pred_disp"]).all()
+
+
+def test_bf16_streaming_goes_through_the_kernels(dev):
+    """The bf16 model (parameters and frames cast, f32 intrinsics) streams
+    through the same kernels as the f32 one, kernel 1 in its bf16 form,
+    with codd_tpu's dtypes at the outputs."""
+    from codd_torch.utils.precision import cast_floats
+    model = cast_floats(CODD(max_disp=64, iters=2).to(dev).eval())
+    g = _g()
+    frames = [(torch.rand(1, 64, 128, 3, generator=g).to(dev, torch.bfloat16),
+               torch.rand(1, 64, 128, 3, generator=g).to(dev, torch.bfloat16))
+              for _ in range(3)]
+    intr = torch.tensor([[100.0, 100.0, 64.0, 32.0]], device=dev)
+    kernels.reset_counts()
+    carry, _ = model.first_step(*frames[0], intr)
+    for left, right in frames[1:]:
+        carry, out = model.step(carry, left, right, intr)
+    torch.cuda.synchronize()
+    assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 4,
+                                "gn_fused_solve": 4, "splat_composite": 4,
+                                "gn_window_aggregate": 0,
+                                "corr_patch_lookup": 0}
+    assert carry.memory_disp.dtype == out["pred_disp"].dtype == torch.float32
+    assert out["pred_curr"].dtype == out["Ts"].dtype == torch.bfloat16
+    assert all(torch.isfinite(v.float()).all() for v in out.values())
 
 
 def test_eval_path_goes_through_kernels_5_and_6(dev):
