@@ -26,7 +26,8 @@ Phases, in order:
      timed and equal in bits to the one chosen, with the run lengths and
      sort_fragments' time (projection, torch.sort, searchsorted) beside;
      kernel 1 also in its two bf16 forms ("exact", "pallas") against
-     their plain bf16 versions, each timed beside the f32 form;
+     their plain bf16 versions, each timed beside the f32 form, and its
+     backward (the VJP of tile_warping) against the plain backward;
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -46,6 +47,19 @@ Phases, in order:
      moved pixels at each stage of the cascade and the first that moved;
      then the default model in bf16 the same way, reported and not gated
      (at random weights bf16 is chaotic).
+  train: a training step on the card, 5 steps a stage at B=4, T=2,
+     384x768 (SceneFlow's training crop) on seeded synthetic batches:
+     the stereo stage (configs/models/stereo.py, Adam 4e-4 MultiGamma,
+     clip 1.0), then the fusion stage (configs/models/codd.py with stereo
+     and motion frozen, OneCycle 2e-4); each step's loss, grad_norm, ms
+     (CUDA events) and the stage's peak memory and launches.  Fails on a
+     non-finite loss, a stereo stage without kernel 1's backward, a fusion
+     stage that launches a backward or misses one of kernels 1-4, a
+     frozen parameter that moved, kernel 1's backward off its plain
+     version on one stereo step's own calls, stereo gradients with the
+     kernels beyond 1e-5 of those with kernel 1's plain backward alone or
+     beyond 1e-3 of those with its plain forward and backward, or a
+     trainable RAFT-3D that does not raise.
   bench: ``codd_torch/tools/bench.py`` in this process at 384x1280, a few
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
@@ -53,7 +67,8 @@ Phases, in order:
   profile (not in the default phases): one step of each configuration,
      and of the default one in bf16, under torch.profiler, split by
      category into chiprun_out/profile_step*.txt; both configurations
-     streamed in turns.
+     streamed in turns; with the train phase, one more training step of
+     each stage into chiprun_out/profile_train_{stereo,fusion}.txt.
 
 Any failure exits non-zero.  The line before the last holds the kernel
 table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -352,6 +367,36 @@ def splat_check(label, X, intr, h, w, radius, feat):
     return dict(res, plain_ms=cuda_ms(lambda: splat.composite_plain(*args)))
 
 
+def tile_warp_backward_check(hyp3, fl, fr, gout):
+    """Kernel 1's backward at the full-res call against its plain version
+    (the VJP of tile_warping, scatter by index_add_)."""
+    import torch
+    from codd_torch.ops import tile_warp
+    got = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
+    ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
+    torch.cuda.synchronize()
+    # the same floor() and sign decisions; dhyp3 sums 16 pixels x 16
+    # channels x 3 offsets in another order, dfea_r up to 12 terms a value
+    # by atomics in a run-dependent order: 1e-5 of each output's largest
+    # value and 1e-5 relative
+    err = max(_compare(f"tile_warp_cost_backward {n}", a, b,
+                       1e-5 * float(b.abs().max()), 1e-5)
+              for n, a, b in zip(("dhyp3", "dfea_l", "dfea_r"), got, ref))
+    npx, C = fl.shape[1] * fl.shape[2], fl.shape[3]
+    return dict(
+        name="tile_warp_cost_backward", source="codd_torch/csrc/tile_warp.cu",
+        replaces="codd_tpu/models/stereo/hitnet.py:260", max_abs_err=err,
+        ms=cuda_ms(lambda: tile_warp.tile_warp_cost_backward(
+            gout, hyp3, fl, fr)),
+        plain_ms=cuda_ms(lambda: tile_warp.tile_warp_cost_backward_plain(
+            gout, hyp3, fl, fr)),
+        # read hyp3, fea_l, fea_r, g once; write dhyp3, dfea_l, dfea_r once
+        bytes=4 * (2 * hyp3.numel() + 4 * npx * C + gout.numel()),
+        # per pixel, channel and offset: lerp, sign, dfea_l, two taps and
+        # dlocal (~12); per pixel the plane (~10)
+        flops=npx * (36 * C + 10), library_ms=None)
+
+
 def kernel_checks(dev):
     import torch
     from codd_torch.ops import corr, gn, se3, splat, tile_warp
@@ -420,6 +465,8 @@ def kernel_checks(dev):
             fail(f"tile_warp_cost bf16 {form}: kernel and plain version "
                  "disagree")
     rows.append(row)
+    rows.append(tile_warp_backward_check(hyp3, fl, fr, randn(
+        1, H // 4, W // 4, 48)))
 
     # -- kernels 2 and 6: the corr lookups, four levels in one launch, on
     # two coordinate fields of the 48x160 queries --
@@ -627,15 +674,21 @@ def bf16_copy(model):
     return cast_floats(copy.deepcopy(model))
 
 
-def build_model(name: str = "codd.py", **overrides):
-    """A model of configs/models/<name> on the card, seeded weights;
-    ``overrides`` replace top-level keys of its ``model`` dict."""
+def model_cfg(name: str = "codd.py", **overrides):
+    """The ``model`` dict of configs/models/<name>; ``overrides`` replace
+    its top-level keys."""
     from codd_torch.config import load_config
-    from codd_torch.models.builder import build_estimator
 
     cfg = load_config(str(Path(__file__).resolve().parent / "configs"
                           / "models" / name))
-    return build_estimator(dict(cfg["model"], **overrides), device="cuda",
+    return dict(cfg["model"], **overrides)
+
+
+def build_model(name: str = "codd.py", **overrides):
+    """A model of configs/models/<name> on the card, seeded weights."""
+    from codd_torch.models.builder import build_estimator
+
+    return build_estimator(model_cfg(name, **overrides), device="cuda",
                            seed=0)
 
 
@@ -694,7 +747,8 @@ def main_path(dev, steps: int):
 
     expect = {"tile_warp_cost": 9 * (steps + 1), "corr_lookup": 16 * steps,
               "gn_fused_solve": 16 * steps, "splat_composite": 2 * steps,
-              "gn_window_aggregate": 0, "corr_patch_lookup": 0}
+              "gn_window_aggregate": 0, "corr_patch_lookup": 0,
+              "tile_warp_cost_backward": 0}
     print(f"  launches {launches} (expected {expect})")
     if launches != expect:
         fail(f"launch counts {launches} != expected {expect}")
@@ -832,7 +886,8 @@ def eval_phase(dev, steps, default_ms):
     esteps = EVAL_FRAMES - 1
     tile = 9 * EVAL_FRAMES
     zero = {"corr_lookup": 0, "gn_fused_solve": 0, "gn_window_aggregate": 0,
-            "corr_patch_lookup": 0, "splat_composite": 0}
+            "corr_patch_lookup": 0, "splat_composite": 0,
+            "tile_warp_cost_backward": 0}
     model = build_model(runtime=EVAL_RUNTIME)
     launches, _ = _eval_run(
         "pallas_window + patch", model, 2,
@@ -909,6 +964,373 @@ def plain_check(model, intr, seq, label: str, gate: bool = True):
             fail(f"{key}: kernel run disagrees with the plain run")
 
 
+# ---------------------------------------------------------------------------
+# train: the training step of the stereo and the fusion stage
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W = 4, 2, 384, 768
+TRAIN_STEPS = 5
+
+
+def train_batches(n: int, dev, seed: int = 7):
+    """``n`` seeded synthetic batches at SceneFlow's training shape (B=4,
+    T=2, the 384x768 crop): images uniform in [0, 1), ground-truth
+    disparity uniform in (1, 210), SceneFlow's intrinsics; made on the
+    host in bulk and moved to the card before the steps."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    shape = (TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W)
+    out = []
+    for _ in range(n):
+        out.append({
+            "l_img": torch.rand(shape + (3,), generator=g),
+            "r_img": torch.rand(shape + (3,), generator=g),
+            "gt_disp": torch.rand(shape + (1,), generator=g) * 209 + 1,
+            "intrinsics": torch.tensor([[1050.0, 1050.0, 480.0, 270.0]]
+                                       * TRAIN_B)})
+    return [{k: v.to(dev) for k, v in b.items()} for b in out]
+
+
+@contextlib.contextmanager
+def tile_warp_halves(forward: str, backward: str, nudge: bool = False):
+    """Kernel 1 in the model's place with each half, ``forward`` and
+    ``backward``, the kernel ("kernel") or its plain version ("plain").
+    With ``nudge``, each forward output moves one ulp up or down (a seeded
+    coin a value), the size of the kernel's difference from its plain
+    version."""
+    import torch
+    coins = torch.Generator(device="cuda" if torch.cuda.is_available()
+                            else "cpu").manual_seed(5)
+    from codd_torch.models.stereo import hitnet
+    from codd_torch.ops import tile_warp as tw
+    fwd = {"kernel": tw.tile_warp_cost,
+           "plain": tw.tile_warp_cost_plain}[forward]
+    bwd = {"kernel": tw.tile_warp_cost_backward,
+           "plain": tw.tile_warp_cost_backward_plain}[backward]
+
+    class Halves(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, hyp3, fea_l, fea_r):
+            ctx.save_for_backward(hyp3, fea_l, fea_r)
+            out = fwd(hyp3, fea_l, fea_r)
+            if nudge:
+                up = torch.rand(out.shape, generator=coins,
+                                device=out.device) < 0.5
+                out = torch.nextafter(out, torch.where(
+                    up, torch.inf, -torch.inf).to(out.dtype))
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return bwd(g.contiguous(), *ctx.saved_tensors)
+
+    saved = hitnet.tile_warp_cost
+    hitnet.tile_warp_cost = lambda h, fl, fr, form="exact": Halves.apply(
+        h, fl, fr)
+    try:
+        yield
+    finally:
+        hitnet.tile_warp_cost = saved
+
+
+@contextlib.contextmanager
+def backward_inputs():
+    """Keep the inputs (g, hyp3, fea_l, fea_r) of every call of kernel 1's
+    backward on the model's own path."""
+    from codd_torch.ops import tile_warp as tw
+    kept, real = [], tw.tile_warp_cost_backward
+
+    def keep(*args):
+        kept.append(args)
+        return real(*args)
+
+    tw.tile_warp_cost_backward = keep
+    try:
+        yield kept
+    finally:
+        tw.tile_warp_cost_backward = real
+
+
+@contextlib.contextmanager
+def decisions():
+    """Record the stereo net's hard decisions: each tile-warp call's hyp3
+    (its floor()s follow from it) and each ``torch.argmax`` result (the
+    TileUpdate selections)."""
+    import torch
+    from codd_torch.models.stereo import hitnet
+    rec = {"hyp3": [], "argmax": []}
+    real_argmax, real_warp = torch.argmax, hitnet.tile_warp_cost
+
+    def argmax(*a, **k):
+        rec["argmax"].append(real_argmax(*a, **k))
+        return rec["argmax"][-1]
+
+    def warp(hyp3, fl, fr, form="exact"):
+        rec["hyp3"].append(hyp3.detach())
+        return real_warp(hyp3, fl, fr, form)
+
+    torch.argmax, hitnet.tile_warp_cost = argmax, warp
+    try:
+        yield rec
+    finally:
+        torch.argmax, hitnet.tile_warp_cost = real_argmax, real_warp
+
+
+def decisions_apart(a, b):
+    """(argmax elements that differ, of all; tap columns floor(x - d) that
+    differ, of all) between two records of ``decisions``."""
+    import torch
+    from codd_torch.ops.upsample import to_plane
+
+    def floors(h):
+        d = to_plane(h[..., 0], h[..., 1], h[..., 2], size=4)
+        return torch.floor(torch.arange(d.shape[-1], dtype=d.dtype,
+                                        device=d.device) - d)
+
+    sel = sum(int((x != y).sum()) for x, y in zip(a["argmax"], b["argmax"]))
+    taps = sum(int((floors(x) != floors(y)).sum())
+               for x, y in zip(a["hyp3"], b["hyp3"]))
+    return (sel, sum(x.numel() for x in a["argmax"]), taps,
+            sum(x[..., 0].numel() * 16 for x in a["hyp3"]))
+
+
+def _cut_outputs(x, path, cut):
+    """``x`` (the model's nested outputs) with each tensor t at ``path``
+    replaced by ``cut(path, t)``."""
+    import torch
+    if torch.is_tensor(x):
+        return cut(path, x)
+    if isinstance(x, dict):
+        return {k: _cut_outputs(v, k, cut) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_cut_outputs(v, path, cut) for v in x]
+    return x
+
+
+def stage_grads(model, loss_cfg, batch, cotangents=None):
+    """Loss and every parameter's gradient of one batch, no update, and the
+    loss's cotangents at the model's outputs as (output name, tensor).
+    With ``cotangents`` (an earlier run's), the backward starts from those
+    at the outputs instead of from this run's loss."""
+    import torch
+    from codd_torch.losses.assembly import codd_train_loss
+    model.zero_grad(set_to_none=True)
+    outs = model(batch["l_img"], batch["r_img"], batch["intrinsics"],
+                 train=True)
+    cuts = []
+
+    def cut(path, t):
+        if not t.requires_grad:
+            return t
+        cuts.append((path, t, t.detach().requires_grad_()))
+        return cuts[-1][2]
+
+    loss, _ = codd_train_loss(loss_cfg, _cut_outputs(outs, "", cut), batch)
+    cots = torch.autograd.grad(loss, [c for _, _, c in cuts],
+                               allow_unused=True)
+    cots = [(p, torch.zeros_like(c) if g is None else g)
+            for (p, _, c), g in zip(cuts, cots)]
+    torch.autograd.backward([t for _, t, _ in cuts],
+                            [g for _, g in cotangents or cots])
+    grads = {k: p.grad.detach().clone()
+             for k, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, cots
+
+
+def grads_apart(a, b):
+    """Worst per-tensor |a - b| / |b| over the parameters of ``b``."""
+    worst, where = 0.0, None
+    for k, g in b.items():
+        e = float((a[k] - g).norm() / g.norm().clamp(min=1e-30))
+        if e > worst:
+            worst, where = e, k
+    return worst, where
+
+
+def stereo_grad_checks(model, lc, batch):
+    """One batch of the stereo stage, gradients only, no update.  Gated:
+    kernel 1's backward on each of the step's own calls against its plain
+    backward (phase 3's tolerance); the step with only the backward
+    swapped for the plain one (kernels' forward kept, bound 1e-5); the step
+    with kernel 1's plain forward and backward (bound 1e-3).  Traced, not
+    gated: the forward alone swapped; the hard decisions (TileUpdate's
+    argmax, the taps' floor(), the loss's masks) that differ between the
+    kernel's and the plain forward; the plain run's backward started from
+    the kernel run's loss cotangents at the model's outputs; the kernels
+    with their forward outputs moved one ulp at random."""
+    import torch
+    from codd_torch.ops import tile_warp as tw
+    with backward_inputs() as kept, decisions() as dk:
+        lk, gk, ck = stage_grads(model, lc, batch)
+    worst = 0.0
+    for i, args in enumerate(kept):
+        with torch.no_grad():
+            got = tw.tile_warp_cost_backward(*args)
+            ref = tw.tile_warp_cost_backward_plain(*args)
+        for n, a, b in zip(("dhyp3", "dfea_l", "dfea_r"), got, ref):
+            # phase 3's tolerance: the same floor() and sign decisions,
+            # sums in another order, dfea_r's atomics
+            top = b.abs().max()
+            err = (a - b).abs()
+            if not torch.isfinite(a).all() or bool(
+                    (err > 1e-5 * top + 1e-5 * b.abs()).any()):
+                fail(f"tile_warp_cost_backward: {n} of call {i} of a stereo "
+                     "step disagrees with its plain backward")
+            worst = max(worst, float(err.max() / top.clamp(min=1e-30)))
+    shapes = sorted({tuple(x[2].shape) for x in kept})
+    print(f"  stereo stage, one batch: kernel 1's backward on the step's "
+          f"{len(kept)} calls (fea_l {shapes}) against its plain backward "
+          f"on the same inputs: worst |err| / max|ref| {worst:.2e} "
+          f"(tolerance 1e-5 of max|ref| + 1e-5 relative)", flush=True)
+    del kept
+
+    def against_kernels(label, forward, backward, cotangents=None,
+                        nudge=False):
+        with tile_warp_halves(forward, backward, nudge), decisions() as d:
+            lx, gx, cx = stage_grads(model, lc, batch, cotangents)
+        err, where = grads_apart(gk, gx)
+        loss_err = abs(lk - lx) / abs(lx)
+        print(f"    {label}: loss {lx:.6f} (rel {loss_err:.2e}), worst "
+              f"gradient |diff| / |plain| {err:.2e} at {where}", flush=True)
+        return loss_err, err, set(gx) == set(gk), d, cx
+
+    print(f"  stereo stage, one batch, {len(gk)} gradient tensors against "
+          f"the kernels' own (loss {lk:.6f}):", flush=True)
+    noise = against_kernels("kernels again", "kernel", "kernel")[1]
+    lb, eb, same_b, _, _ = against_kernels(
+        "plain backward (bound 1e-5, loss 1e-6)", "kernel", "plain")
+    lp, ep, same_p, dp, cp = against_kernels(
+        "plain forward and backward (bound 1e-3, loss 1e-5)", "plain",
+        "plain")
+    against_kernels("plain forward (traced)", "plain", "kernel")
+    against_kernels("plain forward and backward from the kernels' loss "
+                    "cotangents at the outputs (traced)", "plain", "plain", ck)
+    against_kernels("kernels, each forward output moved one ulp at random "
+                    "(traced)", "kernel", "kernel", nudge=True)
+    sel, n_sel, taps, n_taps = decisions_apart(dk, dp)
+    # a loss mask that flips (|d - gt| against 1, 1.5 or a truncation)
+    # moves an element's cotangent by its whole size; smooth changes by
+    # ~1e-6 of it
+    flips = {}
+    for (name, a), (_, b) in zip(ck, cp):
+        n = int(((a - b).abs() > 1e-3 * a.abs().max()).sum())
+        flips[name] = flips.get(name, 0) + n
+    print(f"    hard decisions, kernels' forward against plain forward: "
+          f"argmax {sel} of {n_sel} elements in {len(dk['argmax'])} calls; "
+          f"taps' floor() {taps} of {n_taps} pixels in {len(dk['hyp3'])} "
+          f"calls; loss cotangents moved by > 1e-3 of their tensor's "
+          f"largest {flips} of {sum(a.numel() for _, a in ck)}; the kernels "
+          f"run twice differ by {noise:.2e}", flush=True)
+    if not same_b or eb > 1e-5 or lb > 1e-6:
+        fail("stereo stage: the gradients with kernel 1's backward disagree "
+             "with those of its plain backward")
+    if not same_p or ep > 1e-3 or lp > 1e-5:
+        fail("stereo stage: the kernels' gradients disagree with kernel "
+             "1's plain forward and backward")
+
+
+def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
+                profile_to=None):
+    """``len(batches)`` training steps, each timed by CUDA events; the
+    counts are set to 0 just before and read just after.  Fails on a
+    non-finite loss or a frozen parameter that moved.  With
+    ``profile_to``, one more step under torch.profiler afterwards."""
+    import torch
+    from codd_torch.ops import kernels
+    from codd_torch.train import trainer
+    params = dict(model.named_parameters())
+    kept = {k: p.detach().clone() for k, p in params.items()
+            if k.split(".")[0] in frozen}
+    step = trainer.make_train_step(model, opt, loss_cfg)
+    state = trainer.create_train_state(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    kernels.reset_counts()
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        loss = float(logs["loss"])
+        print(f"  {label} step {i}: loss {loss:.6f}  grad_norm "
+              f"{float(logs['grad_norm']):.6f}  skipped "
+              f"{int(logs['step_skipped'])}  {ms[-1]:.1f} ms", flush=True)
+        if not np.isfinite(loss):
+            fail(f"{label}: non-finite loss at step {i}")
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = [k for k, v in kept.items() if not torch.equal(params[k], v)]
+    if moved:
+        fail(f"{label}: frozen parameters moved: {moved[:5]}")
+    print(f"  {label}: {len(batches)} steps at B={TRAIN_B}, T={TRAIN_T}, "
+          f"{TRAIN_H}x{TRAIN_W}: ms a step {['%.1f' % t for t in ms]}, "
+          f"median of steps 1-{len(ms) - 1} "
+          f"{float(np.median(ms[1:])):.1f} ms; peak {peak:.2f} GiB; "
+          f"{len(kept)} frozen tensors kept their bits; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if profile_to is not None:
+        profile_call(lambda: step(state, batches[0]),
+                     f"one {label} step at B={TRAIN_B}, T={TRAIN_T}, "
+                     f"{TRAIN_H}x{TRAIN_W}", profile_to)
+    return launches
+
+
+def train_phase(dev, profile_dir=None):
+    """The stereo stage, then the fusion stage; returns the launches of
+    both runs, summed by kernel.  With ``profile_dir``, one more step of
+    each under torch.profiler (profile_train_{stereo,fusion}.txt)."""
+    prof = (lambda n: None) if profile_dir is None else \
+        (lambda n: profile_dir / f"profile_train_{n}.txt")
+    import torch
+    from codd_torch.models.builder import build_loss_config
+    from codd_torch.train import optim
+
+    batches = train_batches(TRAIN_STEPS, dev)
+    cfg = model_cfg("stereo.py")
+    model, lc = build_model("stereo.py"), build_loss_config(cfg)
+    stereo_grad_checks(model, lc, batches[0])
+    opt = optim.make_optimizer(optim.multi_gamma_schedule(
+        4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
+    stereo = train_stage("stereo stage", model, opt, lc, batches,
+                         profile_to=prof("stereo"))
+    if stereo["tile_warp_cost_backward"] == 0:
+        fail("stereo stage: kernel 1's backward never launched")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    freeze = {"freeze_stereo": True, "freeze_motion": True}
+    cfg = model_cfg("codd.py", train_cfg=freeze)
+    model, lc = build_model("codd.py", train_cfg=freeze), \
+        build_loss_config(cfg)
+    opt = optim.make_optimizer(optim.one_cycle_schedule(2e-4, 100000 // 8),
+                               1.0, dict(model.named_parameters()),
+                               ["stereo", "motion"])
+    fusion = train_stage("fusion stage", model, opt, lc, batches,
+                         ("stereo", "motion"), prof("fusion"))
+    if fusion["tile_warp_cost_backward"]:
+        fail("fusion stage: a backward kernel launched with stereo frozen")
+    missing = [k for k in ("tile_warp_cost", "corr_lookup", "gn_fused_solve",
+                           "splat_composite") if not fusion[k]]
+    if missing:
+        fail(f"fusion stage: kernels {missing} never launched")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    b = batches[0]
+    try:
+        build_model("codd.py")(b["l_img"], b["r_img"], b["intrinsics"],
+                               train=True)
+        fail("a trainable RAFT-3D did not raise")
+    except NotImplementedError as e:
+        print(f"  trainable RAFT-3D raises: {e}")
+    return {k: stereo[k] + fusion[k] for k in stereo}
+
+
 def bench_phase():
     """``codd_torch/tools/bench.py`` in this process, a few calls each: f32
     and bf16 at 384x1280, and bf16 --batch 2; each run's lines and its
@@ -938,17 +1360,25 @@ def bench_phase():
 
 
 def profile_step(model, intr, seq, out_file: Path):
-    """torch.profiler over one step: device time by kernel, the hand
-    kernels' share, and the device's idle share of the step's wall time."""
+    """torch.profiler over one streaming step (``profile_call``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
     carry, _ = model.first_step(*seq[0], intr)
     model.step(carry, *seq[1], intr)
     torch.cuda.synchronize()
+    profile_call(lambda: model.step(carry, *seq[1], intr),
+                 f"one step at {H}x{W}", out_file)
+
+
+def profile_call(run, label: str, out_file: Path):
+    """torch.profiler over one call of ``run`` (warmed up by the caller):
+    device time by kernel, the hand kernels' share, and the device's idle
+    share of the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.step(carry, *seq[1], intr)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []  # device-side events only: CPU ops would count their kernels twice
@@ -960,6 +1390,7 @@ def profile_step(model, intr, seq, out_file: Path):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     hand = {"tile_warp_cost_kernel": "tile_warp_cost",
+            "tile_warp_cost_backward_kernel": "tile_warp_cost_backward",
             "corr_lookup_kernel": "corr_lookup",
             "gn_fused_solve_kernel": "gn_fused_solve",
             "splat_composite_": "splat_composite",  # _walk or _lanes
@@ -971,7 +1402,7 @@ def profile_step(model, intr, seq, out_file: Path):
         c = cats.setdefault(_category(key, hand), [0.0, 0])
         c[0] += ms
         c[1] += n
-    lines = [f"one step at {H}x{W}: wall {wall_ms:.3f} ms, device busy "
+    lines = [f"{label}: wall {wall_ms:.3f} ms, device busy "
              f"{busy:.3f} ms in {sum(r[2] for r in rows)} launches; idle "
              f"share {max(0.0, 1 - busy / wall_ms):.3f} (profiled)"]
     lines += [f"  {name}: {ms:.3f} ms ({100 * ms / busy:.1f} %), {n} launches"
@@ -993,12 +1424,13 @@ def _category(kernel: str, hand) -> str:
         return "hand-written kernels"
     if any(k in kernel.lower() for k in ("sort", "searchsorted")):
         return "sort / searchsorted (splat)"
-    # cuDNN's implicit-GEMM, direct and FFT convolutions and its layout
-    # transposes; the complex (float2) GEMM/GEMV and transforms are the
-    # FFT convolutions' products
-    if any(k in kernel for k in ("cudnn", "fprop", "dgrad", "convolve",
-                                 "DSE::", "nhwcToNchw", "nchwToNhwc",
-                                 "region_transform", "float2")):
+    # cuDNN's implicit-GEMM, direct and FFT convolutions (weight
+    # gradients too) and its layout transposes; the complex (float2, cf32)
+    # GEMM/GEMV and transforms are the FFT convolutions' products
+    if any(k in kernel for k in ("cudnn", "fprop", "dgrad", "wgrad",
+                                 "convolve", "DSE::", "nhwcToNchw",
+                                 "nchwToNhwc", "region_transform", "float2",
+                                 "cf32")):
         return "cuDNN convolutions"
     if "gemm" in kernel or "gemv" in kernel:
         return "cuBLAS GEMM / GEMV"
@@ -1007,16 +1439,16 @@ def _category(kernel: str, hand) -> str:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,eval,plain,bench",
-                    help="comma list of kernels, main, eval, plain, bench, "
-                         "profile (profile writes chiprun_out/profile_step*.txt"
-                         ", the bf16 model's too, and streams both "
-                         "configurations in turns)")
+    ap.add_argument("--phases", default="kernels,main,eval,plain,train,bench",
+                    help="comma list of kernels, main, eval, plain, train, "
+                         "bench, profile (profile writes chiprun_out/"
+                         "profile_step*.txt, the bf16 model's too, and "
+                         "streams both configurations in turns)")
     ap.add_argument("--steps", type=int, default=3,
                     help="step calls of the main path after first_step")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    unknown = phases - {"kernels", "main", "eval", "plain", "bench",
+    unknown = phases - {"kernels", "main", "eval", "plain", "train", "bench",
                         "profile"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
@@ -1041,7 +1473,8 @@ def main():
 
     t0 = time.perf_counter()
     kernels.load(verbose=True)
-    print(f"[2/6] built {len(kernels.KERNELS)} kernels in "
+    print(f"[2/6] built {len({v[0] for v in kernels.KERNELS.values()})} "
+          f"sources ({len(kernels.KERNELS)} kernels) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
@@ -1071,14 +1504,22 @@ def main():
             plain_check(bf16_copy(model), intr, cast_floats(seq),
                         "default runtime, bf16 (reported, not gated)",
                         gate=False)
+    train_launches = {}
+    if "train" in phases:
+        print(f"[train] {TRAIN_STEPS} training steps a stage at B={TRAIN_B}, "
+              f"T={TRAIN_T}, {TRAIN_H}x{TRAIN_W}: the stereo stage, the "
+              "fusion stage", flush=True)
+        train_launches = train_phase(dev, Path(__file__).resolve().parent
+                                     / "chiprun_out" if "profile" in phases
+                                     else None)
     bf16_launches = {}
     if "bench" in phases:
         print("[bench] tools/bench.py at 384x1280: f32, bf16, bf16 batch 2",
               flush=True)
         bf16_launches = bench_phase()
     if "profile" in phases:
-        if model is None and eval_model is None:
-            fail("the profile phase needs the main or the eval phase")
+        if model is None and eval_model is None and "train" not in phases:
+            fail("the profile phase needs the main, eval or train phase")
         out_dir = Path(__file__).resolve().parent / "chiprun_out"
         intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
         seq = frames(2, dev)
@@ -1097,12 +1538,16 @@ def main():
                   flush=True)
             streams_in_turns(dev, model, eval_model)
     # each path was driven with the counts at 0; a kernel's launches are
-    # the default path's plus the evaluation path's
+    # the default path's plus the evaluation path's plus the training
+    # steps' (the backward launches in training only)
     for r in rows:
         r["route"] = "cuda"
         r["launches"] = (launches.get(r["name"], 0)
-                         + eval_launches.get(r["name"], 0))
-        if r["launches"] == 0 and {"main", "eval"} <= phases:
+                         + eval_launches.get(r["name"], 0)
+                         + train_launches.get(r["name"], 0))
+        needs = ({"train"} if r["name"] == "tile_warp_cost_backward"
+                 else {"main", "eval"})
+        if r["launches"] == 0 and needs <= phases:
             fail(f"{r['name']}: launched no time on the main paths")
         if r["name"] == "tile_warp_cost" and bf16_launches:
             r["launches_bf16"] = bf16_launches["tile_warp_cost"]

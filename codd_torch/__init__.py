@@ -1,4 +1,5 @@
-"""codd_torch — CODD inference and evaluation in PyTorch for one NVIDIA H100.
+"""codd_torch — CODD inference, evaluation and training in PyTorch for one
+NVIDIA H100.
 
 A port of ``codd_tpu`` (JAX) that computes the same function: HITNet
 stereo -> RAFT-3D motion (16 Gauss-Newton iterations, point-splat warping)
@@ -14,10 +15,13 @@ ground-truth oracles, Kalman, none) and every ``model.runtime`` value
   make_sequence_evaluator``: the same from Python, metrics accumulated on
   the device with one transfer a sequence;
 * ``models.builder.build_estimator`` + ``CODD.first_step`` / ``CODD.step``
-  (frame by frame) or ``CODD.__call__`` (a clip).
+  (frame by frame) or ``CODD.__call__`` (a clip);
+* ``train.trainer.make_train_step`` with ``train.optim.make_optimizer``
+  and ``models.builder.build_loss_config``: the training step of the
+  stereo stage and of the fusion stage (``losses/``).
 
-Only the eval / inference path exists in this package: no training, no
-losses, no training augmentations.
+Not ported yet: training RAFT-3D (the motion stage; a trainable one
+raises), the training entry point, its augmentations and checkpoints.
 
 Conventions:
 
@@ -34,10 +38,12 @@ Conventions:
   (``ops/tile_warp.py``), the corr-volume window lookup and the corr
   patch lookup (``ops/corr.py``), the fused GN aggregate + 6x6 solve and
   the GN window aggregate alone (``ops/gn.py``), and the splat
-  compositor (``ops/splat.py``).  Each wrapper runs its plain PyTorch
-  version for CPU tensors and launches its kernel (or raises) for CUDA
-  tensors; ``ops/kernels.py`` builds the kernels with ``nvcc`` on first
-  use and counts launches.
+  compositor (``ops/splat.py``); the tile-warp cost also has a backward
+  kernel.  Each wrapper runs its plain PyTorch version for CPU tensors
+  and launches its kernel (or raises) for CUDA tensors, and a kernel
+  without a backward raises where autograd would need its gradient;
+  ``ops/kernels.py`` builds the kernels with ``nvcc`` on first use and
+  counts launches.
 * **Precision.**  Everything is float32 except the bf16 correlation
   features and volumes (and, with ``gn_bf16_scores``, the GN scores), as
   in ``codd_tpu``.  A model cast to bf16 with ``utils.precision.

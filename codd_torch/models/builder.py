@@ -1,5 +1,8 @@
-"""Model factory: config dicts -> CODD estimator on a device (counterpart
-of ``codd_tpu/models/builder.py:build_estimator``).
+"""Model factory: config dicts -> CODD estimator on a device, and the
+training loss's settings (counterparts of ``codd_tpu/models/builder.py``'s
+``build_estimator`` and ``build_loss_config``).  ``model.train_cfg``'s
+``freeze_stereo`` / ``freeze_motion`` / ``freeze_fusion`` reach the model
+and the loss as there.
 
 The same config file builds in both packages: ``model.motion.type`` is
 Motion, GTMotion or absent, ``model.fusion.type`` Fusion, NullFusion,
@@ -37,8 +40,9 @@ through).  What each knob does here:
                        The ``xla_window`` splats are *approximations* in
                        ``codd_tpu`` (overflow drop); the port's kernel is
                        exact and does not reproduce them.
-``splat_impl_train``   validated only: it names the splat a training
-                       path runs, and the port has none yet.
+``splat_impl_train``   validated only: it names the splat of a
+                       trainable RAFT-3D, which the port does not train
+                       yet (a frozen one runs its eval splats).
 =====================  ====================================================
 """
 
@@ -49,12 +53,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..losses.assembly import LossConfig
 from ..ops.corr import CORR_IMPLS
 from ..ops.gn import GN_IMPLS
 from .codd import CODD
 
-__all__ = ["build_estimator", "init_weights", "RUNTIME_DEFAULTS",
-           "RUNTIME_VALUES"]
+__all__ = ["build_estimator", "build_loss_config", "init_weights",
+           "RUNTIME_DEFAULTS", "RUNTIME_VALUES"]
 
 RUNTIME_DEFAULTS = {
     "init_cost_variant": "auto", "tile_warp_variant": "auto",
@@ -141,6 +146,7 @@ def build_estimator(model_cfg: Dict[str, Any], device=None,
     stereo = model_cfg.get("stereo") or {}
     motion = model_cfg.get("motion")
     fusion = model_cfg.get("fusion")
+    train_cfg = model_cfg.get("train_cfg") or {}
     rt = _check_runtime(dict(model_cfg.get("runtime") or {}))
     mname = motion.get("type", "Motion") if motion else None
     fname = fusion.get("type", "Fusion") if fusion else None
@@ -160,7 +166,10 @@ def build_estimator(model_cfg: Dict[str, Any], device=None,
         gn_impl=rt["gn_impl"], gn_bf16_scores=bool(rt["gn_bf16_scores"]),
         corr_impl=rt["corr_impl"],
         pixel_center_offset=float(rt["pixel_center_offset"]),
-        tile_warp_variant=rt["tile_warp_variant"])
+        tile_warp_variant=rt["tile_warp_variant"],
+        freeze_stereo=bool(train_cfg.get("freeze_stereo", False)),
+        freeze_motion=bool(train_cfg.get("freeze_motion", False)),
+        freeze_fusion=bool(train_cfg.get("freeze_fusion", False)))
     if seed is not None:
         init_weights(model, seed)
     # full-f32 convolutions and products: TF32 breaks the GN logits' norm
@@ -168,3 +177,33 @@ def build_estimator(model_cfg: Dict[str, Any], device=None,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return model.to(dev).eval()
+
+
+def build_loss_config(model_cfg: Dict[str, Any],
+                      disp_range=(1.0, 210.0)) -> LossConfig:
+    """The loss settings of a model config: each stage's loss is on where
+    the stage exists as a network and is not frozen."""
+    stereo = model_cfg.get("stereo") or {}
+    motion = model_cfg.get("motion")
+    fusion = model_cfg.get("fusion")
+    train_cfg = model_cfg.get("train_cfg") or {}
+    sloss = stereo.get("loss") or {}
+    mloss = (motion or {}).get("loss") or {}
+    floss = (fusion or {}).get("loss") or {}
+    max_disp = (stereo.get("initialization", {}).get("max_disp")
+                or stereo.get("max_disp") or 320)
+    return LossConfig(
+        max_disp=int(max_disp),
+        disp_range=tuple(disp_range),
+        stereo=not train_cfg.get("freeze_stereo", False),
+        motion=(motion is not None and motion.get("type") == "Motion"
+                and not train_cfg.get("freeze_motion", False)),
+        fusion=(fusion is not None and fusion.get("type") == "Fusion"
+                and not train_cfg.get("freeze_fusion", False)),
+        motion_loss_weight=float(mloss.get("loss_weight", 1.0)),
+        fusion_loss_weight=float(floss.get("loss_weight", 1.0)),
+        wr_weight=float(floss.get("wr_weight", 1.0)),
+        wf_weight=float(floss.get("wf_weight", 1.0)),
+        alpha=float(sloss.get("alpha", 0.9)),
+        c=float(sloss.get("c", 0.1)),
+    )

@@ -1,9 +1,19 @@
 """CODD estimator: stereo -> motion -> fusion over a cross-frame carry
-(counterpart of ``codd_tpu/models/codd.py``, eval only).
+(counterpart of ``codd_tpu/models/codd.py``).
 
     carry, out = model.first_step(left, right, intrinsics)   # frame 0
     carry, out = model.step(carry, left, right, intrinsics)  # frames t >= 1
     outs = model(left_seq, right_seq, intrinsics)            # a whole clip
+    outs = model(left_seq, right_seq, intrinsics, train=True)  # training
+
+Every stage runs under ``torch.no_grad()`` unless it trains: in eval
+(``train=False``) all of them; in training the freeze flags stand for
+``codd_tpu``'s stop-gradients at module boundaries, so a frozen stage
+runs its eval branch under ``torch.no_grad()`` (its kernels launch
+forward only) and a trainable one under autograd.  The glue between
+the stages has no parameters.  This
+slice trains the stereo stage and the fusion stage; a trainable RAFT-3D
+(``motion_type="Motion"`` without ``freeze_motion``) raises.
 
 Images are (B, H, W, 3), intrinsics (B, 4) ``[fx, fy, cx, cy]``.
 
@@ -15,6 +25,7 @@ truth from the ``gt`` argument of ``step``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -45,13 +56,21 @@ class CoddCarry:
     kalman_p: Optional[torch.Tensor] = None  # (B, H, W, 1) Kalman covariance
 
 
+def _grad(enabled: bool):
+    """Autograd for a trainable stage; ``torch.no_grad()`` for a frozen or
+    eval-only one (``codd_tpu``'s stop_gradient)."""
+    return contextlib.nullcontext() if enabled else torch.no_grad()
+
+
 class CODD(nn.Module):
     def __init__(self, max_disp: int = 320, iters: int = 16,
                  fusion_channel: int = 32, stereo_feat_channels: int = 24,
                  motion_type: str = "Motion", fusion_type: str = "Fusion",
                  gn_impl: str = "auto", gn_bf16_scores: bool = False,
                  corr_impl: str = "auto", pixel_center_offset: float = 0.0,
-                 tile_warp_variant: str = "auto"):
+                 tile_warp_variant: str = "auto",
+                 freeze_stereo: bool = False, freeze_motion: bool = False,
+                 freeze_fusion: bool = False):
         super().__init__()
         if motion_type not in MOTION_TYPES or fusion_type not in FUSION_TYPES:
             raise ValueError(f"motion_type {motion_type!r} / fusion_type "
@@ -59,6 +78,9 @@ class CODD(nn.Module):
                              f"{FUSION_TYPES}")
         self.motion_type = motion_type
         self.fusion_type = fusion_type
+        self.freeze_stereo = freeze_stereo
+        self.freeze_motion = freeze_motion
+        self.freeze_fusion = freeze_fusion
         self.stereo = HITNetStereo(max_disp, tile_warp_variant)
         if motion_type == "Motion":
             self.motion = Motion(iters=iters, gn_impl=gn_impl,
@@ -69,47 +91,63 @@ class CODD(nn.Module):
             self.fusion = Fusion(in_channels=stereo_feat_channels,
                                  fusion_channel=fusion_channel)
 
-    def _project_feat(self, out):
+    def _check_train(self, train: bool) -> None:
+        if train and self.motion_type == "Motion" and not self.freeze_motion:
+            raise NotImplementedError(
+                "CODD: training RAFT-3D (motion_type='Motion' without "
+                "freeze_motion) is not ported yet; it comes with the motion "
+                "stage (ROADMAP item 12b).  Set train_cfg.freeze_motion")
+
+    def _stereo_forward(self, left, right, train: bool):
+        s_train = train and not self.freeze_stereo
+        with _grad(s_train):
+            return self.stereo(left, right, train=s_train)
+
+    def _project_feat(self, out, train: bool = False):
         """Memory features: the fusion net's key projection, or the raw
         stereo features without a fusion net."""
         if self.fusion_type != "Fusion":
             return out["left_feat"]
-        return self.fusion.project(out["left_feat"])
+        with _grad(train and not self.freeze_fusion):
+            return self.fusion.project(out["left_feat"])
 
-    @torch.no_grad()
-    def first_step(self, left, right, intrinsics
+    def first_step(self, left, right, intrinsics, train: bool = False
                    ) -> Tuple[CoddCarry, Dict[str, Any]]:
         """Frame 0: stereo + feature caches; no motion/fusion compute."""
-        out = self.stereo(left, right)
+        self._check_train(train)
+        out = self._stereo_forward(left, right, train)
         B, H, W, _ = left.shape
         if self.motion_type == "Motion":
-            fmap, netinp = self.motion.encode(left)
+            with torch.no_grad():
+                fmap, netinp = self.motion.encode(left)
         else:
             fmap = left.new_zeros((B, H // 8, W // 8, 128))
             netinp = left.new_zeros((B, H // 8, W // 8, 512))
         carry = CoddCarry(
-            memory_img=left, memory_feat=self._project_feat(out),
+            memory_img=left, memory_feat=self._project_feat(out, train),
             memory_disp=out["pred_disp"][..., 0], fmap=fmap, netinp=netinp,
             kalman_p=left.new_zeros((B, H, W, 1)))
         return carry, out
 
-    @torch.no_grad()
     def step(self, carry: CoddCarry, left, right, intrinsics,
-             gt: Optional[Dict[str, torch.Tensor]] = None
-             ) -> Tuple[CoddCarry, Dict[str, Any]]:
+             gt: Optional[Dict[str, torch.Tensor]] = None,
+             train: bool = False) -> Tuple[CoddCarry, Dict[str, Any]]:
         """Frame t >= 1: the full stereo -> motion -> fusion cascade.
         ``gt`` holds this frame's ground truth for the oracle variants:
         GTMotion reads gt_flow / gt_disp_change / gt_flow_occ, GTFusion
         gt_disp."""
-        out = self.stereo(left, right)
+        self._check_train(train)
+        out = self._stereo_forward(left, right, train)
         pred_disp = out["pred_disp"]
         B, H, W, _ = left.shape
         fmap, netinp = carry.fmap, carry.netinp
 
         if self.motion_type == "Motion":
-            memory5, raft_out, fmap, netinp = self.motion(
-                left, pred_disp[..., 0], carry.memory_img, carry.memory_feat,
-                carry.memory_disp, carry.fmap, carry.netinp, intrinsics)
+            with torch.no_grad():  # frozen in training (_check_train)
+                memory5, raft_out, fmap, netinp = self.motion(
+                    left, pred_disp[..., 0], carry.memory_img,
+                    carry.memory_feat, carry.memory_disp, carry.fmap,
+                    carry.netinp, intrinsics)
             _, feat_warp, confidence_warp, disp_warp, flow_warp = memory5
             out.update(raft_out)
         elif self.motion_type == "GTMotion":
@@ -123,16 +161,17 @@ class CODD(nn.Module):
             flow_warp = left.new_zeros((B, H, W, 3))
             confidence_warp = left.new_ones((B, H, W, 3))
 
-        feat_curr = self._project_feat(out)
+        feat_curr = self._project_feat(out, train)
         kalman_p = carry.kalman_p
         if kalman_p is None:
             kalman_p = left.new_zeros((B, H, W, 1))
 
         if self.fusion_type == "Fusion":
-            fused, wf, wr = self.fusion(
-                pred_disp, disp_warp[..., None], feat_curr, feat_warp,
-                flow_warp, confidence_warp, out["left_feat"],
-                out["right_feat"])
+            with _grad(train and not self.freeze_fusion):
+                fused, wf, wr = self.fusion(
+                    pred_disp, disp_warp[..., None], feat_curr, feat_warp,
+                    flow_warp, confidence_warp, out["left_feat"],
+                    out["right_feat"])
             out["fusion_weights"] = wf
             out["reset_weights"] = wr
         elif self.fusion_type == "GTFusion":
@@ -157,17 +196,15 @@ class CODD(nn.Module):
                 gt_seq: Optional[Dict[str, torch.Tensor]] = None
                 ) -> List[Dict[str, Any]]:
         """A clip (B, T, H, W, 3) frame by frame -> the per-frame output
-        dicts.  Eval only: this package has no training path."""
-        if train:
-            raise NotImplementedError("codd_torch has no training path: "
-                                      "call with train=False")
+        dicts; with ``train`` the train branches of the trainable stages
+        (the losses are ``losses.assembly.codd_train_loss``)."""
         carry, out = self.first_step(left_seq[:, 0], right_seq[:, 0],
-                                     intrinsics)
+                                     intrinsics, train=train)
         outs = [out]
         for t in range(1, left_seq.shape[1]):
             gt = (None if gt_seq is None else
                   {k: v[:, t] for k, v in gt_seq.items()})
             carry, out = self.step(carry, left_seq[:, t], right_seq[:, t],
-                                   intrinsics, gt=gt)
+                                   intrinsics, gt=gt, train=train)
             outs.append(out)
         return outs

@@ -1,11 +1,17 @@
-"""HITNet tile-hypothesis stereo matcher, eval branch (counterpart of
-``codd_tpu/models/stereo/hitnet.py``).
+"""HITNet tile-hypothesis stereo matcher (counterpart of
+``codd_tpu/models/stereo/hitnet.py``), eval and train branches.
 
 HITUNet feature pyramid [1/16 .. 1/1] -> 4x4 tile initialisation with a
 full-range matching cost per level -> coarse-to-fine tile propagation,
 whose slant-plane warp cost is kernel 1 (``ops/tile_warp.py``).  Tile
 hypotheses carry 16 channels [d, dx, dy, 13-ch descriptor].  Submodules
 are named after the flax modules so parameters bridge by path.
+
+``train=True`` adds the supervision pyramids of ``hit_loss``: the
+initial cost volumes and twelve slant-upsampled planes.  Under autograd,
+``calc_init_cost`` keeps its (rows, wt, C, D) differences for the
+backward (about 1.5 GB at 384x768, B=4), and kernel 1 runs with its
+backward (f32; ``tile_warp_variant`` ``auto`` or ``exact`` only).
 """
 
 from __future__ import annotations
@@ -209,7 +215,9 @@ class TileUpdate(nn.Module):
         self.resblock1 = ResBlock(32)
         self.lastconv = Conv(32, 34, 3, padding=1)
 
-    def forward(self, fea_l, fea_r, hyp_cur, hyp_prev):
+    def forward(self, fea_l, fea_r, hyp_cur, hyp_prev, train: bool = False):
+        """The refined hypothesis; with ``train`` also the two candidates
+        with their confidences, (refined, cur_and_conf, prev_and_conf)."""
         fea_mag = _fea_mag(fea_l)
         cv_cur = self.cv(hyp_cur[..., :3], fea_l, fea_r, fea_mag)
         hyp_up = hyp_upsample(hyp_prev, 2.0)
@@ -220,7 +228,11 @@ class TileUpdate(nn.Module):
         upd_cur = _relu_d(hyp_cur + out[..., 18:34])
         upd_prev = _relu_d(hyp_up + out[..., 2:18])
         sel = (torch.argmax(conf, -1, keepdim=True) == 1).to(out.dtype)
-        return sel * upd_cur + (1.0 - sel) * upd_prev
+        refined = sel * upd_cur + (1.0 - sel) * upd_prev
+        if not train:
+            return refined
+        return (refined, torch.cat([upd_cur, conf[..., 1:2]], -1),
+                torch.cat([upd_prev, conf[..., 0:1]], -1))
 
 
 class PostTileUpdate(nn.Module):
@@ -274,15 +286,37 @@ class TilePropagation(nn.Module):
         self.tile_update5 = PostTileUpdate(FEA_CH[3] + 16)
         self.tile_update6 = FinalTileUpdate(FEA_CH[4] + 16)
 
-    def forward(self, fea_l, fea_r, init_hyps):
-        h = self.tile_update0(fea_l[0], fea_r[0], init_hyps[0])
+    def forward(self, fea_l, fea_r, init_hyps, train: bool = False):
+        """The final disparity; with ``train`` (disparity, the supervision
+        pyramids: ``codd_tpu``'s ``aux`` dict)."""
+        t16 = self.tile_update0(fea_l[0], fea_r[0], init_hyps[0])
+        h, cands = t16, []
         for i in range(1, 5):
-            h = getattr(self, f"tile_update{i}")(fea_l[i], fea_r[i],
-                                                 init_hyps[i], h)
+            t = getattr(self, f"tile_update{i}")(fea_l[i], fea_r[i],
+                                                 init_hyps[i], h, train)
+            h = t[0] if train else t
+            cands.append(t)
         r1x = self.tile_update4_1(fea_l[2], h)
         r05x = self.tile_update5(fea_l[3], hyp_upsample(r1x, 1.0))
         r025x = self.tile_update6(fea_l[4], hyp_upsample(r05x, 1.0))
-        return r025x[..., 0:1]
+        if not train:
+            return r025x[..., 0:1]
+        # slant-upsampled planes, pre/cur ordered, at 1/64 .. full res
+        planes = [hyp_upsample(t16, 16.0, 64)]
+        for (_, cur, prev), s in zip(cands, (8, 4, 2, 1)):
+            planes += [hyp_upsample(cur, float(s), 4 * s),
+                       hyp_upsample(prev, float(s), 4 * s)]
+        planes += [hyp_upsample(r1x, 1.0, 4), hyp_upsample(r05x, 1.0, 2),
+                   r025x]
+        aux = {
+            "prop_disp_pyramid": [p[..., 0:1] for p in planes],
+            "dx_pyramid": [p[..., 1:2] for p in planes],
+            "dy_pyramid": [p[..., 2:3] for p in planes],
+            # reference quirk kept: channel 3 of the 17-channel candidates
+            # is the first descriptor channel, not the confidence (16)
+            "w_pyramid": [p[..., 3:4] for p in planes[1:9]],
+        }
+        return r025x[..., 0:1], aux
 
 
 class HITNetStereo(nn.Module):
@@ -295,19 +329,31 @@ class HITNetStereo(nn.Module):
         if tile_warp_variant not in VARIANT_FORMS:
             raise ValueError(f"bad tile_warp_variant {tile_warp_variant!r}; "
                              f"one of {tuple(VARIANT_FORMS)}")
+        self.tile_warp_variant = tile_warp_variant
         self.backbone = HITUNet()
         self.tile_init = TileInitialization(max_disp)
         self.tile_update = TilePropagation(VARIANT_FORMS[tile_warp_variant])
 
-    def forward(self, left_img, right_img):
+    def forward(self, left_img, right_img, train: bool = False):
+        if train and self.tile_warp_variant not in ("auto", "exact"):
+            raise NotImplementedError(
+                f"HITNetStereo: tile_warp_variant {self.tile_warp_variant!r}"
+                " in training; codd_tpu differentiates only the exact "
+                "tile_warping ('auto' / 'exact')")
         B = left_img.shape[0]
         fea = self.backbone(torch.cat([left_img, right_img], 0))
         fea_l = [f[:B].contiguous() for f in fea]
         fea_r = [f[B:].contiguous() for f in fea]
-        _, init_hyps = self.tile_init(fea_l, fea_r)
-        return {
-            "pred_disp": self.tile_update(fea_l, fea_r, init_hyps),
+        init_cv, init_hyps = self.tile_init(fea_l, fea_r)
+        prop = self.tile_update(fea_l, fea_r, init_hyps, train)
+        out = {
+            "pred_disp": prop[0] if train else prop,
             "left_feat": fea_l[2],
             "right_feat": fea_r[2],
             "left_img": left_img,
         }
+        if train:
+            out["init_cv_pyramid"] = init_cv
+            out.update(prop[1])
+            out["pred_disp"] = prop[1]["prop_disp_pyramid"][-1]
+        return out

@@ -216,6 +216,7 @@ def corr_lookup_levels(vols: Sequence[torch.Tensor], coords, radius: int = 3,
             _into(out, offset + i * K,
                   corr_lookup_level_plain(vol, coords * sc, radius))
         return out
+    kernels.check_forward_only("corr_lookup", *vols, coords)
     kernels.check_cuda("corr_lookup", *vols, coords, out,
                        dtypes=(torch.bfloat16,) * len(vols)
                        + (torch.float32, torch.float32))
@@ -317,10 +318,7 @@ def corr_patch_lookup_levels(f1, levels: Sequence[torch.Tensor], coords,
             _into(out, offset + i * K,
                   corr_patch_lookup_level_plain(f1, f2p, coords * sc, radius))
         return out
-    if (f1.requires_grad or coords.requires_grad
-            or any(l.requires_grad for l in levels)):
-        raise NotImplementedError("corr_patch_lookup: forward only; the "
-                                  "kernel has no backward yet")
+    kernels.check_forward_only("corr_patch_lookup", f1, *levels, coords)
     kernels.check_cuda("corr_patch_lookup", f1, *levels, coords, out,
                        dtypes=(torch.bfloat16,) * (1 + len(levels))
                        + (torch.float32, torch.float32))

@@ -229,6 +229,7 @@ def gn_fused_solve(ae, vals, radius: int = 32, lm: float = 1e-4,
     """Kernel 3 for CUDA tensors, the plain version for CPU tensors."""
     if not ae.is_cuda:
         return gn_fused_solve_plain(ae, vals, radius, lm, ep, bf16_scores)
+    kernels.check_forward_only("gn_fused_solve", ae, vals)
     B, h, w = _check_gn("gn_fused_solve", ae, vals)
     out = torch.empty((B, h, w, 6), dtype=torch.float32, device=ae.device)
     kernels.launch("gn_fused_solve", ae.data_ptr(), vals.data_ptr(),
@@ -242,6 +243,7 @@ def gn_window_aggregate(ae, vals, radius: int = 32,
     """Kernel 5 for CUDA tensors, the plain version for CPU tensors."""
     if not ae.is_cuda:
         return gn_window_aggregate_plain(ae, vals, radius, bf16_scores)
+    kernels.check_forward_only("gn_window_aggregate", ae, vals)
     B, h, w = _check_gn("gn_window_aggregate", ae, vals)
     out = torch.empty((B, h, w, 27), dtype=torch.float32, device=ae.device)
     kernels.launch("gn_window_aggregate", ae.data_ptr(), vals.data_ptr(),

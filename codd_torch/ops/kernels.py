@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels (``csrc/*.cu``).
 
-Each source is an ``sm_90a`` translation unit with a plain C launch
-function that returns its ``cudaError_t``; sources may share code through
+Each source is an ``sm_90a`` translation unit with plain C launch
+functions that return their ``cudaError_t`` (``tile_warp.cu`` holds two:
+the forward and the backward); sources may share code through
 the headers in ``csrc/*.cuh``.  ``load()`` compiles every source with its
 own ``nvcc`` process, all started together, into
 ``<repo>/build/kernels/<name>-<content hash>.so`` and opens each library with
@@ -28,7 +29,7 @@ from typing import Dict
 import torch
 
 __all__ = ["KERNELS", "load", "counts", "reset_counts", "launch",
-           "stream_ptr", "check_cuda"]
+           "stream_ptr", "check_cuda", "check_forward_only"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -38,6 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "tile_warp_cost": ("tile_warp.cu", "tile_warp_cost_launch",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "tile_warp_cost_backward": ("tile_warp.cu",
+                                "tile_warp_cost_backward_launch",
+                                [_P] * 7 + [_I] * 4 + [_P]),
     "corr_lookup": ("corr_lookup.cu", "corr_lookup_launch",
                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gn_fused_solve": ("gn_fused.cu", "gn_fused_solve_launch",
@@ -93,7 +97,7 @@ def load(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
             return _LIBS
         BUILD.mkdir(parents=True, exist_ok=True)
         jobs = []
-        for name, (src, _, _) in KERNELS.items():
+        for src in sorted({src for src, _, _ in KERNELS.values()}):
             out = _lib_path(CSRC / src)
             if out.exists():
                 continue
@@ -103,7 +107,7 @@ def load(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
                    "-o", str(tmp), str(CSRC / src)]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
-            jobs.append((name, out, tmp, subprocess.Popen(
+            jobs.append((src, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         errors = []
@@ -118,8 +122,11 @@ def load(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(errors))
+        opened: Dict[str, ctypes.CDLL] = {}
         for name, (src, fn, argtypes) in KERNELS.items():
-            lib = ctypes.CDLL(str(_lib_path(CSRC / src)))
+            if src not in opened:
+                opened[src] = ctypes.CDLL(str(_lib_path(CSRC / src)))
+            lib = opened[src]
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
@@ -149,3 +156,13 @@ def check_cuda(name: str, *tensors, dtypes=None) -> None:
         if dtypes is not None and t.dtype != dtypes[i]:
             raise TypeError(f"{name}: argument {i} has dtype {t.dtype}, "
                             f"expected {dtypes[i]}")
+
+
+def check_forward_only(name: str, *tensors) -> None:
+    """A kernel without a backward raises where autograd would need its
+    gradient, rather than return a tensor cut from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is forward only (no backward yet); "
+            "call it under torch.no_grad() or on tensors that need no "
+            "gradient")

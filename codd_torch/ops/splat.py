@@ -128,6 +128,7 @@ def composite_form(order, offsets, alpha, z, feat, form="auto",
     bits."""
     N, C = feat.shape
     npix = offsets.numel() - 1
+    kernels.check_forward_only("splat_composite", alpha, z, feat)
     kernels.check_cuda("splat_composite", order, offsets, alpha, z, feat,
                        dtypes=(torch.int64, torch.int64, torch.float32,
                                torch.float32, torch.float32))

@@ -38,6 +38,15 @@ Under bf16 features the function has two forms, as in ``codd_tpu``:
 
 Both read and write bf16 (half the bytes of the f32 form); the kernel is
 one body templated on the form.
+
+Training (f32 only): under grad mode, with an input that requires grad,
+``tile_warp_cost`` goes through ``TileWarpCost``, a
+``torch.autograd.Function`` whose backward is ``tile_warp_cost_backward``:
+a second kernel of ``csrc/tile_warp.cu`` for CUDA tensors, and
+``tile_warp_cost_backward_plain`` (the same math step by step, the
+scatter to ``fea_r`` by ``index_add_``) for CPU tensors.  It computes the
+VJP of ``tile_warping``: ``floor()`` has no gradient and ``|x|``'s is
+``sign(x)``, 0 at 0, as in JAX.  bf16 training raises.
 """
 
 from __future__ import annotations
@@ -46,11 +55,12 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
-from .upsample import pixel_unshuffle, to_plane
+from .upsample import pixel_unshuffle, plane_offsets, to_plane
 from .warp import meshgrid_xy
 
-__all__ = ["tile_warp_cost", "tile_warp_cost_plain", "FORMS",
-           "VARIANT_FORMS"]
+__all__ = ["tile_warp_cost", "tile_warp_cost_plain", "TileWarpCost",
+           "tile_warp_cost_backward", "tile_warp_cost_backward_plain",
+           "FORMS", "VARIANT_FORMS"]
 
 # the launcher's form codes: f32, and the two bf16 forms
 FORMS = {"f32": 0, "exact": 1, "pallas": 2}
@@ -71,19 +81,26 @@ def _resolve_form(dtype, form: str) -> str:
                     "kernel takes float32 or bfloat16")
 
 
-def _cost_f32(hyp3, fea_l, fea_r):
+def _taps_f32(hyp3, fea_r):
+    """Each pixel's four right-feature taps, out-of-image ones zero: the
+    lerp fraction f (B,H,W,1), ok and the tap columns idx (B,H,W,4), and
+    cols (B,H,W,4,C)."""
     B, H, W, C = fea_r.shape
     local_d = to_plane(hyp3[..., 0], hyp3[..., 1], hyp3[..., 2], size=4)
     x, _ = meshgrid_xy(H, W, fea_r.dtype, fea_r.device)
     p = x[None] - local_d
     x0 = torch.floor(p)
-    f = (p - x0)[..., None]
     taps = x0[..., None] - 1 + torch.arange(4, dtype=p.dtype, device=p.device)
     ok = (taps >= 0) & (taps <= W - 1)
-    idx = taps.clamp(0, W - 1).long()                           # (B,H,W,4)
+    # out-of-image (and NaN) taps read column 0, masked below
+    idx = torch.where(ok, taps, torch.zeros_like(taps)).long()
     cols = torch.gather(fea_r, 2, idx.reshape(B, H, W * 4, 1).expand(
         -1, -1, -1, C)).reshape(B, H, W, 4, C)
-    cols = cols * ok[..., None].to(fea_r.dtype)
+    return (p - x0)[..., None], ok, idx, cols * ok[..., None].to(fea_r.dtype)
+
+
+def _cost_f32(hyp3, fea_l, fea_r):
+    f, _, _, cols = _taps_f32(hyp3, fea_r)
     cvs = []
     # k = -1, 0, +1 lerps the tap pairs starting at 2, 1, 0
     for j in (2, 1, 0):
@@ -133,23 +150,115 @@ def tile_warp_cost_plain(hyp3, fea_l, fea_r, form: str = "exact"):
     return _cost_exact(hyp3, fea_l, fea_r)
 
 
-def tile_warp_cost(hyp3, fea_l, fea_r, form: str = "exact"):
-    """The kernel for CUDA tensors (in the dtype it is given: f32, or bf16
-    in ``form``), the plain version for CPU tensors."""
-    if not fea_r.is_cuda:
-        return tile_warp_cost_plain(hyp3, fea_l, fea_r, form)
+def _check_shapes(name, hyp3, fea_l, fea_r):
     B, H, W, C = fea_r.shape
-    ht, wt = H // 4, W // 4
+    if (H % 4 or W % 4 or C % 4 or tuple(fea_l.shape) != (B, H, W, C)
+            or tuple(hyp3.shape) != (B, H // 4, W // 4, 3)):
+        raise ValueError(f"{name}: bad shapes hyp3 {tuple(hyp3.shape)}"
+                         f" fea_l {tuple(fea_l.shape)} fea_r {(B, H, W, C)}")
+
+
+def _launch_forward(hyp3, fea_l, fea_r, form):
+    B, H, W, C = fea_r.shape
     code = FORMS[_resolve_form(fea_r.dtype, form)]
     kernels.check_cuda("tile_warp_cost", hyp3, fea_l, fea_r,
                        dtypes=(fea_r.dtype,) * 3)
-    if (H % 4 or W % 4 or C % 4 or tuple(fea_l.shape) != (B, H, W, C)
-            or tuple(hyp3.shape) != (B, ht, wt, 3)):
-        raise ValueError(f"tile_warp_cost: bad shapes hyp3 {tuple(hyp3.shape)}"
-                         f" fea_l {tuple(fea_l.shape)} fea_r {(B, H, W, C)}")
-    out = torch.empty((B, ht, wt, 48), dtype=fea_r.dtype,
+    _check_shapes("tile_warp_cost", hyp3, fea_l, fea_r)
+    out = torch.empty((B, H // 4, W // 4, 48), dtype=fea_r.dtype,
                       device=fea_r.device)
     kernels.launch("tile_warp_cost", hyp3.data_ptr(), fea_l.data_ptr(),
                    fea_r.data_ptr(), out.data_ptr(), B, H, W, C, code,
                    kernels.stream_ptr(fea_r.device))
     return out
+
+
+def _pixel_shuffle(x, factor: int):
+    """Inverse of ``pixel_unshuffle``: (B,h,w,C*f*f) -> (B,h*f,w*f,C)."""
+    B, h, w, Cff = x.shape
+    f = factor
+    C = Cff // (f * f)
+    x = x.reshape(B, h, w, C, f, f).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, h * f, w * f, C)
+
+
+def tile_warp_cost_backward_plain(g, hyp3, fea_l, fea_r):
+    """The VJP of the f32 cost at (hyp3, fea_l, fea_r) for the cotangent
+    ``g`` (B,ht,wt,48) -> (dhyp3, dfea_l, dfea_r), step by step as
+    ``csrc/tile_warp.cu``'s backward computes it."""
+    B, H, W, C = fea_r.shape
+    f, ok, idx, cols = _taps_f32(hyp3, fea_r)
+    gk = _pixel_shuffle(g, 4)                                   # (B,H,W,3)
+    dfea_l = torch.zeros_like(fea_l)
+    dcols = torch.zeros_like(cols)
+    dlocal = torch.zeros_like(f[..., 0])
+    for kk, j in enumerate((2, 1, 0)):
+        warped = cols[..., j, :] * (1 - f) + cols[..., j + 1, :] * f
+        e = gk[..., kk:kk + 1] * torch.sign(fea_l - warped)
+        dfea_l += e
+        dcols[..., j, :] -= e * (1 - f)
+        dcols[..., j + 1, :] -= e * f
+        dlocal += torch.sum(e * (cols[..., j + 1, :] - cols[..., j, :]), -1)
+    dcols = dcols * ok[..., None].to(fea_r.dtype)
+    rows = (torch.arange(B * H, device=idx.device).reshape(B, H, 1, 1) * W
+            + idx).reshape(-1)
+    dfea_r = torch.zeros((B * H * W, C), dtype=fea_r.dtype,
+                         device=fea_r.device)
+    dfea_r.index_add_(0, rows, dcols.reshape(-1, C))
+    # local_d = d + a dx + b dy, a along x and b along y of the tile
+    c = plane_offsets(4, f.dtype, f.device)
+    t = dlocal.reshape(B, H // 4, 4, W // 4, 4)                 # b, i, a, j
+    dhyp3 = torch.stack([t.sum((2, 4)), (t * c).sum((2, 4)),
+                         (t * c[:, None, None]).sum((2, 4))], -1)
+    return dhyp3, dfea_l, dfea_r.reshape(B, H, W, C)
+
+
+def tile_warp_cost_backward(g, hyp3, fea_l, fea_r):
+    """The backward kernel for CUDA tensors (f32), the plain version for
+    CPU tensors -> (dhyp3, dfea_l, dfea_r)."""
+    if not fea_r.is_cuda:
+        return tile_warp_cost_backward_plain(g, hyp3, fea_l, fea_r)
+    B, H, W, C = fea_r.shape
+    kernels.check_cuda("tile_warp_cost_backward", g, hyp3, fea_l, fea_r,
+                       dtypes=(torch.float32,) * 4)
+    _check_shapes("tile_warp_cost_backward", hyp3, fea_l, fea_r)
+    if tuple(g.shape) != (B, H // 4, W // 4, 48):
+        raise ValueError(f"tile_warp_cost_backward: g {tuple(g.shape)}")
+    dhyp3 = torch.empty_like(hyp3)
+    dfea_l = torch.empty_like(fea_l)
+    dfea_r = torch.zeros_like(fea_r)
+    kernels.launch("tile_warp_cost_backward", hyp3.data_ptr(),
+                   fea_l.data_ptr(), fea_r.data_ptr(), g.data_ptr(),
+                   dhyp3.data_ptr(), dfea_l.data_ptr(), dfea_r.data_ptr(),
+                   B, H, W, C, kernels.stream_ptr(fea_r.device))
+    return dhyp3, dfea_l, dfea_r
+
+
+class TileWarpCost(torch.autograd.Function):
+    """The f32 cost with kernel 1's backward."""
+
+    @staticmethod
+    def forward(ctx, hyp3, fea_l, fea_r):
+        ctx.save_for_backward(hyp3, fea_l, fea_r)
+        if not fea_r.is_cuda:
+            return _cost_f32(hyp3, fea_l, fea_r)
+        return _launch_forward(hyp3, fea_l, fea_r, "exact")
+
+    @staticmethod
+    def backward(ctx, g):
+        return tile_warp_cost_backward(g.contiguous(), *ctx.saved_tensors)
+
+
+def tile_warp_cost(hyp3, fea_l, fea_r, form: str = "exact"):
+    """The kernel for CUDA tensors (in the dtype it is given: f32, or bf16
+    in ``form``), the plain version for CPU tensors; through
+    ``TileWarpCost`` when autograd needs its gradient (f32 only)."""
+    if torch.is_grad_enabled() and (hyp3.requires_grad or fea_l.requires_grad
+                                    or fea_r.requires_grad):
+        if fea_r.dtype != torch.float32:
+            raise NotImplementedError(
+                f"tile_warp_cost: the backward takes float32 features, got "
+                f"{fea_r.dtype} (bf16 training is not ported yet)")
+        return TileWarpCost.apply(hyp3, fea_l, fea_r)
+    if not fea_r.is_cuda:
+        return tile_warp_cost_plain(hyp3, fea_l, fea_r, form)
+    return _launch_forward(hyp3, fea_l, fea_r, form)

@@ -53,6 +53,9 @@ from codd_torch.ops.upsample import plane_offsets, to_plane
 from codd_torch.utils.params import torch_state_dict_from_jax
 from codd_torch.utils.precision import cast_floats, rdiv, round_floats
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 BF = torch.bfloat16
 JBF = jnp.bfloat16
 B, H, W = 1, 64, 128

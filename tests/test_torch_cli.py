@@ -22,11 +22,15 @@ from codd_torch.models.builder import build_estimator
 from codd_torch.tools.inference import parse_args
 from codd_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def _run(*args, timeout=600):
-    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "codd_torch.tools.inference", *args],
         cwd=str(ROOT), env=env, capture_output=True, text=True,

@@ -39,6 +39,9 @@ from codd_torch.ops import se3, splat
 from codd_torch.ops.projective import inv_project
 from codd_torch.utils.params import torch_state_dict_from_jax
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 B, T_FRAMES, H, W = 1, 3, 64, 128
 CARRY = ("memory_img", "memory_feat", "memory_disp", "fmap", "netinp")
 EPS = np.finfo(np.float32).eps

@@ -16,6 +16,9 @@ from codd_tpu.ops import corr as jcorr
 from codd_torch.ops import corr as tcorr
 from codd_torch.ops import kernels
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 
 def _bf16_to_torch(a):
     return torch.from_numpy(np.asarray(a).view(np.int16).copy()).view(

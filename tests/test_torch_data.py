@@ -7,6 +7,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from codd_tpu.data import datasets as jds
 from codd_tpu.data import io as jio
@@ -17,6 +18,9 @@ from codd_torch.data import io as tio
 from codd_torch.data import pipelines as tpipe
 from codd_torch.data import transforms as ttf
 from codd_torch.utils import running_stats as tstats
+
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
 
 
 def _same_sample(a, b):

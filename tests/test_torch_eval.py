@@ -43,6 +43,9 @@ from codd_torch.models.builder import build_estimator
 from codd_torch.models.codd import CODD as TCODD
 from codd_torch.utils.params import torch_state_dict_from_jax
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 B, T, H, W = 1, 3, 64, 128
 COUNTING = ("th3", "th3_tepe", "th1_tepe_rel")
 

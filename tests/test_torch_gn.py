@@ -20,6 +20,9 @@ from codd_tpu.ops.pallas.gn_fused import (gn_fused_solve as pallas_gn,
 from codd_tpu.ops.pallas.gn_window import gn_window_aggregate as pallas_window
 from codd_torch.ops import gn as tgn
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))

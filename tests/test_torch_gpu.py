@@ -1,6 +1,8 @@
 """The six CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors, and a small streaming run whose launch
-counts show that every step went through them.  Marked ``gpu``; each test
+counts show that every step went through them; kernel 1's backward, the
+forward-only kernels' raises under autograd, and a training step of the
+stereo and of the fusion stage.  Marked ``gpu``; each test
 skips itself when there is no CUDA card (chip_smoke.py runs the same
 checks at the full 384x1280 shapes).  Torch only, so that it also runs
 where JAX is not installed:
@@ -13,6 +15,9 @@ import torch
 from codd_torch.models.codd import CODD
 from codd_torch.ops import corr, gn, kernels, se3, splat, tile_warp
 from codd_torch.ops.projective import inv_project
+
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.gpu
 
@@ -379,7 +384,8 @@ def test_streaming_goes_through_the_kernels(dev):
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 4,
                                 "gn_fused_solve": 4, "splat_composite": 4,
                                 "gn_window_aggregate": 0,
-                                "corr_patch_lookup": 0}
+                                "corr_patch_lookup": 0,
+                                "tile_warp_cost_backward": 0}
     assert torch.isfinite(out["pred_disp"]).all()
 
 
@@ -402,7 +408,8 @@ def test_bf16_streaming_goes_through_the_kernels(dev):
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 4,
                                 "gn_fused_solve": 4, "splat_composite": 4,
                                 "gn_window_aggregate": 0,
-                                "corr_patch_lookup": 0}
+                                "corr_patch_lookup": 0,
+                                "tile_warp_cost_backward": 0}
     assert carry.memory_disp.dtype == out["pred_disp"].dtype == torch.float32
     assert out["pred_curr"].dtype == out["Ts"].dtype == torch.bfloat16
     assert all(torch.isfinite(v.float()).all() for v in out.values())
@@ -441,6 +448,148 @@ def test_eval_path_goes_through_kernels_5_and_6(dev):
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 0,
                                 "gn_fused_solve": 0, "splat_composite": 4,
                                 "gn_window_aggregate": 4,
-                                "corr_patch_lookup": 4}
+                                "corr_patch_lookup": 4,
+                                "tile_warp_cost_backward": 0}
     assert all(np.isfinite(v) for v in metrics.values())
     assert metrics["count"] > 0
+
+
+def _tile_warp_inputs(dev, B, H, W, C):
+    """Disparities from -20 to W + 20 and slants in [-2, 2]: taps past
+    both edges of the image."""
+    g = _g()
+    fl, fr = (torch.randn(B, H, W, C, generator=g).to(dev) for _ in range(2))
+    hyp3 = torch.stack([torch.rand(B, H // 4, W // 4, generator=g)
+                        * (W + 40) - 20,
+                        torch.rand(B, H // 4, W // 4, generator=g) * 4 - 2,
+                        torch.rand(B, H // 4, W // 4, generator=g) * 4 - 2],
+                       -1).to(dev)
+    gout = torch.randn(B, H // 4, W // 4, 48, generator=g).to(dev)
+    return hyp3, fl, fr, gout
+
+
+@pytest.mark.parametrize("B,H,W,C", [(2, 16, 64, 16), (1, 32, 1280, 16),
+                                     (3, 8, 40, 24)])
+def test_tile_warp_backward_kernel(dev, B, H, W, C):
+    """Kernel 1's backward against its plain version.  The same floor()
+    and sign decisions by construction; dhyp3 sums a tile's 16 pixels x C
+    channels x 3 offsets in another order, dfea_r adds up to 12 terms a
+    value by atomics in a run-dependent order: 1e-5 of each output's
+    largest value, 1e-5 relative.  dfea_l sums in the same order: equal."""
+    hyp3, fl, fr, gout = _tile_warp_inputs(dev, B, H, W, C)
+    got = _launched("tile_warp_cost_backward",
+                    lambda: tile_warp.tile_warp_cost_backward(gout, hyp3, fl,
+                                                              fr))
+    ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()),
+                                   rtol=1e-5)
+    assert torch.equal(got[1], ref[1])
+
+
+def test_tile_warp_autograd_launches_both_kernels(dev):
+    """Under autograd tile_warp_cost launches the forward and, in
+    backward(), the backward kernel, once each; bf16 inputs that require
+    grad raise."""
+    hyp3, fl, fr, gout = _tile_warp_inputs(dev, 2, 16, 64, 16)
+    ins = [t.clone().requires_grad_() for t in (hyp3, fl, fr)]
+    kernels.reset_counts()
+    out = tile_warp.tile_warp_cost(*ins)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert kernels.counts()["tile_warp_cost"] == 1
+    assert kernels.counts()["tile_warp_cost_backward"] == 1
+    ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
+    for t, b in zip(ins, ref):
+        torch.testing.assert_close(t.grad, b, atol=1e-5 * float(
+            b.abs().max()), rtol=1e-5)
+    with pytest.raises(NotImplementedError):
+        tile_warp.tile_warp_cost(*[t.detach().to(torch.bfloat16)
+                                   .requires_grad_() for t in ins])
+
+
+def test_forward_only_kernels_raise_under_autograd(dev):
+    """Kernels 2-6 have no backward: asked for a gradient, each wrapper
+    raises instead of returning a tensor cut from the graph; under
+    torch.no_grad() the same call launches."""
+    g = _g()
+    f1, f2 = (torch.randn(1, 12, 40, 128, generator=g).to(dev)
+              for _ in range(2))
+    coords = _corr_coords(dev, 3, B=1)
+    vols = corr.build_corr_pyramid(f1, f2, 4, 3)
+    pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
+    ae, vals = _gn_inputs(dev)
+    pts, intr, g = _splat_points(dev, 48, 80, False)
+    order, offsets, alpha, Z = splat.sort_fragments(pts, intr, 48, 80, 1.0)
+    feat = torch.randn(48 * 80, 6, generator=g).to(dev)
+    need = lambda t: t.detach().clone().requires_grad_()  # noqa: E731
+    calls = {
+        "corr_lookup": lambda grad: corr.corr_lookup(
+            [need(v) if grad else v for v in vols], coords, 3),
+        "corr_patch_lookup": lambda grad: corr.corr_lookup(
+            pyr, need(coords) if grad else coords, 3),
+        "gn_fused_solve": lambda grad: gn.gn_fused_solve(
+            need(ae) if grad else ae, vals),
+        "gn_window_aggregate": lambda grad: gn.gn_window_aggregate(
+            ae, need(vals) if grad else vals),
+        "splat_composite": lambda grad: splat.composite(
+            order, offsets, alpha, Z.contiguous(),
+            need(feat) if grad else feat),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=name):
+            call(True)
+        with torch.no_grad():
+            _launched(name, lambda: call(True))
+        _launched(name, lambda: call(False))
+
+
+def _train_batch(dev, B=1, T=2, H=64, W=128):
+    g = _g()
+    return {"l_img": torch.rand(B, T, H, W, 3, generator=g).to(dev),
+            "r_img": torch.rand(B, T, H, W, 3, generator=g).to(dev),
+            "gt_disp": (torch.rand(B, T, H, W, 1, generator=g) * 20 + 1
+                        ).to(dev),
+            "intrinsics": torch.tensor([[100.0, 100.0, W / 2, H / 2]] * B,
+                                       device=dev)}
+
+
+@pytest.mark.parametrize("stage", ["stereo", "fusion"])
+def test_training_step_on_the_card(dev, stage):
+    """One step of each stage at 64x128, T=2: the stereo stage launches
+    kernel 1 and its backward 9 times a frame; the fusion stage launches
+    kernels 1-4 forward only (stereo and motion frozen) and no backward.
+    Finite loss; the frozen parameters keep their bits."""
+    from codd_torch.losses.assembly import LossConfig
+    from codd_torch.train import optim, trainer
+    if stage == "stereo":
+        model = CODD(max_disp=32, motion_type="none", fusion_type="none")
+        lc = LossConfig(max_disp=32, motion=False, fusion=False)
+        frozen = ()
+    else:
+        model = CODD(max_disp=32, iters=1, freeze_stereo=True,
+                     freeze_motion=True)
+        lc = LossConfig(max_disp=32, stereo=False, motion=False)
+        frozen = ("stereo", "motion")
+    model = model.to(dev)
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    tx = optim.make_optimizer(lambda s: 1e-3, 1.0, params, frozen)
+    step = trainer.make_train_step(model, tx, lc)
+    kernels.reset_counts()
+    _, logs = step(trainer.create_train_state(model, tx), _train_batch(dev))
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    assert torch.isfinite(logs["loss"]) and logs["step_skipped"].item() == 0
+    if stage == "stereo":
+        assert counts["tile_warp_cost"] == counts[
+            "tile_warp_cost_backward"] == 18
+    else:
+        assert counts["tile_warp_cost_backward"] == 0
+        assert counts["tile_warp_cost"] == 18
+        assert min(counts["corr_lookup"], counts["gn_fused_solve"],
+                   counts["splat_composite"]) > 0
+    for k, p in params.items():
+        if k.split(".")[0] in frozen:
+            assert torch.equal(p.detach(), before[k]), k

@@ -27,6 +27,9 @@ from codd_torch.models.motion import raft3d as traft
 from codd_torch.models.stereo import hitnet as thit
 from codd_torch.utils.params import torch_state_dict_from_jax
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))

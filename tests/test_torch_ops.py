@@ -32,6 +32,9 @@ from codd_torch.ops import warp as twarp
 from codd_torch.utils import masks as tmasks
 from codd_torch.utils.params import torch_state_dict_from_jax
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))

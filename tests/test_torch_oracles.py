@@ -24,6 +24,9 @@ from codd_torch.models.fusion import others as tfus
 from codd_torch.models.motion import others as tmot
 from codd_torch.utils.params import torch_state_dict_from_jax
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 B, T_FRAMES, H, W = 1, 3, 64, 128
 
 
@@ -152,8 +155,8 @@ def test_step_needs_gt_and_train_raises():
                fusion_type="GTFusion").eval()
     x = torch.zeros(1, 2, 64, 128, 3)
     intr = torch.tensor([[100.0, 100.0, 64.0, 32.0]])
-    with pytest.raises(NotImplementedError):
-        tm(x, x, intr, train=True)
+    with pytest.raises(NotImplementedError):  # a trainable RAFT-3D
+        TCODD(max_disp=64, iters=1)(x, x, intr, train=True)
     with pytest.raises(TypeError):
         tm(x, x, intr)            # GTMotion without ground truth
     with pytest.raises(ValueError):

@@ -14,6 +14,9 @@ from codd_tpu.config import load_config as jax_load_config
 from codd_torch.config import load_config
 from codd_torch.models.builder import RUNTIME_DEFAULTS, build_estimator
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CFG = ROOT / "configs" / "models" / "codd.py"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "codd_tpu")
@@ -158,6 +161,8 @@ def test_model_configs_build_like_codd_tpu(name, mtype, ftype):
     assert (tm.motion_type, tm.fusion_type) == (mtype, ftype)
     assert (jm.motion_type, jm.fusion_type) == (mtype, ftype)
     assert tm.stereo.tile_init.max_disp == jm.max_disp == 320
+    for flag in ("freeze_stereo", "freeze_motion", "freeze_fusion"):
+        assert getattr(tm, flag) == getattr(jm, flag), flag
 
 
 def test_kernel_library_key_covers_headers(tmp_path, monkeypatch):

@@ -24,6 +24,9 @@ from codd_tpu.ops.splat import splat_render as jsplat
 from codd_torch.ops import kernels
 from codd_torch.ops import splat as tsplat
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 
 def _scene(H, W, C, N, seed, radius):
     rng = np.random.RandomState(seed)

@@ -18,6 +18,9 @@ from codd_tpu.ops.pallas.tile_warp import tile_warp_cost as pallas_tile_warp
 from codd_torch.ops import kernels
 from codd_torch.ops.tile_warp import tile_warp_cost, tile_warp_cost_plain
 
+# one intra-op thread: each pytest-xdist worker is its own process
+torch.set_num_threads(1)
+
 
 def _inputs(B, H, W, C, seed=0, max_d=None):
     rng = np.random.RandomState(seed)
