@@ -27,7 +27,10 @@ Phases, in order:
      sort_fragments' time (projection, torch.sort, searchsorted) beside;
      kernel 1 also in its two bf16 forms ("exact", "pallas") against
      their plain bf16 versions, each timed beside the f32 form, and its
-     backward (the VJP of tile_warping) against the plain backward;
+     backward (the VJP of tile_warping) against the plain backward; the
+     backward of kernels 5 and 6 at the motion stage's training call (B=4,
+     48x96 queries) against their plain backward, timed, with their
+     bounds;
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -50,16 +53,26 @@ Phases, in order:
   train: a training step on the card, 5 steps a stage at B=4, T=2,
      384x768 (SceneFlow's training crop) on seeded synthetic batches:
      the stereo stage (configs/models/stereo.py, Adam 4e-4 MultiGamma,
-     clip 1.0), then the fusion stage (configs/models/codd.py with stereo
-     and motion frozen, OneCycle 2e-4); each step's loss, grad_norm, ms
-     (CUDA events) and the stage's peak memory and launches.  Fails on a
-     non-finite loss, a stereo stage without kernel 1's backward, a fusion
-     stage that launches a backward or misses one of kernels 1-4, a
-     frozen parameter that moved, kernel 1's backward off its plain
-     version on one stereo step's own calls, stereo gradients with the
-     kernels beyond 1e-5 of those with kernel 1's plain backward alone or
-     beyond 1e-3 of those with its plain forward and backward, or a
-     trainable RAFT-3D that does not raise.
+     clip 1.0), the fusion stage (configs/models/codd.py with stereo
+     and motion frozen, OneCycle 2e-4), then the motion stage
+     (configs/models/stereo_motion.py: stereo frozen, no fusion, RAFT-3D
+     trained by motion_loss; OneCycle 2e-4, on the panning plane, whose
+     flow and disparity change are known in closed form); each step's
+     loss, grad_norm, ms (CUDA events) and the stage's peak memory and
+     launches.  Fails on a non-finite loss, a stereo stage without kernel
+     1's backward, a fusion stage that launches a backward or misses one
+     of kernels 1-4, a motion stage whose launches a step are not kernels
+     5 and 6 32 times forward (each GN iteration is recomputed in the
+     backward) and 16 times backward, kernel 1 18 times, kernel 4 twice an
+     image and kernels 2 and 3 never, a frozen parameter that moved,
+     kernel 1's backward off its plain version on one stereo step's own
+     calls, stereo gradients with the kernels beyond 1e-5 of those with
+     kernel 1's plain backward alone or beyond 1e-3 of those with its
+     plain forward and backward, the backward of kernels 5 or 6 off its
+     plain version on one motion step's own 16 calls, motion gradients
+     beyond 1e-3 of those with both backward kernels swapped for their
+     plain versions, or joint training (trainable RAFT-3D and Fusion)
+     that does not raise naming ROADMAP item 12b-ii.
   bench: ``codd_torch/tools/bench.py`` in this process at 384x1280, a few
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
@@ -68,7 +81,7 @@ Phases, in order:
      and of the default one in bf16, under torch.profiler, split by
      category into chiprun_out/profile_step*.txt; both configurations
      streamed in turns; with the train phase, one more training step of
-     each stage into chiprun_out/profile_train_{stereo,fusion}.txt.
+     each stage into chiprun_out/profile_train_{stereo,fusion,motion}.txt.
 
 Any failure exits non-zero.  The line before the last holds the kernel
 table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -397,6 +410,162 @@ def tile_warp_backward_check(hyp3, fl, fr, gout):
         flops=npx * (36 * C + 10), library_ms=None)
 
 
+def gn_backward_compare(label, got, ref, terms, ae):
+    """Kernel 5's backward against its plain version: each element within
+    1e-5 of its sum of |terms| (f32 sums of ~2,300 pairs in another order,
+    s recomputed in f32 by FMAs against the plain version's matrix
+    products), plus the logits' rounding: three terms of size |a|^2
+    cancel, and a logit off by d moves its pair's terms by at most d of
+    themselves (8 ulp of 2 max|a|^2, as for the forward).  Returns the
+    worst |err| / (sum of |terms|) and |err| / max|ref|."""
+    import torch
+    share = 1e-5 + 8 * 2.0 ** -24 * 2 * float((ae * ae).sum(-1).max())
+    worst, worst_rel = 0.0, 0.0
+    for name, a, b, t in zip(("dae", "dvals"), got, ref, terms):
+        if not torch.isfinite(a).all():
+            fail(f"gn_window_aggregate_backward ({label}): non-finite {name}")
+        err = (a - b).abs()
+        if bool((err > share * t + 1e-7).any()):
+            fail(f"gn_window_aggregate_backward ({label}): {name} disagrees "
+                 f"with its plain backward ({int((err > share * t + 1e-7).sum())}"
+                 f" of {err.numel()} past {share:.2e} of the sum of |terms|)")
+        worst = max(worst, float((err / (t + 1e-30)).max()))
+        worst_rel = max(worst_rel, float(err.max() / b.abs().max()))
+    return worst, worst_rel, share
+
+
+def gn_backward_check(ae, vals, g):
+    """Kernel 5's backward at the motion stage's training call (B=4, 48x96,
+    C=32, 27 values) against its plain backward, twice for equal bits; its
+    time, the plain version's, and the bound: the operations the function
+    needs, f32 on the CUDA cores.  s_ij, u_ij and the logit are symmetric,
+    so each unordered pair of the window takes the 32-wide logit dot, the
+    27-wide dots G_i.v_j and G_j.v_i, 27 dvals updates each way and 32 dae
+    updates each way (dae_i = -2 (a_i sum_j u_ij - sum_j u_ij a_j)): 204
+    multiply-adds, 102 an ordered pair, with the logit, sigmoid and u
+    (~10 operations) beside."""
+    import torch
+    from codd_torch.ops import gn
+    got = gn.gn_window_aggregate_backward(g, ae, vals)
+    ref = gn.gn_window_aggregate_backward_plain(g, ae, vals)
+    again = gn.gn_window_aggregate_backward(g, ae, vals)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("gn_window_aggregate_backward: two launches on one input differ"
+             " (the sums have a fixed order)")
+    worst, worst_rel, share = gn_backward_compare(
+        "phase 3", got, ref,
+        gn.gn_window_aggregate_backward_terms(g, ae, vals), ae)
+    B, h, w, C = ae.shape
+    ky = np.minimum(np.arange(h) + 32, h - 1) - np.maximum(
+        np.arange(h) - 32, 0) + 1
+    kx = np.minimum(np.arange(w) + 32, w - 1) - np.maximum(
+        np.arange(w) - 32, 0) + 1
+    pairs = float(B * ky.sum() * kx.sum())
+    print(f"  gn_window_aggregate_backward: worst |err| / sum|terms| "
+          f"{worst:.3e} (allowed {share:.3e}); worst |err| / max|ref| "
+          f"{worst_rel:.3e}; {pairs:.4g} pairs; two launches equal in bits")
+    return dict(
+        name="gn_window_aggregate_backward",
+        source="codd_torch/csrc/gn_window.cu",
+        replaces="codd_tpu/ops/gn.py:268", max_abs_err=max(
+            float((a - b).abs().max()) for a, b in zip(got, ref)),
+        ms=cuda_ms(lambda: gn.gn_window_aggregate_backward(g, ae, vals)),
+        plain_ms=cuda_ms(lambda: gn.gn_window_aggregate_backward_plain(
+            g, ae, vals)),
+        # read ae, vals, G once; write dae, dvals once
+        bytes=4 * B * h * w * (2 * C + 3 * 27),
+        flops=pairs * (204 + 5), library_ms=None)
+
+
+def corr_patch_backward_terms(g, f1, levels, coords):
+    """Each output's sum of |terms| for kernel 6's backward: the plain
+    backward on |g|, |f1| and |levels| in f32, unrounded."""
+    from codd_torch.ops import corr
+    K = 49
+    d1, dl = 0.0, []
+    for i, l in enumerate(levels):
+        a, b = corr.corr_patch_lookup_level_backward_plain(
+            g[..., i * K:(i + 1) * K].abs(), f1.abs(), l.abs(),
+            coords / 2 ** i, 3)
+        d1 = d1 + a
+        dl.append(b)
+    return d1, dl
+
+
+def corr_patch_backward_compare(label, got, ref, terms):
+    """Kernel 6's backward against its plain version, in bf16: each element
+    within one bf16 ulp of the larger of the two (both round f32 sums once;
+    the sums run in another order, the levels' by atomics in a run-dependent
+    order, so a sum next to a rounding boundary may round the other way)
+    plus 1e-5 of its sum of |terms| (which covers the outputs that cancel
+    to near 0).  Returns the worst error as a share of that allowance and
+    the share of elements that differ."""
+    import torch
+    worst, differ, n = 0.0, 0, 0
+    pairs = [(got[0], ref[0], terms[0])] + list(zip(got[1], ref[1], terms[1]))
+    for i, (a, b, t) in enumerate(pairs):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            fail(f"corr_patch_lookup_backward ({label}): non-finite output {i}")
+        big = torch.maximum(a.abs(), b.abs()).clamp(min=1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        err = (a - b).abs()
+        allowed = ulp + 1e-5 * t
+        if bool((err > allowed).any()):
+            fail(f"corr_patch_lookup_backward ({label}): output {i} "
+                 "disagrees with its plain backward")
+        worst = max(worst, float((err / allowed).max()))
+        differ += int((err > 0).sum())
+        n += err.numel()
+    return worst, differ / n
+
+
+def corr_patch_backward_check(pyr, coords, g):
+    """Kernel 6's backward at the motion stage's training call (B=4, 48x96
+    queries, four levels, C=128) against its plain backward; its time, the
+    plain version's and the bound."""
+    import torch
+    from codd_torch.ops import corr
+    f1, levels = pyr["f1"], pyr["levels"]
+    got = corr.corr_patch_lookup_backward(g, f1, levels, coords)
+    ref = corr.corr_patch_lookup_backward_plain(g, f1, levels, coords)
+    torch.cuda.synchronize()
+    ulps, share = corr_patch_backward_compare(
+        "phase 3", got, ref, corr_patch_backward_terms(g, f1, levels, coords))
+    B, h, w = coords.shape[:3]
+    L = len(levels)
+    valid = 0
+    for i, l in enumerate(levels):
+        P = 7
+        *_, vq = corr._window_starts(coords / 2 ** i, l.shape[1] - 2 * P,
+                                     l.shape[2] - 2 * P, 3)
+        valid += int(vq.sum())
+    print(f"  corr_patch_lookup_backward: worst |err| {ulps:.3f} of the "
+          f"allowance (1 bf16 ulp + 1e-5 of the sum of |terms|), {share:.2e}"
+          f" of the elements "
+          f"differ; {valid} of {B * h * w * L} query-levels unmasked, "
+          f"{valid * 64 * 128 / 1e6:.1f} M scalar atomic adds")
+    return dict(
+        name="corr_patch_lookup_backward",
+        source="codd_torch/csrc/corr_patch.cu",
+        replaces="codd_tpu/ops/corr.py:208",
+        max_abs_err=max(float((a.float() - b.float()).abs().max())
+                        for a, b in [(got[0], ref[0])]
+                        + list(zip(got[1], ref[1]))),
+        ms=cuda_ms(lambda: corr.corr_patch_lookup_backward(g, f1, levels,
+                                                           coords)),
+        plain_ms=cuda_ms(lambda: corr.corr_patch_lookup_backward_plain(
+            g, f1, levels, coords)),
+        # read f1, the levels (bf16), g, coords once; write df1 and the
+        # levels' gradients (bf16) once
+        bytes=float(4 * f1.numel() + 4 * sum(l.numel() for l in levels)
+                    + 4 * g.numel() + 4 * coords.numel()),
+        # a tap of an unmasked query-level: its bilinear transpose (~8),
+        # 128 multiply-adds into df1, 128 products added into the level
+        flops=float(valid * 64 * (8 + 4 * 128)), library_ms=None)
+
+
 def kernel_checks(dev):
     import torch
     from codd_torch.ops import corr, gn, se3, splat, tile_warp
@@ -557,9 +726,11 @@ def kernel_checks(dev):
             ms=cuda_ms(lambda: fn(ae, vals)),
             plain_ms=cuda_ms(lambda: plain(ae, vals)),
             bytes=4 * n * (32 + 27 + out_w),
-            # per pair: 32-wide dot (64), logit (3), sigmoid (3), 27 FMAs
-            # (54); per query: norm (64) and, fused, the damped solve (~200)
-            flops=pairs * 124 + n * per_query, library_ms=None))
+            # the operations the function needs: each unordered pair's
+            # 32-wide dot (64), logit (3) and sigmoid (3) once, as s is
+            # symmetric, so 35 an ordered pair, and its own 27 FMAs (54);
+            # per query: norm (64) and, fused, the damped solve (~200)
+            flops=pairs * 89 + n * per_query, library_ms=None))
         lb, _ = bound_ms(rows[-1]["bytes"], rows[-1]["flops"])
         bf_ms = cuda_ms(lambda: fn(ae, vals, bf16_scores=True))
         print(f"  {name}: {rows[-1]['ms']:.4f} ms = {rows[-1]['ms'] / lb:.2f} "
@@ -569,6 +740,26 @@ def kernel_checks(dev):
 
     pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
     rows.append(corr_patch_check(pyr, fields))
+
+    # -- the backward of kernels 5 and 6 at the motion stage's training
+    # calls: B=4, 384x768 frames, 48x96 queries (SceneFlow's intrinsics) --
+    tb, th, tw = TRAIN_B, TRAIN_H // 8, TRAIN_W // 8
+    intr8t = torch.tensor([[1050.0 / 8, 1050.0 / 8, 480.0 / 8, 270.0 / 8]]
+                          * tb, device=dev)
+    depth = rand(tb, th, tw, lo=2.0, hi=60.0)
+    Ts = se3.exp(randn(tb, th, tw, 6, scale=0.01))
+    target = (project(se3.act(Ts, inv_project(depth, intr8t)), intr8t)
+              + randn(tb, th, tw, 3, scale=0.5))
+    tvals = gn.build_vals(Ts, target, rand(tb, th, tw, 3), depth,
+                          intr8t).contiguous()
+    tae = randn(tb, th, tw, 32, scale=1.0 / 8).contiguous()
+    rows.append(gn_backward_check(tae, tvals, randn(tb, th, tw, 27)))
+    tf1, tf2 = randn(tb, th, tw, 128), randn(tb, th, tw, 128)
+    tfield = torch.cat([corr_fields(randn(1, th, tw, 2, scale=6.0), th, tw,
+                                    dev)["smooth"]] * tb).contiguous()
+    tpyr = corr.build_corr_pyramid(tf1, tf2, 4, 3, impl="patch")
+    rows.append(corr_patch_backward_check(tpyr, tfield,
+                                          randn(tb, th, tw, 4 * 49)))
 
     # -- kernel 4: splat compositor at both call sites of the motion module:
     # full res (C=6, r=1; the row's time and bound) and quarter res (C=32,
@@ -609,21 +800,21 @@ def kernel_checks(dev):
 # phases 4-5: the streaming cascade
 # ---------------------------------------------------------------------------
 
-def frames(n: int, dev, seed: int = 1):
-    """Seeded stereo frames of a smooth textured plane: the right view is
-    the left one shifted by 8 + t whole pixels (disparity 8 + t), and the
-    camera pans 2 pixels a frame."""
+def frames(n: int, dev, seed: int = 1, h: int = H, w: int = W):
+    """Seeded stereo frames (h x w) of a smooth textured plane: the right
+    view is the left one shifted by 8 + t whole pixels (disparity 8 + t),
+    and the camera pans 2 pixels a frame."""
     import torch
     g = torch.Generator().manual_seed(seed)
-    base = torch.rand((1, 3, H // 8, (W + 64) // 8), generator=g)
-    tex = torch.nn.functional.interpolate(base, size=(H, W + 64),
+    base = torch.rand((1, 3, h // 8, (w + 64) // 8), generator=g)
+    tex = torch.nn.functional.interpolate(base, size=(h, w + 64),
                                           mode="bilinear", align_corners=False)
     tex = tex + 0.1 * torch.rand(tex.shape, generator=g)
     out = []
     for t in range(n):
-        left = tex[..., 2 * t:2 * t + W]
+        left = tex[..., 2 * t:2 * t + w]
         shift = 8 + t  # whole-pixel shift keeps the right view exact
-        right = tex[..., 2 * t + shift:2 * t + shift + W]
+        right = tex[..., 2 * t + shift:2 * t + shift + w]
         out.append((left.permute(0, 2, 3, 1).contiguous().to(dev),
                     right.permute(0, 2, 3, 1).contiguous().to(dev)))
     return out
@@ -748,7 +939,9 @@ def main_path(dev, steps: int):
     expect = {"tile_warp_cost": 9 * (steps + 1), "corr_lookup": 16 * steps,
               "gn_fused_solve": 16 * steps, "splat_composite": 2 * steps,
               "gn_window_aggregate": 0, "corr_patch_lookup": 0,
-              "tile_warp_cost_backward": 0}
+              "tile_warp_cost_backward": 0,
+              "gn_window_aggregate_backward": 0,
+              "corr_patch_lookup_backward": 0}
     print(f"  launches {launches} (expected {expect})")
     if launches != expect:
         fail(f"launch counts {launches} != expected {expect}")
@@ -887,7 +1080,9 @@ def eval_phase(dev, steps, default_ms):
     tile = 9 * EVAL_FRAMES
     zero = {"corr_lookup": 0, "gn_fused_solve": 0, "gn_window_aggregate": 0,
             "corr_patch_lookup": 0, "splat_composite": 0,
-            "tile_warp_cost_backward": 0}
+            "tile_warp_cost_backward": 0,
+            "gn_window_aggregate_backward": 0,
+            "corr_patch_lookup_backward": 0}
     model = build_model(runtime=EVAL_RUNTIME)
     launches, _ = _eval_run(
         "pallas_window + patch", model, 2,
@@ -989,6 +1184,124 @@ def train_batches(n: int, dev, seed: int = 7):
             "intrinsics": torch.tensor([[1050.0, 1050.0, 480.0, 270.0]]
                                        * TRAIN_B)})
     return [{k: v.to(dev) for k, v in b.items()} for b in out]
+
+
+def motion_batches(n: int, dev, seed: int = 11):
+    """``n`` seeded batches for the motion stage at SceneFlow's training
+    shape (B=4, T=2, 384x768): each clip is ``frames()``' panning plane,
+    so the ground truth is in closed form: disparity 8 + t, flow (-2, 0)
+    towards the next frame, disparity change +1; SceneFlow's
+    intrinsics."""
+    import torch
+    out = []
+    for i in range(n):
+        clips = [frames(TRAIN_T, "cpu", seed * 1000 + i * TRAIN_B + b,
+                        TRAIN_H, TRAIN_W) for b in range(TRAIN_B)]
+        side = lambda k: torch.cat([torch.stack(  # noqa: E731
+            [f[k] for f in c], 1) for c in clips])
+        shape = (TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W)
+        flow = torch.zeros(shape + (2,))
+        flow[..., 0] = -2.0
+        out.append({
+            "l_img": side(0), "r_img": side(1),
+            "gt_disp": (8.0 + torch.arange(TRAIN_T, dtype=torch.float32)
+                        ).reshape(1, TRAIN_T, 1, 1, 1).expand(
+                            shape + (1,)).contiguous(),
+            "gt_flow": flow, "gt_disp_change": torch.ones(shape + (1,)),
+            "intrinsics": torch.tensor([[1050.0, 1050.0, 480.0, 270.0]]
+                                       * TRAIN_B)})
+    return [{k: v.to(dev) for k, v in b.items()} for b in out]
+
+
+@contextlib.contextmanager
+def motion_backwards(gn_bwd=None, corr_bwd=None):
+    """The backward of kernels 5 and 6 as the model's Functions call them,
+    replaced by ``gn_bwd`` / ``corr_bwd`` where given (their plain
+    versions, say); yields the inputs of every call, by kernel."""
+    from codd_torch.ops import corr, gn
+    real = (gn.gn_window_aggregate_backward, corr.corr_patch_lookup_backward)
+    kept = {"gn": [], "corr": []}
+
+    def gn_keep(*args):
+        kept["gn"].append(args)
+        return (gn_bwd or real[0])(*args)
+
+    def corr_keep(*args):
+        kept["corr"].append(args)
+        return (corr_bwd or real[1])(*args)
+
+    gn.gn_window_aggregate_backward = gn_keep
+    corr.corr_patch_lookup_backward = corr_keep
+    try:
+        yield kept
+    finally:
+        gn.gn_window_aggregate_backward, corr.corr_patch_lookup_backward = real
+
+
+def motion_grad_checks(model, lc, batch):
+    """One batch of the motion stage, gradients only, no update.  Gated:
+    each of the step's 16 calls of both backward kernels against its plain
+    backward on the same inputs (phase 3's tolerances); the whole batch's
+    gradients with only those two backward kernels swapped for their plain
+    versions (every forward kernel kept): each parameter's gradient within
+    1e-3 of its norm, the loss equal to 1e-6.  Gradients that vanish by
+    invariance (the biases in front of fnet's instance norms; the ae
+    head's bias, which every logit difference cancels) are f32 noise of
+    ~1e-9 against a largest norm of ~10, so a norm is taken as at least
+    1e-5 of the largest.  Reported: the same run with the kernels again
+    (the atomics' run-to-run order)."""
+    import torch
+    from codd_torch.ops import corr, gn
+    with motion_backwards() as kept:
+        lk, gk, _ = stage_grads(model, lc, batch)
+    if len(kept["gn"]) != 16 or len(kept["corr"]) != 16:
+        fail(f"motion stage: {len(kept['gn'])} / {len(kept['corr'])} calls "
+             "of the backward of kernels 5 / 6 in one batch, not 16 / 16")
+    gw = gr = gu = cu = cs = 0.0
+    for i, (g, ae, vals, radius) in enumerate(kept["gn"]):
+        with torch.no_grad():
+            got = gn.gn_window_aggregate_backward(g, ae, vals, radius)
+            ref = gn.gn_window_aggregate_backward_plain(g, ae, vals, radius)
+            terms = gn.gn_window_aggregate_backward_terms(g, ae, vals,
+                                                          radius)
+            w, r, sh = gn_backward_compare(f"call {i} of a motion step", got,
+                                           ref, terms, ae)
+        gw, gr, gu = max(gw, w), max(gr, r), max(gu, sh)
+    for i, (g, f1, levels, coords, radius, scales) in enumerate(kept["corr"]):
+        with torch.no_grad():
+            got = corr.corr_patch_lookup_backward(g, f1, levels, coords)
+            ref = corr.corr_patch_lookup_backward_plain(g, f1, levels, coords)
+            u, d = corr_patch_backward_compare(
+                f"call {i} of a motion step", got, ref,
+                corr_patch_backward_terms(g, f1, levels, coords))
+        cu, cs = max(cu, u), max(cs, d)
+    print(f"  motion stage, one batch: the backward of kernels 5 and 6 on "
+          f"the step's 16 calls each, against their plain backward on the "
+          f"same inputs: kernel 5 worst |err| / sum|terms| {gw:.3e} "
+          f"(allowed {gu:.3e}), |err| / max|ref| {gr:.3e}; kernel 6 worst "
+          f"|err| {cu:.3f} of its allowance (1 bf16 ulp + 1e-5 of the sum of "
+          f"|terms|), up to {cs:.2e} of the elements differ", flush=True)
+    del kept
+    print(f"  motion stage, one batch, {len(gk)} gradient tensors against "
+          f"the kernels' own (loss {lk:.6f}):", flush=True)
+    res = {}
+    for label, plain in (("kernels again", False),
+                         ("plain backward of kernels 5 and 6 (bound 1e-3, "
+                          "loss 1e-6)", True)):
+        with motion_backwards(
+                gn.gn_window_aggregate_backward_plain if plain else None,
+                corr.corr_patch_lookup_backward_plain if plain else None):
+            lx, gx, _ = stage_grads(model, lc, batch)
+        err, where = grads_apart(gk, gx, 1e-5, show=4)
+        res[plain] = (abs(lk - lx) / abs(lx), err, set(gx) == set(gk))
+        print(f"    {label}: loss {lx:.6f} (rel {res[plain][0]:.2e}), worst "
+              f"gradient |diff| / |plain| {err:.2e} at {where}", flush=True)
+    lb, eb, same = res[True]
+    if not same or eb > 1e-3 or lb > 1e-6:
+        fail("motion stage: the gradients with the backward kernels disagree "
+             "with those of their plain backward")
+    if any(k.startswith("stereo.") for k in gk):
+        fail("motion stage: a frozen stereo parameter has a gradient")
 
 
 @contextlib.contextmanager
@@ -1138,14 +1451,17 @@ def stage_grads(model, loss_cfg, batch, cotangents=None):
     return float(loss.detach()), grads, cots
 
 
-def grads_apart(a, b):
-    """Worst per-tensor |a - b| / |b| over the parameters of ``b``."""
-    worst, where = 0.0, None
-    for k, g in b.items():
-        e = float((a[k] - g).norm() / g.norm().clamp(min=1e-30))
-        if e > worst:
-            worst, where = e, k
-    return worst, where
+def grads_apart(a, b, floor: float = 0.0, show: int = 0):
+    """Worst per-tensor |a - b| / max(|b|, floor * the largest |b|) over the
+    parameters of ``b``; with ``show``, the ``show`` worst tensors with
+    their error and norm (as a share of the largest) are printed."""
+    top = max(float(g.norm()) for g in b.values()) if b else 0.0
+    errs = sorted(((float((a[k] - g).norm() / g.norm().clamp(
+        min=max(floor * top, 1e-30))), k, float(g.norm()) / top)
+        for k, g in b.items()), reverse=True)
+    for e, k, n in errs[:show]:
+        print(f"      {k}: {e:.2e} (norm {n:.1e} of the largest)")
+    return (errs[0][0], errs[0][1]) if errs else (0.0, None)
 
 
 def stereo_grad_checks(model, lc, batch):
@@ -1281,9 +1597,10 @@ def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
 
 
 def train_phase(dev, profile_dir=None):
-    """The stereo stage, then the fusion stage; returns the launches of
-    both runs, summed by kernel.  With ``profile_dir``, one more step of
-    each under torch.profiler (profile_train_{stereo,fusion}.txt)."""
+    """The stereo stage, the fusion stage, then the motion stage; returns
+    the launches of the three runs, summed by kernel.  With
+    ``profile_dir``, one more step of each under torch.profiler
+    (profile_train_{stereo,fusion,motion}.txt)."""
     prof = (lambda n: None) if profile_dir is None else \
         (lambda n: profile_dir / f"profile_train_{n}.txt")
     import torch
@@ -1321,14 +1638,39 @@ def train_phase(dev, profile_dir=None):
     del model, opt
     torch.cuda.empty_cache()
 
+    mb = motion_batches(TRAIN_STEPS, dev)
+    cfg = model_cfg("stereo_motion.py")
+    model, lc = build_model("stereo_motion.py"), build_loss_config(cfg)
+    motion_grad_checks(model, lc, mb[0])
+    opt = optim.make_optimizer(optim.one_cycle_schedule(2e-4, 200000 // 8),
+                               1.0, dict(model.named_parameters()),
+                               ["stereo"])
+    motion = train_stage("motion stage", model, opt, lc, mb, ("stereo",),
+                         prof("motion"))
+    # a step: frozen stereo 9 tile warps a frame; 16 GN iterations, each
+    # checkpointed, so kernels 5 and 6 run their forward twice and their
+    # backward once; both splats of each of the 4 images, forward only
+    per_step = {"tile_warp_cost": 18, "corr_patch_lookup": 32,
+                "gn_window_aggregate": 32, "corr_patch_lookup_backward": 16,
+                "gn_window_aggregate_backward": 16,
+                "splat_composite": 2 * TRAIN_B, "corr_lookup": 0,
+                "gn_fused_solve": 0, "tile_warp_cost_backward": 0}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if motion != want:
+        fail(f"motion stage: launches {motion} != {want}")
+    del model, opt
+    torch.cuda.empty_cache()
+
     b = batches[0]
     try:
         build_model("codd.py")(b["l_img"], b["r_img"], b["intrinsics"],
                                train=True)
-        fail("a trainable RAFT-3D did not raise")
+        fail("joint training (a trainable RAFT-3D and Fusion) did not raise")
     except NotImplementedError as e:
-        print(f"  trainable RAFT-3D raises: {e}")
-    return {k: stereo[k] + fusion[k] for k in stereo}
+        if "12b-ii" not in str(e):
+            fail(f"joint training raised without naming item 12b-ii: {e}")
+        print(f"  joint training raises: {e}")
+    return {k: stereo[k] + fusion[k] + motion[k] for k in stereo}
 
 
 def bench_phase():
@@ -1395,7 +1737,11 @@ def profile_call(run, label: str, out_file: Path):
             "gn_fused_solve_kernel": "gn_fused_solve",
             "splat_composite_": "splat_composite",  # _walk or _lanes
             "gn_window_aggregate_kernel": "gn_window_aggregate",
-            "corr_patch_lookup_kernel": "corr_patch_lookup"}
+            "corr_patch_lookup_kernel": "corr_patch_lookup",
+            "gn_window_aggregate_backward_kernel":
+                "gn_window_aggregate_backward",
+            "corr_patch_lookup_backward_kernel":
+                "corr_patch_lookup_backward"}
     mine = {v: sum(r[1] for r in rows if k in r[0]) for k, v in hand.items()}
     cats: dict = {}
     for key, ms, n in rows:
@@ -1508,7 +1854,7 @@ def main():
     if "train" in phases:
         print(f"[train] {TRAIN_STEPS} training steps a stage at B={TRAIN_B}, "
               f"T={TRAIN_T}, {TRAIN_H}x{TRAIN_W}: the stereo stage, the "
-              "fusion stage", flush=True)
+              "fusion stage, the motion stage", flush=True)
         train_launches = train_phase(dev, Path(__file__).resolve().parent
                                      / "chiprun_out" if "profile" in phases
                                      else None)
@@ -1545,7 +1891,7 @@ def main():
         r["launches"] = (launches.get(r["name"], 0)
                          + eval_launches.get(r["name"], 0)
                          + train_launches.get(r["name"], 0))
-        needs = ({"train"} if r["name"] == "tile_warp_cost_backward"
+        needs = ({"train"} if r["name"].endswith("_backward")
                  else {"main", "eval"})
         if r["launches"] == 0 and needs <= phases:
             fail(f"{r['name']}: launched no time on the main paths")

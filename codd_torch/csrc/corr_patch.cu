@@ -39,6 +39,20 @@
 // formed in the order the pairing consumes them, two that share a 32-byte
 // sector of a tap together.  The t*t dots go to shared memory and the
 // (2r+1)^2 outputs are combined there (two rounds of the warp).
+//
+// The backward (training; the VJP of codd_tpu/ops/corr.py:_lookup_level,
+// which XLA differentiates there): one warp a query, every level in turn.
+// The level's 49 cotangents go through the transpose of the bilinear
+// combine to the t*t tap cotangents (each corner's term added in the order
+// d00, d01, d10, d11, as corr.py:_bilinear_transpose); a masked query
+// (vq = 0) skips the level.  Lane l owns channels 4l .. 4l+3: for each tap
+// in row-major order it adds dtap * level[tap] to its df1 sums (one f32
+// chain a channel over all levels, rounded once to bf16: df1 is written in
+// full by its query) and scatters dtap * f1 into a zeroed f32 copy of the
+// padded level with a 16-byte atomicAdd (rounded once to bf16 by the
+// wrapper).  What bounds it: the scatter, 64 x 128 atomic adds a query and
+// level into windows that neighbouring queries share (f32, no staging of
+// the window's gradient in shared memory yet).
 #include <stdint.h>
 
 #include "corr_common.cuh"
@@ -274,6 +288,142 @@ static int launch(const void* f1, const CorrLevels& lv, const void* coords,
       (const unsigned char*)f1, lv, (const float*)coords, (float*)out, h, w,
       tiles_x, tiles_per_b, out_c, offset, box_bytes);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+#define KB_WARPS 8  // queries of a block, one a warp
+
+// The f32 gradients of the padded levels, one launch's worth
+struct CorrGrads {
+  float* ptr[CORR_MAX_LEVELS];
+};
+
+#if !defined(__CUDACC_VER_MAJOR__) || __CUDACC_VER_MAJOR__ < 12 || \
+    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ < 1)
+#error "corr_patch.cu needs nvcc 12.1 or later (16-byte float4 atomicAdd)"
+#endif
+
+__device__ __forceinline__ void add4(float* p, float a, float b, float c,
+                                     float d) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+
+template <int R>
+__global__ void __launch_bounds__(32 * KB_WARPS)
+corr_patch_lookup_backward_kernel(const unsigned char* __restrict__ f1,
+                                  const __grid_constant__ CorrLevels lv,
+                                  const float* __restrict__ coords,
+                                  const float* __restrict__ g,
+                                  __nv_bfloat16* __restrict__ df1,
+                                  const __grid_constant__ CorrGrads dl,
+                                  long long N, long long total) {
+  constexpr int T = 2 * R + 2, R1 = 2 * R + 1, K = R1 * R1;
+  __shared__ float sg[KB_WARPS][K];
+  __shared__ float sd[KB_WARPS][MAXT * MAXT];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long q = (long long)blockIdx.x * KB_WARPS + warp;
+  if (q >= total) return;  // the whole warp
+  const long long b = q / N;
+  const uint2 fv = __ldg(reinterpret_cast<const uint2*>(f1 + q * (PC * 2)) + lane);
+  const float f[4] = {bf16_lo(fv.x), bf16_hi(fv.x), bf16_lo(fv.y), bf16_hi(fv.y)};
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const float* gq = g + q * (long long)(lv.n * K);
+  float* gs = sg[warp];
+  float* ds = sd[warp];
+  for (int lvl = 0; lvl < lv.n; ++lvl) {
+    const int Hp = lv.Hp[lvl], Wp = lv.Wp[lvl];
+    const CorrWindow win =
+        corr_window<R>(coords[q * 2], coords[q * 2 + 1], lv.scale[lvl], Hp, Wp);
+    if (!win.vq) continue;  // every tap is masked: no cotangent
+    for (int o = lane; o < K; o += 32) gs[o] = __ldg(gq + lvl * K + o);
+    __syncwarp();
+    const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
+    for (int tap = lane; tap < T * T; tap += 32) {
+      const int ty = tap / T, tx = tap - ty * T;
+      float d = 0.f;
+      if (ty < R1 && tx < R1)
+        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[ty * R1 + tx], gy), gx));
+      if (ty < R1 && tx >= 1)
+        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[ty * R1 + tx - 1], gy), win.fx));
+      if (ty >= 1 && tx < R1)
+        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[(ty - 1) * R1 + tx], win.fy), gx));
+      if (ty >= 1 && tx >= 1)
+        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[(ty - 1) * R1 + tx - 1], win.fy),
+                                   win.fx));
+      ds[tap] = d;
+    }
+    __syncwarp();
+    const long long at = (b * Hp + win.sy) * Wp + win.sx;  // tap (0, 0)
+    const unsigned char* lp =
+        (const unsigned char*)lv.ptr[lvl] + at * PIX_BYTES + lane * 8;
+    float* gp = dl.ptr[lvl] + at * PC + lane * 4;
+    for (int ty = 0; ty < T; ++ty) {
+      for (int tx = 0; tx < T; ++tx) {
+        const float d = ds[ty * T + tx];
+        const long long off = (long long)ty * Wp + tx;
+        const uint2 kv = __ldg(reinterpret_cast<const uint2*>(lp + off * PIX_BYTES));
+        acc[0] = __fmaf_rn(d, bf16_lo(kv.x), acc[0]);
+        acc[1] = __fmaf_rn(d, bf16_hi(kv.x), acc[1]);
+        acc[2] = __fmaf_rn(d, bf16_lo(kv.y), acc[2]);
+        acc[3] = __fmaf_rn(d, bf16_hi(kv.y), acc[3]);
+        if (d != 0.f)
+          add4(gp + off * PC, __fmul_rn(d, f[0]), __fmul_rn(d, f[1]),
+               __fmul_rn(d, f[2]), __fmul_rn(d, f[3]));
+      }
+    }
+    __syncwarp();  // gs and ds are the next level's
+  }
+  __nv_bfloat162 lo = __floats2bfloat162_rn(acc[0], acc[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(acc[2], acc[3]);
+  uint2 out;
+  out.x = *reinterpret_cast<unsigned*>(&lo);
+  out.y = *reinterpret_cast<unsigned*>(&hi);
+  reinterpret_cast<uint2*>(df1 + q * PC)[lane] = out;
+}
+
+template <int R>
+static int launch_backward(const void* f1, const CorrLevels& lv,
+                           const CorrGrads& dl, const void* coords,
+                           const void* g, void* df1, long long N,
+                           long long total, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((total + KB_WARPS - 1) / KB_WARPS);
+  corr_patch_lookup_backward_kernel<R><<<blocks, 32 * KB_WARPS, 0, s>>>(
+      (const unsigned char*)f1, lv, (const float*)coords, (const float*)g,
+      (__nv_bfloat16*)df1, dl, N, total);
+  return (int)cudaGetLastError();
+}
+
+// The backward: g (B, h, w, L * (2r+1)^2) f32 cotangents of one launch's
+// output (offset 0); df1 (B, h*w, 128) bf16, written in full; grads: L
+// device pointers, f32 (B, Hp, Wp, 128) zeroed buffers the kernel adds into.
+extern "C" int corr_patch_lookup_backward_launch(
+    const void* f1, const void* const* levels, const int* hw,
+    const float* scales, int L, const void* coords, const void* g, void* df1,
+    void* const* grads, int B, int h, int w, int r, void* stream) {
+  if (L < 1 || L > CORR_MAX_LEVELS || r < 0 || 2 * r + 2 > MAXT)
+    return (int)cudaErrorInvalidValue;
+  CorrLevels lv = {};
+  CorrGrads dl = {};
+  for (int i = 0; i < L; ++i) {
+    lv.ptr[i] = levels[i];
+    lv.Hp[i] = hw[2 * i];
+    lv.Wp[i] = hw[2 * i + 1];
+    lv.scale[i] = scales[i];
+    dl.ptr[i] = (float*)grads[i];
+  }
+  lv.n = L;
+  const long long N = (long long)h * w, total = (long long)B * N;
+  if (total == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (r) {
+    case 0: return launch_backward<0>(f1, lv, dl, coords, g, df1, N, total, s);
+    case 1: return launch_backward<1>(f1, lv, dl, coords, g, df1, N, total, s);
+    case 2: return launch_backward<2>(f1, lv, dl, coords, g, df1, N, total, s);
+    default: return launch_backward<3>(f1, lv, dl, coords, g, df1, N, total, s);
+  }
 }
 
 // levels: L device pointers (B, Hp, Wp, 128) bf16, 16-byte aligned; hw: L

@@ -38,9 +38,28 @@ __all__ = [
 
 
 def imread(path) -> np.ndarray:
-    """PNG (or any imageio format) -> array of raw samples."""
+    """PNG (or any imageio format) -> array of raw samples.  A PNG whose
+    IHDR says 16-bit colour (RGB or RGBA) goes through ``read_png``:
+    imageio drops its low bytes.  The rest goes through imageio, which
+    reads them right and faster (``read_png`` runs Average and Paeth rows
+    byte by byte)."""
+    if _is_png_16bit_colour(path):
+        return read_png(path)
     import imageio.v2 as imageio
     return np.asarray(imageio.imread(path))
+
+
+def _is_png_16bit_colour(path) -> bool:
+    """The signature, then IHDR's bit depth 16 and a colour type with the
+    colour bit (2 RGB, 6 RGBA)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(26)
+    except (OSError, TypeError):
+        return False
+    return (len(head) == 26 and head[:8] == _PNG_SIGNATURE
+            and head[12:16] == b"IHDR" and head[24] == 16
+            and head[25] in (2, 6))
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"

@@ -16,15 +16,20 @@ through).  What each knob does here:
                        ``windowed``/``pallas_window``: kernel 5, then the
                        damped solve in PyTorch; ``dense``: the masked
                        (n, n) form in PyTorch, by this explicit request
-                       only: the kernels take every shape.
+                       only: the kernels take every shape.  In training
+                       ``auto`` takes kernel 5 and its backward; ``fused``
+                       raises (no backward).
 ``gn_bf16_scores``     kernels 3 and 5 round score and value to bf16
                        before the product; the sum stays f32.  Dropped
                        where ``codd_tpu`` runs its dense form, which keeps
-                       f32 scores (``ops/gn.py:resolve_impl``).
+                       f32 scores (``ops/gn.py:resolve_impl``).  Raises
+                       in training.
 ``corr_impl``          ``auto``/``volume``/``volume_reduce``/
                        ``volume_pallas``: bf16 volumes + kernel 2 (the
                        three selects are bit-identical in ``codd_tpu``);
-                       ``patch``: kernel 6, no volume.
+                       ``patch``: kernel 6, no volume.  In training
+                       ``auto`` is ``patch`` (kernel 6 and its backward);
+                       the volume values raise.
 ``pixel_center_offset``  passed to both splats.
 ``tile_warp_variant``  kernel 1's form under bf16 features: ``pallas``
                        computes in f32 and rounds the output, the others
@@ -40,9 +45,10 @@ through).  What each knob does here:
                        The ``xla_window`` splats are *approximations* in
                        ``codd_tpu`` (overflow drop); the port's kernel is
                        exact and does not reproduce them.
-``splat_impl_train``   validated only: it names the splat of a
-                       trainable RAFT-3D, which the port does not train
-                       yet (a frozen one runs its eval splats).
+``splat_impl_train``   validated only: it names the differentiable splat
+                       of joint training, not ported yet (ROADMAP item
+                       12b-ii); the motion stage's splats reach no loss
+                       and run kernel 4's forward.
 =====================  ====================================================
 """
 

@@ -11,9 +11,12 @@ Every stage runs under ``torch.no_grad()`` unless it trains: in eval
 ``codd_tpu``'s stop-gradients at module boundaries, so a frozen stage
 runs its eval branch under ``torch.no_grad()`` (its kernels launch
 forward only) and a trainable one under autograd.  The glue between
-the stages has no parameters.  This
-slice trains the stereo stage and the fusion stage; a trainable RAFT-3D
-(``motion_type="Motion"`` without ``freeze_motion``) raises.
+the stages has no parameters.  This slice trains the stereo, the motion
+(``configs/models/stereo_motion.py``) and the fusion stage; a trainable
+RAFT-3D whose warped memory a fusion would differentiate (joint training:
+a trainable ``Fusion``, or ``GTFusion`` / ``KalmanFusion``, whose output
+feeds the next frame's motion) raises: that needs the differentiable
+training splat (ROADMAP item 12b-ii).
 
 Images are (B, H, W, 3), intrinsics (B, 4) ``[fx, fy, cx, cy]``.
 
@@ -92,11 +95,19 @@ class CODD(nn.Module):
                                  fusion_channel=fusion_channel)
 
     def _check_train(self, train: bool) -> None:
-        if train and self.motion_type == "Motion" and not self.freeze_motion:
+        reads_memory = (self.fusion_type in ("GTFusion", "KalmanFusion")
+                        or (self.fusion_type == "Fusion"
+                            and not self.freeze_fusion))
+        if (train and self.motion_type == "Motion" and not self.freeze_motion
+                and reads_memory):
             raise NotImplementedError(
-                "CODD: training RAFT-3D (motion_type='Motion' without "
-                "freeze_motion) is not ported yet; it comes with the motion "
-                "stage (ROADMAP item 12b).  Set train_cfg.freeze_motion")
+                "CODD: training RAFT-3D jointly with a fusion that "
+                f"differentiates its warped memory (fusion_type "
+                f"{self.fusion_type!r}) needs the differentiable training "
+                "splat, which is not ported yet (ROADMAP item 12b-ii).  Set "
+                "train_cfg.freeze_motion, or freeze_fusion, or train the "
+                "motion stage without fusion (configs/models/"
+                "stereo_motion.py)")
 
     def _stereo_forward(self, left, right, train: bool):
         s_train = train and not self.freeze_stereo
@@ -118,7 +129,7 @@ class CODD(nn.Module):
         out = self._stereo_forward(left, right, train)
         B, H, W, _ = left.shape
         if self.motion_type == "Motion":
-            with torch.no_grad():
+            with _grad(train and not self.freeze_motion):
                 fmap, netinp = self.motion.encode(left)
         else:
             fmap = left.new_zeros((B, H // 8, W // 8, 128))
@@ -143,11 +154,12 @@ class CODD(nn.Module):
         fmap, netinp = carry.fmap, carry.netinp
 
         if self.motion_type == "Motion":
-            with torch.no_grad():  # frozen in training (_check_train)
+            m_train = train and not self.freeze_motion
+            with _grad(m_train):
                 memory5, raft_out, fmap, netinp = self.motion(
                     left, pred_disp[..., 0], carry.memory_img,
                     carry.memory_feat, carry.memory_disp, carry.fmap,
-                    carry.netinp, intrinsics)
+                    carry.netinp, intrinsics, train_mode=m_train)
             _, feat_warp, confidence_warp, disp_warp, flow_warp = memory5
             out.update(raft_out)
         elif self.motion_type == "GTMotion":

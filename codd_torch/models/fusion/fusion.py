@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.gn import grad_clip
 from ...ops.upsample import interpolate_nearest, unfold3x3
 from ...ops.warp import disp_warp
 from ..layers import Conv, mish
@@ -116,10 +117,10 @@ class Fusion(nn.Module):
         net = F.relu(self.residual_conv(inp)) + corr
 
         w = self.weight_head1(self.weight_head0(net))
-        fusion_weights = interpolate_nearest(torch.sigmoid(w), s)
+        fusion_weights = interpolate_nearest(torch.sigmoid(grad_clip(w)), s)
         r = self.forget_head2(self.forget_head1(self.forget_head0(
             corr_feat_fr)))
-        reset_weights = torch.sigmoid(r)
+        reset_weights = torch.sigmoid(grad_clip(r))
         valid = (pred_warp > 0.0).to(pred_curr.dtype)
         fusion_weights = fusion_weights * valid
         reset_weights = reset_weights * valid

@@ -4,10 +4,17 @@
 Converts disparities to clipped depth, estimates the dense SE(3) field,
 then splats (kernel 4) the induced flow and confidence at full res
 (C=6, r=1 px) and the fusion features at 1/4 res (C=32, r=2 px) into the
-current frame.
+current frame.  In training (``train_mode``) RAFT-3D runs its train
+branch and the splats run under ``torch.no_grad()`` on detached inputs:
+their result is kernel 4's forward, and no loss reaches the warped memory
+(``CODD`` trains the motion net only where no fusion reads the memory,
+or where the fusion net that reads it is frozen, which ``codd_tpu``
+stops at its outputs).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -45,14 +52,25 @@ class Motion(nn.Module):
         return self.raft3d.encode(image)
 
     def forward(self, img_curr, disp_curr, memory_img, memory_feat,
-                memory_disp, fmap_prev, netinp_prev, intrinsics):
+                memory_disp, fmap_prev, netinp_prev, intrinsics,
+                train_mode: bool = False):
         """Returns (warped 5-slot memory, raft outputs, fmap, netinp)."""
-        B, H, W, _ = img_curr.shape
         depth_prev = disp_to_depth(memory_disp)
         depth_curr = disp_to_depth(disp_curr)
         raft_out, fmap_curr, netinp_curr = self.raft3d(
             img_curr, depth_prev, depth_curr, intrinsics, fmap_prev,
-            netinp_prev)
+            netinp_prev, train_mode=train_mode)
+        # training: no loss reaches the warped memory (see the docstring)
+        with torch.no_grad() if train_mode else contextlib.nullcontext():
+            memory5 = self._warp(img_curr, raft_out, memory_img, memory_feat,
+                                 depth_prev, intrinsics)
+        return memory5, raft_out, fmap_curr, netinp_curr
+
+    def _warp(self, img_curr, raft_out, memory_img, memory_feat, depth_prev,
+              intrinsics):
+        """Both splats: the induced flow and confidence at full res, the
+        memory features at 1/ds_scale res."""
+        B, H, W, _ = img_curr.shape
         Ts = raft_out["Ts"]
 
         to_proj = torch.cat([raft_out["flow2d_est_induced"],
@@ -79,5 +97,4 @@ class Motion(nn.Module):
             X2l.reshape(B, -1, 3), memory_feat.reshape(B, -1, C), intr_lr,
             H=H // s, W=W // s, radius_px=2.0,
             pixel_center_offset=self.pixel_center_offset)
-        memory5 = (img_warp, feat_warp, confidence_warp, disp_warp, flow_warp)
-        return memory5, raft_out, fmap_curr, netinp_curr
+        return (img_warp, feat_warp, confidence_warp, disp_warp, flow_warp)

@@ -1,4 +1,4 @@
-"""RAFT-3D dense SE(3) scene flow, eval branch (counterpart of
+"""RAFT-3D dense SE(3) scene flow (counterpart of
 ``codd_tpu/models/motion/raft3d.py``).
 
 Per GN iteration: project the previous frame's points through the current
@@ -9,6 +9,17 @@ SE(3) field (kernel 3, or kernel 5 + a PyTorch solve with
 ``gn_impl="windowed"``/``"pallas_window"``).  The flax
 ``nn.scan`` over iterations is a Python loop over one ``GNIteration``
 module (shared weights, named ``gn_iter`` like the scan).
+
+Training (``forward(..., train_mode=True)``, ``codd_tpu``'s
+``raft3d.py:106-166, 212-297``): the pyramid takes the patch layout when
+``corr_impl`` is ``auto`` (a volume layout raises: kernel 2 has no
+backward); each iteration detaches the SE(3) field at its top, clips the
+cotangents of its four heads (``grad_clip``) and emits the full-res
+supervision ``flow2d_est`` (the induced flow of the upsampled field) and
+``flow2d_rev`` (the upsampled revised target); and each runs under
+``torch.utils.checkpoint``, the counterpart of ``nn.remat``, so its
+activations are recomputed in the backward and kernels 5 and 6 run their
+forward twice a step.
 """
 
 from __future__ import annotations
@@ -18,10 +29,11 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops import corr as corr_ops
 from ...ops import se3
-from ...ops.gn import gn_step
+from ...ops.gn import gn_step, grad_clip
 from ...ops.grid_sample import grid_sample
 from ...ops.projective import induced_flow, projective_transform
 from ...ops.upsample import cvx_upsample, upsample_se3
@@ -73,8 +85,9 @@ class BasicUpdateBlock(nn.Module):
             setattr(self, f"{name}0", Conv(hidden_dim, 256, 3, padding=1))
             setattr(self, f"{name}1", Conv(256, out, 1))
 
-    def _head(self, name, net):
-        return getattr(self, f"{name}1")(F.relu(getattr(self, f"{name}0")(net)))
+    def _head(self, name, net, sigmoid=False):
+        x = getattr(self, f"{name}1")(F.relu(getattr(self, f"{name}0")(net)))
+        return grad_clip(torch.sigmoid(x) if sigmoid else x)
 
     def forward(self, net, inp, corr, flow, dz, twist):
         motion_info = torch.cat([flow, 10.0 * dz, 10.0 * twist], -1)
@@ -86,13 +99,15 @@ class BasicUpdateBlock(nn.Module):
         net = self.gru(net, inp, cor, mot)
         ae = self._head("ae", net)
         delta = self._head("delta", net)
-        weight = torch.sigmoid(self._head("weight", net))
+        weight = self._head("weight", net, sigmoid=True)
         mask = self._head("mask", net)
         return net, mask, ae, delta, weight
 
 
 class GNIteration(nn.Module):
-    """One GRU + Gauss-Newton refinement step."""
+    """One GRU + Gauss-Newton refinement step; given ``depth_prev`` and
+    ``intrinsics`` (training) it also returns the iteration's full-res
+    supervision flows."""
 
     def __init__(self, hidden_dim: int = 128, corr_radius: int = 3,
                  corr_levels: int = 4, gn_impl: str = "auto",
@@ -104,7 +119,9 @@ class GNIteration(nn.Module):
         self.update_block = BasicUpdateBlock(
             hidden_dim, corr_levels * (2 * corr_radius + 1) ** 2)
 
-    def forward(self, net, Ts, inp, vols, depth1_r8, zinv2, intr8, coords0):
+    def forward(self, net, Ts, inp, vols, depth1_r8, zinv2, intr8, coords0,
+                depth_prev=None, intrinsics=None):
+        Ts = Ts.detach()
         coords1_xyz, _ = projective_transform(Ts, depth1_r8, intr8)
         coords1 = coords1_xyz[..., :2]
         zinv_proj = coords1_xyz[..., 2:]
@@ -121,7 +138,14 @@ class GNIteration(nn.Module):
         Ts = gn_step(Ts, ae, target, weight, depth1_r8, intr8,
                      impl=self.gn_impl, bf16_scores=self.gn_bf16_scores
                      ).to(Ts.dtype)
-        return net2.to(dt), Ts, mask.to(dt), weight.to(dt)
+        mask = mask.to(dt)
+        out = (net2.to(dt), Ts, mask, weight.to(dt))
+        if depth_prev is None:
+            return out
+        rev = cvx_upsample(8.0 * (target[..., :2] - coords0), mask)
+        est, _, _ = induced_flow(upsample_se3(Ts, mask), depth_prev,
+                                 intrinsics)
+        return out + (est, rev)
 
 
 class RAFT3D(nn.Module):
@@ -133,7 +157,9 @@ class RAFT3D(nn.Module):
         if corr_impl not in corr_ops.CORR_IMPLS:
             raise ValueError(f"bad corr_impl {corr_impl!r}; one of "
                              f"{corr_ops.CORR_IMPLS}")
-        # eval: "auto" and the three volume selects are one volume lookup
+        # eval: "auto" and the three volume selects are one volume lookup;
+        # training: "auto" is "patch"
+        self.corr_impl = corr_impl
         self.pyramid_impl = "patch" if corr_impl == "patch" else "volume"
         self.iters = iters
         self.corr_levels = corr_levels
@@ -149,16 +175,27 @@ class RAFT3D(nn.Module):
         return self.fnet(image), self.cnet_out(self.cnet(image))
 
     def forward(self, image_curr, depth_prev, depth_curr, intrinsics,
-                fmap_prev, netinp_prev) -> Dict[str, torch.Tensor]:
+                fmap_prev, netinp_prev, train_mode: bool = False
+                ) -> Dict[str, torch.Tensor]:
         """Returns (outputs {Ts, flow2d_est_induced, weight} at full res,
-        fmap_curr, netinp_curr) — the last two are the next frame's carry."""
+        and with ``train_mode`` the lists ``flow2d_est`` and ``flow2d_rev``
+        of every iteration, fmap_curr, netinp_curr) — the last two are the
+        next frame's carry."""
         B, H, W, _ = image_curr.shape
         h8, w8 = H // 8, W // 8
         dt, dev = image_curr.dtype, image_curr.device
+        pyramid_impl = self.pyramid_impl
+        if train_mode:
+            if self.corr_impl not in ("auto", "patch"):
+                raise NotImplementedError(
+                    f"RAFT3D: corr_impl={self.corr_impl!r} has no backward "
+                    "(kernel 2, the volume lookup, is forward only); train "
+                    "with corr_impl auto or patch")
+            pyramid_impl = "patch"
         fmap_curr = self.fnet(image_curr)
         vols = corr_ops.build_corr_pyramid(fmap_prev, fmap_curr,
                                            self.corr_levels, self.corr_radius,
-                                           impl=self.pyramid_impl)
+                                           impl=pyramid_impl)
         net = torch.tanh(netinp_prev[..., :128])
         inp = F.relu(netinp_prev[..., 128:])
         intr8 = intrinsics / 8.0
@@ -169,12 +206,23 @@ class RAFT3D(nn.Module):
         Ts = se3.identity((B, h8, w8), dt, dev)
         mask = torch.zeros((B, h8, w8, 64 * 9), dtype=dt, device=dev)
         weight = torch.zeros((B, h8, w8, 3), dtype=dt, device=dev)
+        ests, revs = [], []
         for _ in range(self.iters):
-            net, Ts, mask, weight = self.gn_iter(
-                net, Ts, inp, vols, depth1_r8, zinv2, intr8, coords0)
+            if train_mode:
+                net, Ts, mask, weight, est, rev = checkpoint(
+                    self.gn_iter, net, Ts, inp, vols, depth1_r8, zinv2,
+                    intr8, coords0, depth_prev, intrinsics,
+                    use_reentrant=False)
+                ests.append(est)
+                revs.append(rev)
+            else:
+                net, Ts, mask, weight = self.gn_iter(
+                    net, Ts, inp, vols, depth1_r8, zinv2, intr8, coords0)
         Ts_up = upsample_se3(Ts, mask)
         flow2d, _, _ = induced_flow(Ts_up, depth_prev, intrinsics)
         out = {"Ts": Ts_up, "flow2d_est_induced": flow2d,
                "weight": cvx_upsample(weight, mask)}
+        if train_mode:
+            out["flow2d_est"], out["flow2d_rev"] = ests, revs
         netinp_curr = self.cnet_out(self.cnet(image_curr))
         return out, fmap_curr, netinp_curr

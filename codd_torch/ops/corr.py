@@ -38,10 +38,27 @@ functions launch it for one level):
   box of their windows in shared memory when it fits in
   ``PATCH_BOX_BYTES``, else reads the taps from global memory
   (``patch_lookup_plan`` says which); one warp a query, fixed-order f32
-  sums.  Forward only: it raises on a CUDA input that requires grad.
+  sums.
 
 Both write their 49 values a level into the level's slice of the
 (B, h, w, L*49) lookup.
+
+Training takes the patch layout (``codd_tpu``'s ``corr_impl="auto"`` in
+training, ``raft3d.py:227,258``).  Under autograd the patch lookup runs as
+``CorrPatchLookup``, whose backward is ``csrc/corr_patch.cu``'s second
+kernel: the VJP of ``codd_tpu/ops/corr.py:208-246 _lookup_level`` with
+respect to ``f1`` and the levels.  Per query and level the 49 cotangents
+go through the transpose of the bilinear combine to 8 x 8 tap cotangents
+(0 for a masked query), then ``df1 += sum_taps dtap * level[tap]`` (the
+query's own row: written in full, f32 sums rounded once to bf16) and
+``dlevel[tap] += dtap * f1`` (a scatter: f32 ``atomicAdd`` into a zeroed
+f32 padded level, rounded once to bf16).  The gradients come back in the
+inputs' bf16, and ``build_corr_pyramid``'s casts carry them to f32, as in
+``codd_tpu`` (``corr.py:73-80``); the padding's own backward crops them.
+The coordinates carry no gradient in ``codd_tpu`` (they come from the
+stop-gradient SE(3) field and frozen depth), so a lookup whose coords
+require grad raises.  The volume lookup (kernel 2) has no backward and
+raises wherever autograd would need it.
 """
 
 from __future__ import annotations
@@ -57,7 +74,9 @@ __all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_levels",
            "corr_lookup_level", "corr_lookup_level_plain",
            "corr_patch_lookup_levels", "corr_patch_lookup_level",
            "corr_patch_lookup_level_plain", "patch_lookup_plan", "CORR_IMPLS",
-           "PATCH_TILE", "PATCH_BOX_BYTES"]
+           "PATCH_TILE", "PATCH_BOX_BYTES", "CorrPatchLookup",
+           "corr_patch_lookup_backward", "corr_patch_lookup_backward_plain",
+           "corr_patch_lookup_level_backward_plain"]
 
 # runtime.corr_impl values; the three volume selects of codd_tpu are
 # bit-identical there and are one lookup (kernel 2) here
@@ -208,6 +227,8 @@ def corr_lookup_levels(vols: Sequence[torch.Tensor], coords, radius: int = 3,
     B, h, w = coords.shape[:3]
     K = (2 * radius + 1) ** 2
     scales = _scales(len(vols), scales)
+    # no backward, on either device
+    kernels.check_forward_only("corr_lookup", *vols, coords)
     if out is None:
         out = torch.empty((B, h, w, len(vols) * K), dtype=torch.float32,
                           device=coords.device)
@@ -216,7 +237,6 @@ def corr_lookup_levels(vols: Sequence[torch.Tensor], coords, radius: int = 3,
             _into(out, offset + i * K,
                   corr_lookup_level_plain(vol, coords * sc, radius))
         return out
-    kernels.check_forward_only("corr_lookup", *vols, coords)
     kernels.check_cuda("corr_lookup", *vols, coords, out,
                        dtypes=(torch.bfloat16,) * len(vols)
                        + (torch.float32, torch.float32))
@@ -259,6 +279,120 @@ def corr_patch_lookup_level_plain(f1, f2p, coords, radius: int = 3):
             * f1.float()[:, :, None, :]).sum(-1)
     dots = dots.reshape(B, N, t, t) * vq[:, :, None, None]
     return _bilinear_combine(dots, fy, fx, h, w)
+
+
+def _bilinear_transpose(g, fy, fx, t):
+    """The VJP of ``_bilinear_combine``: (B,N,(t-1)^2) cotangents ->
+    (B,N,t,t) tap cotangents, each corner's term added in the order d00,
+    d01, d10, d11 (the kernel's order)."""
+    B, N, _ = g.shape
+    gg = g.reshape(B, N, t - 1, t - 1)
+    fy_, fx_ = fy[..., None], fx[..., None]
+    gy, gx = 1 - fy_, 1 - fx_
+    dd = g.new_zeros((B, N, t, t))
+    dd[:, :, :-1, :-1] += (gg * gy) * gx
+    dd[:, :, :-1, 1:] += (gg * gy) * fx_
+    dd[:, :, 1:, :-1] += (gg * fy_) * gx
+    dd[:, :, 1:, 1:] += (gg * fy_) * fx_
+    return dd
+
+
+def corr_patch_lookup_level_backward_plain(g, f1, f2p, coords,
+                                           radius: int = 3):
+    """The VJP of ``corr_patch_lookup_level_plain`` at (f1, f2p) for the
+    cotangent g (B,h,w,(2r+1)^2) -> (df1 (B,N,C), df2p (B,Hp,Wp,C)), both
+    f32: the bilinear transpose, the vq mask, then the gather's dots
+    against the patches and the scatter-add of dtap * f1 into the padded
+    level."""
+    B, Hp, Wp, C = f2p.shape
+    N = f1.shape[1]
+    t = 2 * radius + 2
+    P = 2 * radius + 1
+    sy, sx, fy, fx, vq = _window_starts(coords, Hp - 2 * P, Wp - 2 * P,
+                                        radius)
+    dd = _bilinear_transpose(g.reshape(B, N, -1).float(), fy, fx, t)
+    dd = (dd * vq[:, :, None, None]).reshape(B, N * t * t)
+    ar = torch.arange(t, device=f2p.device)
+    idx = ((sy[..., None, None] + ar[:, None]) * Wp
+           + sx[..., None, None] + ar[None, :]).reshape(B, N * t * t)
+    patches = torch.gather(f2p.reshape(B, Hp * Wp, C), 1,
+                           idx[..., None].expand(-1, -1, C)).float()
+    df1 = torch.einsum("bnk,bnkc->bnc", dd.reshape(B, N, t * t),
+                       patches.reshape(B, N, t * t, C))
+    rows = (torch.arange(B, device=idx.device)[:, None] * (Hp * Wp)
+            + idx).reshape(-1)
+    terms = (dd.reshape(B, N, t * t, 1) * f1.float()[:, :, None, :])
+    df2p = torch.zeros((B * Hp * Wp, C), dtype=torch.float32,
+                       device=f2p.device)
+    df2p.index_add_(0, rows, terms.reshape(-1, C))
+    return df1, df2p.reshape(B, Hp, Wp, C)
+
+
+def corr_patch_lookup_backward_plain(g, f1, levels, coords, radius: int = 3,
+                                     scales=None):
+    """The VJP of ``corr_patch_lookup_levels`` (``out`` made by it) for the
+    cotangent g (B,h,w,L*(2r+1)^2) -> (df1, [dlevel]) in the inputs' dtype:
+    f32 sums, each rounded once."""
+    K = (2 * radius + 1) ** 2
+    df1, dlevels = 0.0, []
+    for i, (f2p, sc) in enumerate(zip(levels, _scales(len(levels), scales))):
+        d1, dl = corr_patch_lookup_level_backward_plain(
+            g[..., i * K:(i + 1) * K], f1, f2p, coords * sc, radius)
+        df1 = df1 + d1
+        dlevels.append(dl.to(f2p.dtype))
+    return df1.to(f1.dtype), dlevels
+
+
+def corr_patch_lookup_backward(g, f1, levels, coords, radius: int = 3,
+                               scales=None):
+    """Kernel 6's backward for CUDA tensors (one launch, every level), the
+    plain version for CPU tensors -> (df1, [dlevel]), bf16."""
+    levels = list(levels)
+    if not levels[0].is_cuda:
+        return corr_patch_lookup_backward_plain(g, f1, levels, coords,
+                                                radius, scales)
+    B, h, w = coords.shape[:3]
+    K = (2 * radius + 1) ** 2
+    name = "corr_patch_lookup_backward"
+    kernels.check_cuda(name, g, f1, *levels, coords,
+                       dtypes=(torch.float32,) + (torch.bfloat16,)
+                       * (1 + len(levels)) + (torch.float32,))
+    _check_levels(name, levels, coords, g, 0, radius, K)
+    if (g.shape[-1] != len(levels) * K
+            or tuple(f1.shape) != (B, h * w, 128) or f1.data_ptr() % 16
+            or any(l.dim() != 4 or l.shape[0] != B or l.shape[3] != 128
+                   for l in levels)):
+        raise ValueError(f"{name}: bad shapes g {tuple(g.shape)} f1 "
+                         f"{tuple(f1.shape)} levels "
+                         f"{[tuple(l.shape) for l in levels]}")
+    dl32 = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
+            for l in levels]
+    df1 = torch.empty_like(f1)
+    ptrs, hw, sc = _levels_args(levels, [l.shape[1:3] for l in levels],
+                                _scales(len(levels), scales))
+    grads = (ctypes.c_void_p * len(levels))(*[d.data_ptr() for d in dl32])
+    kernels.launch(name, f1.data_ptr(), ptrs, hw, sc, len(levels),
+                   coords.data_ptr(), g.data_ptr(), df1.data_ptr(), grads,
+                   B, h, w, radius, kernels.stream_ptr(coords.device))
+    return df1, [d.to(l.dtype) for d, l in zip(dl32, levels)]
+
+
+class CorrPatchLookup(torch.autograd.Function):
+    """The four-level patch lookup with kernel 6's backward; no gradient
+    to the coordinates."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, scales, f1, *levels):
+        ctx.radius, ctx.scales = radius, scales
+        ctx.save_for_backward(coords, f1, *levels)
+        return corr_patch_lookup_levels(f1, levels, coords, radius, scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, f1, *levels = ctx.saved_tensors
+        df1, dlevels = corr_patch_lookup_backward(
+            g.contiguous(), f1, levels, coords, ctx.radius, ctx.scales)
+        return (None, None, None, df1, *dlevels)
 
 
 def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
@@ -306,10 +440,24 @@ def corr_patch_lookup_levels(f1, levels: Sequence[torch.Tensor], coords,
     for ``f1`` (B,N,128) bf16 at ``coords * scales[i]`` (default 1/2^i),
     level i into channels [offset + i*49, ...) of ``out`` (B,h,w,C) f32,
     which is made when not given: one launch of kernel 6 for CUDA tensors,
-    the plain version level by level for CPU tensors."""
+    the plain version level by level for CPU tensors; through
+    ``CorrPatchLookup`` when autograd needs the gradient of ``f1`` or a
+    level."""
     B, h, w = coords.shape[:3]
     K = (2 * radius + 1) ** 2
     scales = _scales(len(levels), scales)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (f1, coords, *levels)):
+        if coords.requires_grad:
+            raise NotImplementedError(
+                "corr_patch_lookup: the coordinates require grad, and the "
+                "backward gives none to them (codd_tpu's coords carry no "
+                "gradient: they come from the stop-gradient SE(3) field and "
+                "frozen depth)")
+        if out is not None or offset:
+            raise NotImplementedError("corr_patch_lookup: under autograd "
+                                      "the lookup makes its own output")
+        return CorrPatchLookup.apply(coords, radius, scales, f1, *levels)
     if out is None:
         out = torch.empty((B, h, w, len(levels) * K), dtype=torch.float32,
                           device=coords.device)
@@ -318,7 +466,6 @@ def corr_patch_lookup_levels(f1, levels: Sequence[torch.Tensor], coords,
             _into(out, offset + i * K,
                   corr_patch_lookup_level_plain(f1, f2p, coords * sc, radius))
         return out
-    kernels.check_forward_only("corr_patch_lookup", f1, *levels, coords)
     kernels.check_cuda("corr_patch_lookup", f1, *levels, coords, out,
                        dtypes=(torch.bfloat16,) * (1 + len(levels))
                        + (torch.float32, torch.float32))

@@ -1,6 +1,6 @@
 """Dense SE(3) Gauss-Newton step of RAFT-3D — kernels 3 and 5.
 
-Counterpart of ``codd_tpu/ops/gn.py`` (forward only).  For target pixel i,
+Counterpart of ``codd_tpu/ops/gn.py``.  For target pixel i,
 
     agg_i = sum_j sigmoid(-||ae_i - ae_j||^2) * vals_j   (|dy|,|dx| <= r)
 
@@ -49,6 +49,25 @@ fragment loads), at about three times the operations bound; see
 The plain versions aggregate over the dense masked (n, n) score matrix,
 which is ``codd_tpu``'s ``dense`` path and equals its ``windowed`` path.
 
+Training (``codd_tpu`` differentiates the sums with XLA): under autograd
+``gn_window_aggregate`` runs as ``GNWindowAggregate``, whose backward is
+``csrc/gn_window.cu``'s second kernel (``gn_window_aggregate_backward``).
+With G the sums' cotangent, for a query i and a key j of its window,
+
+    s_ij = sigmoid(-|a_i - a_j|^2)
+    dvals_i = sum_j s_ij G_j                       (the window is symmetric)
+    u_ij = s_ij (1 - s_ij) (G_i . v_j + G_j . v_i)
+    dae_i = -2 sum_j u_ij (a_i - a_j)
+
+so each output row is one pass over its own window, with no atomics.  A
+gradient-needing ``gn_step`` takes kernel 5 for ``auto``, ``windowed`` and
+``pallas_window`` (``codd_tpu``'s training path: its ``windowed`` or, at
+w/8 <= 96, ``dense`` sums, the same function) and raises for ``fused``
+(kernel 3 returns the solved update and has no backward; ``codd_tpu``'s
+``gn_fused_solve`` has no VJP) and for ``bf16_scores``.  ``grad_clip`` is
+``codd_tpu``'s straight-through clip of RAFT-3D's and the fusion net's
+head cotangents.
+
 ``impl`` (``codd_tpu``'s ``runtime.gn_impl``) picks the route in
 ``gn_step``, at every shape: ``auto`` and ``fused`` take kernel 3,
 ``windowed`` and ``pallas_window`` kernel 5 then ``damped_solve``;
@@ -71,7 +90,9 @@ __all__ = ["gn_step", "build_system", "resolve_impl", "gn_fused_solve",
            "gn_fused_solve_plain", "gn_window_aggregate",
            "gn_window_aggregate_plain", "cholesky_solve_small", "build_vals",
            "sym_pack", "sym_unpack", "damped_solve", "tiling_pairs",
-           "GN_IMPLS"]
+           "GN_IMPLS", "grad_clip", "GNWindowAggregate",
+           "gn_window_aggregate_backward",
+           "gn_window_aggregate_backward_plain"]
 
 GN_IMPLS = ("auto", "fused", "windowed", "pallas_window", "dense")
 _GN_BLOCK = 32  # codd_tpu's column block: the windowed paths need r == 32
@@ -79,6 +100,28 @@ _GN_QX = 16     # query columns of a block of csrc/gn_common.cuh (its QX)
 _GN_CHUNK = 16  # keys a warp of it takes at a time (its CHUNK)
 
 _TRI = [(i, j) for i in range(6) for j in range(i, 6)]
+
+
+class _GradClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, clip):
+        ctx.clip = clip
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        zero = torch.zeros_like(g)
+        g = torch.where(g.abs() > ctx.clip, zero, g)
+        return torch.where(torch.isnan(g), zero, g), None
+
+
+def grad_clip(x, clip: float = 0.01):
+    """Identity forward; the backward zeroes cotangent elements with
+    |g| > clip, then the NaN ones (``codd_tpu/ops/gn.py:41-56``, in
+    ``_gc_bwd``'s order)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GradClip.apply(x, clip)
+    return x
 
 
 def cholesky_solve_small(H, b):
@@ -166,10 +209,9 @@ def damped_solve(agg, lm: float = 1e-4, ep: float = 10.0):
                        torch.zeros_like(dx))
 
 
-def gn_window_aggregate_plain(ae, vals, radius: int = 32,
-                              bf16_scores: bool = False):
-    """ae (B,h,w,C) pre-scaled embeddings, vals (B,h,w,27) -> the windowed
-    sums (B,h,w,27), over the dense masked (n, n) score matrix."""
+def _dense_logits(ae, radius):
+    """ae (B,h,w,C) -> q (B,n,C), the dense logits -|a_i - a_j|^2 (B,n,n)
+    and the Chebyshev window's mask (n,n)."""
     B, h, w, C = ae.shape
     n = h * w
     q = ae.reshape(B, n, C)
@@ -180,14 +222,56 @@ def gn_window_aggregate_plain(ae, vals, radius: int = 32,
     xs = torch.arange(n, device=ae.device) % w
     inside = (((ys[:, None] - ys[None, :]).abs() <= radius)
               & ((xs[:, None] - xs[None, :]).abs() <= radius))
+    return q, logits, inside
+
+
+def gn_window_aggregate_plain(ae, vals, radius: int = 32,
+                              bf16_scores: bool = False):
+    """ae (B,h,w,C) pre-scaled embeddings, vals (B,h,w,27) -> the windowed
+    sums (B,h,w,27), over the dense masked (n, n) score matrix."""
+    B, h, w, _ = ae.shape
+    _, logits, inside = _dense_logits(ae, radius)
     scores = torch.sigmoid(logits)
-    v = vals.reshape(B, n, 27)
+    v = vals.reshape(B, h * w, 27)
     if bf16_scores:
         # bf16 x bf16 products are exact in f32; the sum stays f32
         scores = scores.to(torch.bfloat16).float()
         v = v.to(torch.bfloat16).float()
     scores = scores * inside[None].to(ae.dtype)
     return torch.bmm(scores, v).reshape(B, h, w, 27)
+
+
+def _backward_dense(g, ae, vals, radius):
+    """The dense masked (n, n) factors of the windowed sums' VJP:
+    q (B,n,C), S (B,n,n), G (B,n,27) and U = S (1 - S) (G V^T + V G^T)."""
+    B, h, w, _ = ae.shape
+    q, logits, inside = _dense_logits(ae, radius)
+    s = torch.sigmoid(logits) * inside[None].to(ae.dtype)
+    G = g.reshape(B, h * w, 27)
+    P = torch.bmm(G, vals.reshape(B, h * w, 27).transpose(1, 2))
+    return q, s, G, s * (1.0 - s) * (P + P.transpose(1, 2))
+
+
+def gn_window_aggregate_backward_plain(g, ae, vals, radius: int = 32):
+    """The VJP of the windowed sums at (ae, vals) for the cotangent g
+    (B,h,w,27) -> (dae (B,h,w,C), dvals (B,h,w,27)), over the dense masked
+    (n, n) scores: dvals = S G, U = S (1 - S) (G V^T + V G^T), dae =
+    -2 (rowsum(U) a - U a), which is what autodiff of ``codd_tpu``'s dense
+    form computes."""
+    q, s, G, u = _backward_dense(g, ae, vals, radius)
+    dae = -2.0 * (u.sum(-1, keepdim=True) * q - torch.bmm(u, q))
+    return dae.reshape(ae.shape), torch.bmm(s, G).reshape(vals.shape)
+
+
+def gn_window_aggregate_backward_terms(g, ae, vals, radius: int = 32):
+    """Each output's sum of |terms| in the VJP above: sum_j 2 |u_ij|
+    (|a_i| + |a_j|) a channel for dae, whose two sums cancel, and
+    sum_j s_ij |G_j| for dvals.  The scale that f32 sums of the same terms
+    in another order are held to."""
+    q, s, G, u = _backward_dense(g, ae, vals, radius)
+    u, qa = u.abs(), q.abs()
+    dae = 2.0 * (u.sum(-1, keepdim=True) * qa + torch.bmm(u, qa))
+    return dae.reshape(ae.shape), torch.bmm(s, G.abs()).reshape(vals.shape)
 
 
 def gn_fused_solve_plain(ae, vals, radius: int = 32, lm: float = 1e-4,
@@ -238,18 +322,72 @@ def gn_fused_solve(ae, vals, radius: int = 32, lm: float = 1e-4,
     return out
 
 
-def gn_window_aggregate(ae, vals, radius: int = 32,
-                        bf16_scores: bool = False):
-    """Kernel 5 for CUDA tensors, the plain version for CPU tensors."""
-    if not ae.is_cuda:
-        return gn_window_aggregate_plain(ae, vals, radius, bf16_scores)
-    kernels.check_forward_only("gn_window_aggregate", ae, vals)
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _launch_window(ae, vals, radius, bf16_scores):
     B, h, w = _check_gn("gn_window_aggregate", ae, vals)
     out = torch.empty((B, h, w, 27), dtype=torch.float32, device=ae.device)
     kernels.launch("gn_window_aggregate", ae.data_ptr(), vals.data_ptr(),
                    out.data_ptr(), B, h, w, radius, int(bool(bf16_scores)),
                    kernels.stream_ptr(ae.device))
     return out
+
+
+def gn_window_aggregate_backward(g, ae, vals, radius: int = 32):
+    """Kernel 5's backward for CUDA tensors, the plain version for CPU
+    tensors -> (dae, dvals), f32."""
+    if not ae.is_cuda:
+        return gn_window_aggregate_backward_plain(g, ae, vals, radius)
+    B, h, w = _check_gn("gn_window_aggregate_backward", ae, vals)
+    kernels.check_cuda("gn_window_aggregate_backward", g,
+                       dtypes=(torch.float32,))
+    if tuple(g.shape) != (B, h, w, 27):
+        raise ValueError(f"gn_window_aggregate_backward: g {tuple(g.shape)}"
+                         f" (needs {(B, h, w, 27)})")
+    dae = torch.empty_like(ae)
+    dvals = torch.empty_like(vals)
+    kernels.launch("gn_window_aggregate_backward", ae.data_ptr(),
+                   vals.data_ptr(), g.data_ptr(), dae.data_ptr(),
+                   dvals.data_ptr(), B, h, w, radius,
+                   kernels.stream_ptr(ae.device))
+    return dae, dvals
+
+
+class GNWindowAggregate(torch.autograd.Function):
+    """The windowed sums (f32 scores) with kernel 5's backward."""
+
+    @staticmethod
+    def forward(ctx, ae, vals, radius):
+        ctx.radius = radius
+        ctx.save_for_backward(ae, vals)
+        if not ae.is_cuda:
+            return gn_window_aggregate_plain(ae, vals, radius)
+        return _launch_window(ae, vals, radius, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        dae, dvals = gn_window_aggregate_backward(g.contiguous(),
+                                                  *ctx.saved_tensors,
+                                                  ctx.radius)
+        return dae, dvals, None
+
+
+def gn_window_aggregate(ae, vals, radius: int = 32,
+                        bf16_scores: bool = False):
+    """Kernel 5 for CUDA tensors, the plain version for CPU tensors; through
+    ``GNWindowAggregate`` when autograd needs its gradient (f32 scores
+    only)."""
+    if _needs_grad(ae, vals):
+        if bf16_scores:
+            raise NotImplementedError(
+                "gn_window_aggregate: bf16_scores has no backward (codd_tpu "
+                "trains with f32 scores); set gn_bf16_scores=False")
+        return GNWindowAggregate.apply(ae, vals, radius)
+    if not ae.is_cuda:
+        return gn_window_aggregate_plain(ae, vals, radius, bf16_scores)
+    return _launch_window(ae, vals, radius, bf16_scores)
 
 
 def resolve_impl(impl: str, radius: int, w: int) -> str:
@@ -271,15 +409,27 @@ _ROUTES = {"auto": "fused", "fused": "fused", "windowed": "window",
            "pallas_window": "window", "dense": "dense"}
 
 
-def _route(impl: str, radius: int, w: int, bf16_scores: bool = False):
+def _route(impl: str, radius: int, w: int, bf16_scores: bool = False,
+           grad: bool = False):
     """(route, bf16): which code computes the sums for ``impl`` (``fused``
     kernel 3, ``window`` kernel 5, ``dense`` the (n, n) form), at every
     shape, and whether the scores are rounded to bf16: only where
-    ``codd_tpu`` would not run its dense form."""
+    ``codd_tpu`` would not run its dense form.  With ``grad`` (autograd
+    needs the sums' gradient) ``auto`` is ``window`` and what has no
+    backward raises."""
     if impl not in GN_IMPLS:
         raise ValueError(f"bad GN impl {impl!r}; one of {GN_IMPLS}")
+    if grad and (impl == "fused" or bf16_scores):
+        raise NotImplementedError(
+            f"gn_step: gn_impl={impl!r}, gn_bf16_scores={bool(bf16_scores)} "
+            "has no backward (kernel 3 returns the solved update; codd_tpu "
+            "trains with f32 scores and no VJP of gn_fused_solve); train "
+            "with gn_impl auto, windowed or pallas_window and f32 scores")
     bf16 = bool(bf16_scores) and resolve_impl(impl, radius, w) != "dense"
-    return _ROUTES[impl], bf16
+    route = _ROUTES[impl]
+    if grad and route == "fused":
+        route = "window"
+    return route, bf16
 
 
 def _aggregate(ae, vals, radius, route, bf16):
@@ -297,7 +447,8 @@ def build_system(Ts, ae, target, weight, depth, intrinsics, radius: int = 32,
     returns the solved update and not the system, the sums come from
     ``windowed``'s route."""
     vals = build_vals(Ts, target, weight, depth, intrinsics).contiguous()
-    route, bf16 = _route(impl, radius, Ts.shape[2], bf16_scores)
+    route, bf16 = _route(impl, radius, Ts.shape[2], bf16_scores,
+                         _needs_grad(Ts, ae, target, weight, depth))
     if route == "fused":
         route = "window"
     agg = _aggregate(ae.float().contiguous(), vals, radius, route, bf16)
@@ -311,9 +462,10 @@ def gn_step(Ts, ae, target, weight, depth, intrinsics, radius: int = 32,
     by 1/8 as in the reference (se3_field.py:150-170).  The kernels take
     ``ae`` and the value field in f32; the f32 update is cast to Ts's
     dtype before ``exp``, as in ``codd_tpu``."""
+    grad = _needs_grad(Ts, ae, target, weight, depth)
     vals = build_vals(Ts, target, weight, depth, intrinsics).contiguous()
     ae = (ae / 8.0).float().contiguous()
-    route, bf16 = _route(impl, radius, Ts.shape[2], bf16_scores)
+    route, bf16 = _route(impl, radius, Ts.shape[2], bf16_scores, grad)
     if route == "fused":
         dx = gn_fused_solve(ae, vals, radius, lm, ep, bf16)
     else:

@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source is an ``sm_90a`` translation unit with plain C launch
-functions that return their ``cudaError_t`` (``tile_warp.cu`` holds two:
-the forward and the backward); sources may share code through
+functions that return their ``cudaError_t`` (``tile_warp.cu``,
+``gn_window.cu`` and ``corr_patch.cu`` hold two: the forward and the
+backward); sources may share code through
 the headers in ``csrc/*.cuh``.  ``load()`` compiles every source with its
 own ``nvcc`` process, all started together, into
 ``<repo>/build/kernels/<name>-<content hash>.so`` and opens each library with
@@ -54,6 +55,13 @@ KERNELS = {
     "corr_patch_lookup": ("corr_patch.cu", "corr_patch_lookup_launch",
                           [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P]),
+    "gn_window_aggregate_backward": ("gn_window.cu",
+                                     "gn_window_aggregate_backward_launch",
+                                     [_P] * 5 + [_I] * 4 + [_P]),
+    "corr_patch_lookup_backward": ("corr_patch.cu",
+                                   "corr_patch_lookup_backward_launch",
+                                   [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4
+                                   + [_P]),
 }
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -123,8 +123,15 @@ def log(g):
     w = scale * qv
     theta2 = torch.sum(w * w, -1, keepdim=True)
     A, B, _ = _sinc_coeffs(theta2)
-    D = torch.where(theta2 < 1e-8, 1.0 / 12.0 + theta2 / 720.0,
-                    (1.0 - A / (2.0 * B)) / (theta2 + _EPS))
+    # Above codd_tpu's Taylor threshold, 1 - cos t still rounds to 0 in f32
+    # for t < ~3.4e-4 (theta2 < ~1.1e-7): there B is 0 and codd_tpu's D is
+    # -inf, which makes v inf or NaN.  Only there the series is taken (and
+    # B is replaced before the division, so the unused branch's gradient
+    # stays finite); everywhere else D is codd_tpu's expression.
+    flat = B == 0
+    D = torch.where((theta2 < 1e-8) | flat, 1.0 / 12.0 + theta2 / 720.0,
+                    (1.0 - A / (2.0 * torch.where(flat, torch.ones_like(B),
+                                                  B))) / (theta2 + _EPS))
     wxt = _cross(w, t)
     v = t - 0.5 * wxt + D * _cross(w, wxt)
     return torch.cat([v, w], -1)

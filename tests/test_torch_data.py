@@ -219,6 +219,21 @@ def test_png_codecs_match(tmp_path):
         jio.read_tartanair_npy(str(tmp_path / "t.npy")))
 
 
+@pytest.mark.parametrize("channels", [3, 4])
+def test_16bit_colour_png_image_matches(tmp_path, channels):
+    """A 16-bit RGB / RGBA image (or mask) through the dataset's image
+    reader: codd_tpu decodes it natively to its 16-bit samples; the port
+    reads it with ``read_png`` (imageio dropped the low byte), equal."""
+    rng = np.random.RandomState(7)
+    img = (rng.rand(6, 9, channels) * 65535).astype(np.uint16)
+    img[0, 0] = 0x0102  # a low byte imageio would lose
+    path = str(tmp_path / "img16.png")
+    _write_png(path, img)
+    got = tds._load_image(path)
+    np.testing.assert_array_equal(got, jds._load_image(path))
+    np.testing.assert_array_equal(got, img[..., :3].astype(np.float32))
+
+
 @pytest.mark.parametrize("num_frames", [-1, 2, 3])
 def test_group_clips_matches(num_frames):
     entries = [{"filename": f"{s}/{i:04d}.png"} for s, n in

@@ -1,8 +1,8 @@
 """The six CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors, and a small streaming run whose launch
-counts show that every step went through them; kernel 1's backward, the
-forward-only kernels' raises under autograd, and a training step of the
-stereo and of the fusion stage.  Marked ``gpu``; each test
+counts show that every step went through them; the backward of kernels 1,
+5 and 6, the forward-only kernels' raises under autograd, and a training
+step of the stereo, the fusion and the motion stage.  Marked ``gpu``; each test
 skips itself when there is no CUDA card (chip_smoke.py runs the same
 checks at the full 384x1280 shapes).  Torch only, so that it also runs
 where JAX is not installed:
@@ -385,7 +385,9 @@ def test_streaming_goes_through_the_kernels(dev):
                                 "gn_fused_solve": 4, "splat_composite": 4,
                                 "gn_window_aggregate": 0,
                                 "corr_patch_lookup": 0,
-                                "tile_warp_cost_backward": 0}
+                                "tile_warp_cost_backward": 0,
+                                "gn_window_aggregate_backward": 0,
+                                "corr_patch_lookup_backward": 0}
     assert torch.isfinite(out["pred_disp"]).all()
 
 
@@ -409,7 +411,9 @@ def test_bf16_streaming_goes_through_the_kernels(dev):
                                 "gn_fused_solve": 4, "splat_composite": 4,
                                 "gn_window_aggregate": 0,
                                 "corr_patch_lookup": 0,
-                                "tile_warp_cost_backward": 0}
+                                "tile_warp_cost_backward": 0,
+                                "gn_window_aggregate_backward": 0,
+                                "corr_patch_lookup_backward": 0}
     assert carry.memory_disp.dtype == out["pred_disp"].dtype == torch.float32
     assert out["pred_curr"].dtype == out["Ts"].dtype == torch.bfloat16
     assert all(torch.isfinite(v.float()).all() for v in out.values())
@@ -449,7 +453,9 @@ def test_eval_path_goes_through_kernels_5_and_6(dev):
                                 "gn_fused_solve": 0, "splat_composite": 4,
                                 "gn_window_aggregate": 4,
                                 "corr_patch_lookup": 4,
-                                "tile_warp_cost_backward": 0}
+                                "tile_warp_cost_backward": 0,
+                                "gn_window_aggregate_backward": 0,
+                                "corr_patch_lookup_backward": 0}
     assert all(np.isfinite(v) for v in metrics.values())
     assert metrics["count"] > 0
 
@@ -509,8 +515,82 @@ def test_tile_warp_autograd_launches_both_kernels(dev):
                                    .requires_grad_() for t in ins])
 
 
+@pytest.mark.parametrize("h,w,radius,B", [(12, 72, 32, 2), (5, 19, 3, 1),
+                                         (48, 96, 32, 1)])
+def test_gn_window_backward_kernel(dev, h, w, radius, B):
+    """Kernel 5's backward against its plain backward: each element within
+    1e-5 of its sum of |terms| (f32 sums of the window's pairs in another
+    order, s recomputed by FMAs); two launches give the same bits."""
+    ae, vals = _gn_inputs(dev, h, w, B)
+    g = torch.randn(B, h, w, 27, generator=_g()).to(dev)
+    got = _launched("gn_window_aggregate_backward",
+                    lambda: gn.gn_window_aggregate_backward(g, ae, vals,
+                                                            radius))
+    ref = gn.gn_window_aggregate_backward_plain(g, ae, vals, radius)
+    again = gn.gn_window_aggregate_backward(g, ae, vals, radius)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ta, tv = gn.gn_window_aggregate_backward_terms(g, ae, vals, radius)
+    assert ((got[0] - ref[0]).abs() <= 1e-5 * ta + 1e-7).all()
+    assert ((got[1] - ref[1]).abs() <= 1e-5 * tv + 1e-7).all()
+
+
+@pytest.mark.parametrize("r", [1, 3])
+def test_corr_patch_backward_kernel(dev, r):
+    """Kernel 6's backward against its plain backward, four levels: both
+    round f32 sums once to bf16 (the levels' by atomics in a run-dependent
+    order), so each element within one bf16 ulp of the larger of the two,
+    plus 1e-5 of the largest value for the outputs that cancel to ~0."""
+    g = _g()
+    f1, f2 = (torch.randn(2, 12, 40, 128, generator=g).to(dev)
+              for _ in range(2))
+    coords = _corr_coords(dev, r)
+    pyr = corr.build_corr_pyramid(f1, f2, 4, r, impl="patch")
+    gout = torch.randn(2, 12, 40, 4 * (2 * r + 1) ** 2, generator=g).to(dev)
+    got = _launched("corr_patch_lookup_backward",
+                    lambda: corr.corr_patch_lookup_backward(
+                        gout, pyr["f1"], pyr["levels"], coords, r))
+    ref = corr.corr_patch_lookup_backward_plain(gout, pyr["f1"],
+                                                pyr["levels"], coords, r)
+    for a, b in [(got[0], ref[0])] + list(zip(got[1], ref[1])):
+        assert a.dtype == b.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        big = torch.maximum(a.abs(), b.abs()).clamp(min=1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        assert ((a - b).abs() <= ulp + 1e-5 * b.abs().max()).all()
+
+
+def test_backward_kernels_under_autograd(dev):
+    """Under autograd kernels 5 and 6 run as their Functions: the forward
+    kernel and, in backward(), the backward kernel, once each; the
+    gradients are the backward's."""
+    ae, vals = _gn_inputs(dev)
+    ta, tv = ae.clone().requires_grad_(), vals.clone().requires_grad_()
+    gout = torch.randn(vals.shape, generator=_g()).to(dev)
+    kernels.reset_counts()
+    gn.gn_window_aggregate(ta, tv).backward(gout)
+    torch.cuda.synchronize()
+    assert kernels.counts()["gn_window_aggregate"] == 1
+    assert kernels.counts()["gn_window_aggregate_backward"] == 1
+    ref = gn.gn_window_aggregate_backward(gout, ae, vals)
+    assert torch.equal(ta.grad, ref[0]) and torch.equal(tv.grad, ref[1])
+    g = _g()
+    f1, f2 = (torch.randn(1, 12, 40, 128, generator=g).to(dev)
+              for _ in range(2))
+    coords = _corr_coords(dev, 3, B=1)
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    pyr = corr.build_corr_pyramid(a, b, 4, 3, impl="patch")
+    kernels.reset_counts()
+    out = corr.corr_lookup(pyr, coords, 3)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_patch_lookup"] == 1
+    assert kernels.counts()["corr_patch_lookup_backward"] == 1
+    assert torch.isfinite(a.grad).all() and torch.isfinite(b.grad).all()
+
+
 def test_forward_only_kernels_raise_under_autograd(dev):
-    """Kernels 2-6 have no backward: asked for a gradient, each wrapper
+    """Kernels 2-4 have no backward, and kernels 5 and 6 none for bf16
+    scores or for the coordinates: asked for such a gradient, each wrapper
     raises instead of returning a tensor cut from the graph; under
     torch.no_grad() the same call launches."""
     g = _g()
@@ -532,7 +612,7 @@ def test_forward_only_kernels_raise_under_autograd(dev):
         "gn_fused_solve": lambda grad: gn.gn_fused_solve(
             need(ae) if grad else ae, vals),
         "gn_window_aggregate": lambda grad: gn.gn_window_aggregate(
-            ae, need(vals) if grad else vals),
+            ae, need(vals) if grad else vals, bf16_scores=True),
         "splat_composite": lambda grad: splat.composite(
             order, offsets, alpha, Z.contiguous(),
             need(feat) if grad else feat),
@@ -555,11 +635,14 @@ def _train_batch(dev, B=1, T=2, H=64, W=128):
                                        device=dev)}
 
 
-@pytest.mark.parametrize("stage", ["stereo", "fusion"])
+@pytest.mark.parametrize("stage", ["stereo", "fusion", "motion"])
 def test_training_step_on_the_card(dev, stage):
     """One step of each stage at 64x128, T=2: the stereo stage launches
     kernel 1 and its backward 9 times a frame; the fusion stage launches
-    kernels 1-4 forward only (stereo and motion frozen) and no backward.
+    kernels 1-4 forward only (stereo and motion frozen) and no backward;
+    the motion stage (stereo frozen, no fusion, 2 GN iterations, each
+    checkpointed) kernels 5 and 6 twice an iteration forward and once
+    backward, kernel 4 twice (forward only) and no volume or fused GN.
     Finite loss; the frozen parameters keep their bits."""
     from codd_torch.losses.assembly import LossConfig
     from codd_torch.train import optim, trainer
@@ -567,29 +650,46 @@ def test_training_step_on_the_card(dev, stage):
         model = CODD(max_disp=32, motion_type="none", fusion_type="none")
         lc = LossConfig(max_disp=32, motion=False, fusion=False)
         frozen = ()
-    else:
+    elif stage == "fusion":
         model = CODD(max_disp=32, iters=1, freeze_stereo=True,
                      freeze_motion=True)
         lc = LossConfig(max_disp=32, stereo=False, motion=False)
         frozen = ("stereo", "motion")
+    else:
+        model = CODD(max_disp=32, iters=2, fusion_type="none",
+                     freeze_stereo=True)
+        lc = LossConfig(max_disp=32, stereo=False, fusion=False)
+        frozen = ("stereo",)
     model = model.to(dev)
     params = dict(model.named_parameters())
     before = {k: p.detach().clone() for k, p in params.items()}
     tx = optim.make_optimizer(lambda s: 1e-3, 1.0, params, frozen)
     step = trainer.make_train_step(model, tx, lc)
     kernels.reset_counts()
-    _, logs = step(trainer.create_train_state(model, tx), _train_batch(dev))
+    batch = _train_batch(dev)
+    if stage == "motion":
+        batch["gt_flow"] = torch.zeros(batch["gt_disp"].shape[:-1] + (2,),
+                                       device=dev)
+        batch["gt_disp_change"] = torch.zeros_like(batch["gt_disp"])
+    _, logs = step(trainer.create_train_state(model, tx), batch)
     torch.cuda.synchronize()
     counts = kernels.counts()
     assert torch.isfinite(logs["loss"]) and logs["step_skipped"].item() == 0
     if stage == "stereo":
         assert counts["tile_warp_cost"] == counts[
             "tile_warp_cost_backward"] == 18
-    else:
+    elif stage == "fusion":
         assert counts["tile_warp_cost_backward"] == 0
         assert counts["tile_warp_cost"] == 18
         assert min(counts["corr_lookup"], counts["gn_fused_solve"],
                    counts["splat_composite"]) > 0
+    else:
+        assert counts == {"tile_warp_cost": 18, "tile_warp_cost_backward": 0,
+                          "corr_lookup": 0, "gn_fused_solve": 0,
+                          "splat_composite": 2, "gn_window_aggregate": 4,
+                          "corr_patch_lookup": 4,
+                          "gn_window_aggregate_backward": 2,
+                          "corr_patch_lookup_backward": 2}
     for k, p in params.items():
         if k.split(".")[0] in frozen:
             assert torch.equal(p.detach(), before[k]), k
