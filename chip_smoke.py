@@ -30,7 +30,12 @@ Phases, in order:
      backward (the VJP of tile_warping) against the plain backward; the
      backward of kernels 5 and 6 at the motion stage's training call (B=4,
      48x96 queries) against their plain backward, timed, with their
-     bounds;
+     bounds: kernel 5's (tensor-core products) twice for equal bits;
+     kernel 6's (products over each tile's window box, staged in chunks)
+     on the smooth and the scattered field, df1 twice for equal bits, the
+     share of blocks whose box is one chunk and the global atomics it
+     adds into the levels' gradients (the row's ``one_chunk_share``,
+     ``global_adds`` and ``ms_scattered``);
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -71,8 +76,10 @@ Phases, in order:
      plain forward and backward, the backward of kernels 5 or 6 off its
      plain version on one motion step's own 16 calls, motion gradients
      beyond 1e-3 of those with both backward kernels swapped for their
-     plain versions, or joint training (trainable RAFT-3D and Fusion)
-     that does not raise naming ROADMAP item 12b-ii.
+     plain versions (printed beside the run-to-run difference of the
+     kernels' own gradients), or joint
+     training (trainable RAFT-3D and Fusion) that does not raise naming
+     ROADMAP item 12b-ii.
   bench: ``codd_torch/tools/bench.py`` in this process at 384x1280, a few
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
@@ -521,18 +528,78 @@ def corr_patch_backward_compare(label, got, ref, terms):
     return worst, differ / n
 
 
-def corr_patch_backward_check(pyr, coords, g):
+def patch_backward_adds(coords, shapes, radius=3):
+    """Scalar f32 adds kernel 6's backward makes into the levels'
+    gradients: a block (``PATCH_TILE`` queries, one level) adds once, a
+    channel at a time in 16-byte atomics, to each pixel that one of its
+    windows covers; counted as the distinct (block, pixel) pairs of the
+    unmasked queries' taps."""
+    import torch
+    from codd_torch.ops import corr
+    B, h, w = coords.shape[:3]
+    th, tw = corr.PATCH_TILE
+    t, P = 2 * radius + 2, 2 * radius + 1
+    dev = coords.device
+    nx = -(-w // tw)
+    tile = ((torch.arange(h, device=dev)[:, None] // th) * nx
+            + torch.arange(w, device=dev)[None, :] // tw).reshape(-1)
+    tile = torch.arange(B, device=dev)[:, None] * (-(-h // th) * nx) + tile
+    ar = torch.arange(t, device=dev)
+    pairs = 0
+    for i, (Hp, Wp) in enumerate(shapes):
+        sy, sx, _, _, vq = corr._window_starts(coords / 2 ** i, Hp - 2 * P,
+                                               Wp - 2 * P, radius)
+        pix = ((sy[..., None, None] + ar[:, None]) * Wp
+               + sx[..., None, None] + ar[None, :])
+        key = tile[..., None, None] * (Hp * Wp) + pix
+        pairs += int(torch.unique(key[vq].reshape(-1)).numel())
+    return pairs * 128
+
+
+def corr_patch_backward_check(pyr, fields, g):
     """Kernel 6's backward at the motion stage's training call (B=4, 48x96
-    queries, four levels, C=128) against its plain backward; its time, the
-    plain version's and the bound."""
+    queries, four levels, C=128) against its plain backward on a smooth
+    and a scattered field; its time (the smooth field's is the row's), the
+    plain version's, the bound, the share of blocks whose box is one chunk
+    and the global atomics (598.7 M scalar adds a call before the tiles
+    were staged)."""
     import torch
     from codd_torch.ops import corr
     f1, levels = pyr["f1"], pyr["levels"]
-    got = corr.corr_patch_lookup_backward(g, f1, levels, coords)
-    ref = corr.corr_patch_lookup_backward_plain(g, f1, levels, coords)
-    torch.cuda.synchronize()
-    ulps, share = corr_patch_backward_compare(
-        "phase 3", got, ref, corr_patch_backward_terms(g, f1, levels, coords))
+    shapes = [tuple(l.shape[1:3]) for l in levels]
+    ms, err, one, adds = {}, {}, {}, {}
+    for fname, coords in fields.items():
+        got = corr.corr_patch_lookup_backward(g, f1, levels, coords)
+        ref = corr.corr_patch_lookup_backward_plain(g, f1, levels, coords)
+        again = corr.corr_patch_lookup_backward(g, f1, levels, coords)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], again[0]):
+            fail("corr_patch_lookup_backward: two launches give different "
+                 "df1 (its sums have a fixed order)")
+        ulps, share = corr_patch_backward_compare(
+            f"phase 3, {fname}", got, ref,
+            corr_patch_backward_terms(g, f1, levels, coords))
+        pairs = [(got[0], ref[0])] + list(zip(got[1], ref[1]))
+        err[fname] = max(float((a.float() - b.float()).abs().max())
+                         for a, b in pairs)
+        level_diff = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(got[1], again[1]))
+        ms[fname] = cuda_ms(lambda: corr.corr_patch_lookup_backward(
+            g, f1, levels, coords))
+        plan = corr.patch_lookup_plan(coords, shapes, 3, backward=True)
+        one[fname] = [round(float(p.float().mean()), 3) for p in plan]
+        adds[fname] = patch_backward_adds(coords, shapes)
+        print(f"  corr_patch_lookup_backward ({fname}): {ms[fname]:.4f} ms; "
+              f"worst |err| {ulps:.3f} of the allowance (1 bf16 ulp + 1e-5 "
+              f"of the sum of |terms|), {share:.2e} of the elements differ; "
+              f"df1 equal in bits on two launches, the levels' gradients "
+              f"apart by {level_diff:.3e} (atomics across blocks); blocks "
+              f"whose box is one chunk, by level {one[fname]} (of "
+              f"{plan[0].numel()} a level, {corr.PATCH_BWD_BOX_BYTES} B); "
+              f"global atomics {adds[fname] / 1e6:.1f} M scalar adds "
+              f"({adds[fname] / 4 / 1e6:.2f} M 16-byte atomicAdd), 598.7 M "
+              "before")
+    coords = fields["smooth"]
     B, h, w = coords.shape[:3]
     L = len(levels)
     valid = 0
@@ -541,20 +608,14 @@ def corr_patch_backward_check(pyr, coords, g):
         *_, vq = corr._window_starts(coords / 2 ** i, l.shape[1] - 2 * P,
                                      l.shape[2] - 2 * P, 3)
         valid += int(vq.sum())
-    print(f"  corr_patch_lookup_backward: worst |err| {ulps:.3f} of the "
-          f"allowance (1 bf16 ulp + 1e-5 of the sum of |terms|), {share:.2e}"
-          f" of the elements "
-          f"differ; {valid} of {B * h * w * L} query-levels unmasked, "
-          f"{valid * 64 * 128 / 1e6:.1f} M scalar atomic adds")
+    print(f"  corr_patch_lookup_backward: {valid} of {B * h * w * L} "
+          f"query-levels unmasked (smooth)")
     return dict(
         name="corr_patch_lookup_backward",
         source="codd_torch/csrc/corr_patch.cu",
-        replaces="codd_tpu/ops/corr.py:208",
-        max_abs_err=max(float((a.float() - b.float()).abs().max())
-                        for a, b in [(got[0], ref[0])]
-                        + list(zip(got[1], ref[1]))),
-        ms=cuda_ms(lambda: corr.corr_patch_lookup_backward(g, f1, levels,
-                                                           coords)),
+        replaces="codd_tpu/ops/corr.py:208", max_abs_err=err["smooth"],
+        ms=ms["smooth"], ms_scattered=ms["scattered"],
+        one_chunk_share=one["smooth"], global_adds=adds["smooth"],
         plain_ms=cuda_ms(lambda: corr.corr_patch_lookup_backward_plain(
             g, f1, levels, coords)),
         # read f1, the levels (bf16), g, coords once; write df1 and the
@@ -755,10 +816,10 @@ def kernel_checks(dev):
     tae = randn(tb, th, tw, 32, scale=1.0 / 8).contiguous()
     rows.append(gn_backward_check(tae, tvals, randn(tb, th, tw, 27)))
     tf1, tf2 = randn(tb, th, tw, 128), randn(tb, th, tw, 128)
-    tfield = torch.cat([corr_fields(randn(1, th, tw, 2, scale=6.0), th, tw,
-                                    dev)["smooth"]] * tb).contiguous()
+    tfields = {k: torch.cat([v] * tb).contiguous() for k, v in corr_fields(
+        randn(1, th, tw, 2, scale=6.0), th, tw, dev).items()}
     tpyr = corr.build_corr_pyramid(tf1, tf2, 4, 3, impl="patch")
-    rows.append(corr_patch_backward_check(tpyr, tfield,
+    rows.append(corr_patch_backward_check(tpyr, tfields,
                                           randn(tb, th, tw, 4 * 49)))
 
     # -- kernel 4: splat compositor at both call sites of the motion module:

@@ -41,18 +41,54 @@
 // (2r+1)^2 outputs are combined there (two rounds of the warp).
 //
 // The backward (training; the VJP of codd_tpu/ops/corr.py:_lookup_level,
-// which XLA differentiates there): one warp a query, every level in turn.
-// The level's 49 cotangents go through the transpose of the bilinear
-// combine to the t*t tap cotangents (each corner's term added in the order
-// d00, d01, d10, d11, as corr.py:_bilinear_transpose); a masked query
-// (vq = 0) skips the level.  Lane l owns channels 4l .. 4l+3: for each tap
-// in row-major order it adds dtap * level[tap] to its df1 sums (one f32
-// chain a channel over all levels, rounded once to bf16: df1 is written in
-// full by its query) and scatters dtap * f1 into a zeroed f32 copy of the
-// padded level with a 16-byte atomicAdd (rounded once to bf16 by the
-// wrapper).  What bounds it: the scatter, 64 x 128 atomic adds a query and
-// level into windows that neighbouring queries share (f32, no staging of
-// the window's gradient in shared memory yet).
+// which XLA differentiates there).  Per query and level the 49 cotangents
+// go through the transpose of the bilinear combine to the t*t tap
+// cotangents (each corner's term added in the order d00, d01, d10, d11, as
+// corr.py:_bilinear_transpose; a masked query, vq = 0, has none); then
+// df1 += sum_taps dtap * level[tap] and dlevel[tap] += dtap * f1.  The
+// second is a scatter into windows that neighbouring queries share: the
+// first form of this kernel (a warp a query) added 64 x 128 f32 a query
+// and level into the level's gradient with global atomics, 598.7 M scalar
+// adds at the motion stage's training call (B=4, 48x96 queries), and read
+// every tap from L2.
+//
+// This form takes the forward's tile (4 x 8 queries) and half of the 128
+// channels a block, and every level in turn, and writes both sums as
+// products over the box of the tile's windows, chunk by chunk (at most
+// pmax pixels: bands of whole box rows, or runs of one row of a wider
+// box).  D (chunk pixel x the tile's 32 queries, f32 in shared memory)
+// holds each query's tap cotangents at its window, 0 elsewhere; then
+//   dbox  = D F1       (pixels x 32 x 64 channels)
+//   df1^T += box^T D   (64 channels x pixels x 32)
+// on mma.sync m16n8k8 TF32: f1 and the box are bf16, exact in TF32; D is
+// split into hi + lo (2^-22 of it is lost), the small product first.
+// Each element of dbox is one fresh accumulator (8 mma), complete for the
+// block, and is added to the level once, a 16-byte atomicAdd of 4
+// channels, where some window covers its pixel: 40.8 M scalar adds a call
+// at the training call on chip_smoke.py's smooth field (96.7 M on the
+// scattered one).  The halo that neighbouring tiles share meets in
+// global memory in a run-dependent order; a block's own sums have a fixed
+// order, and df1, whose groups of 8 k-steps join the running f32 sums by
+// IEEE adds (the tensor cores truncate where they accumulate), is written
+// once, rounded to bf16: equal bits on every launch.  The chunk's half
+// pixels are staged 16 bytes a thread by cp.async, counted on an mbarrier
+// (one arrival a thread), while dbox, which needs only D and F1, runs.
+// (One cp.async.bulk a half pixel, issued by one warp, was slower.)
+// Shared-memory f32 atomics into an f32 box, the simpler alternative,
+// need 64 KB a 256-pixel half box for the gradient alone and keep the
+// scatter's 64 x 64 adds a query a block; the products touch each box
+// element once.
+// Pixel rows of the box are 160 bytes and D's rows 40 floats, so the
+// fragment loads of both products meet 8 different bank groups a quarter
+// warp.
+//
+// What bounds it: each chunk's fixed cost (zeroing and filling D, three
+// block barriers, the copies' latency) and each level's plan come first,
+// then the two products, then the global atomics (copies of the kernel
+// with one part cut out at a time); far above the 0.036 ms the function's
+// operations take in f32 at the training call (see PERF.md).  106
+// registers at r = 3, no spills (-Xptxas=-v; the first form: 40-48,
+// none).
 #include <stdint.h>
 
 #include "corr_common.cuh"
@@ -294,7 +330,14 @@ static int launch(const void* f1, const CorrLevels& lv, const void* coords,
 // backward
 // ---------------------------------------------------------------------------
 
-#define KB_WARPS 8  // queries of a block, one a warp
+#define KB_THREADS 256  // 8 warps
+#define KB_CH 64        // channels of a block: one half of the 128
+#define KB_PIX 160      // bytes of a staged half pixel: 64 bf16 + 32 pad
+#define KB_DROW 40      // floats of a D row: 32 queries, the coverage flag, pad
+#define KB_F1ROW 72     // floats of a staged f1 row: 64 channels + pad
+// shared memory a chunk pixel takes (its half pixel and its D row); the
+// wrapper's budget over this, in whole m-tiles of 16, is the chunk size
+#define KB_PIX_BYTES (KB_PIX + 4 * KB_DROW)
 
 // The f32 gradients of the padded levels, one launch's worth
 struct CorrGrads {
@@ -306,104 +349,316 @@ struct CorrGrads {
 #error "corr_patch.cu needs nvcc 12.1 or later (16-byte float4 atomicAdd)"
 #endif
 
-__device__ __forceinline__ void add4(float* p, float a, float b, float c,
-                                     float d) {
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+// dynamic shared memory of a backward block: the chunk (pmax half pixels
+// and D rows), f1 of the tile's queries and their cotangents, every level
+__host__ __device__ inline int kb_smem_bytes(int pmax, int L, int K) {
+  return pmax * KB_PIX_BYTES + 32 * KB_F1ROW * 4 + 32 * L * K * 4;
+}
+
+// 16 bytes from global to shared memory by this thread, asynchronously
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// one arrival on ``bar`` once this thread's earlier cp.async have landed
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
 template <int R>
-__global__ void __launch_bounds__(32 * KB_WARPS)
+__global__ void __launch_bounds__(KB_THREADS, 2)
 corr_patch_lookup_backward_kernel(const unsigned char* __restrict__ f1,
                                   const __grid_constant__ CorrLevels lv,
                                   const float* __restrict__ coords,
                                   const float* __restrict__ g,
                                   __nv_bfloat16* __restrict__ df1,
-                                  const __grid_constant__ CorrGrads dl,
-                                  long long N, long long total) {
+                                  const __grid_constant__ CorrGrads dl, int h,
+                                  int w, int tiles_x, int tiles_per_b,
+                                  int pmax) {
   constexpr int T = 2 * R + 2, R1 = 2 * R + 1, K = R1 * R1;
-  __shared__ float sg[KB_WARPS][K];
-  __shared__ float sd[KB_WARPS][MAXT * MAXT];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long q = (long long)blockIdx.x * KB_WARPS + warp;
-  if (q >= total) return;  // the whole warp
-  const long long b = q / N;
-  const uint2 fv = __ldg(reinterpret_cast<const uint2*>(f1 + q * (PC * 2)) + lane);
-  const float f[4] = {bf16_lo(fv.x), bf16_hi(fv.x), bf16_lo(fv.y), bf16_hi(fv.y)};
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const float* gq = g + q * (long long)(lv.n * K);
-  float* gs = sg[warp];
-  float* ds = sd[warp];
-  for (int lvl = 0; lvl < lv.n; ++lvl) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int L = lv.n;
+  unsigned char* box = smem;                           // [pmax][KB_PIX]
+  float* D = reinterpret_cast<float*>(smem + pmax * KB_PIX);  // [pmax][KB_DROW]
+  float* f1s = D + pmax * KB_DROW;                     // [32][KB_F1ROW]
+  float* gs = f1s + 32 * KB_F1ROW;                     // [32][L * K]
+  __shared__ CorrWindow qwin[TILE_H * TILE_W];
+  __shared__ float2 qc[TILE_H * TILE_W];  // the queries' coordinates
+  __shared__ int qn[TILE_H * TILE_W];     // query index n, or -1 off the grid
+  __shared__ int plan[4];                 // box x0, y0, width (0: nothing), height
+  __shared__ __align__(8) unsigned long long bar;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, c = lane & 3;  // mma group and thread in group
+  const int b = blockIdx.x / tiles_per_b, tile = blockIdx.x % tiles_per_b;
+  const int ch0 = blockIdx.y * KB_CH;      // the block's channels
+  const int qy0 = (tile / tiles_x) * TILE_H, qx0 = (tile % tiles_x) * TILE_W;
+  const long long N = (long long)h * w;
+
+  if (tid < TILE_H * TILE_W) {
+    const int qy = qy0 + tid / TILE_W, qx = qx0 + tid % TILE_W;
+    const bool in = qy < h && qx < w;
+    const long long n = (long long)qy * w + qx;
+    qn[tid] = in ? (int)n : -1;
+    qc[tid] = in ? make_float2(__ldg(coords + (b * N + n) * 2),
+                               __ldg(coords + (b * N + n) * 2 + 1))
+                 : make_float2(0.f, 0.f);
+  }
+  if (tid == 0) {  // every thread arrives once a chunk, when its copies land
+    mbar_init(smem_u32(&bar), KB_THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // f1 of the tile's queries, this half's channels, widened to f32 (exact,
+  // and so exact in TF32), and the queries' cotangents of every level; 0
+  // for a query off the grid
+  for (int e = tid; e < 32 * (KB_CH / 4); e += KB_THREADS) {
+    const int q = e / (KB_CH / 4), part = e % (KB_CH / 4);
+    uint2 v = make_uint2(0u, 0u);
+    if (qn[q] >= 0)
+      v = __ldg(reinterpret_cast<const uint2*>(
+                    f1 + ((b * N + qn[q]) * PC + ch0) * 2) + part);
+    *reinterpret_cast<float4*>(f1s + q * KB_F1ROW + 4 * part) =
+        make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
+  }
+  for (int e = tid; e < 32 * L * K; e += KB_THREADS) {
+    const int q = e / (L * K), o = e - q * (L * K);
+    gs[e] = qn[q] >= 0 ? __ldg(g + (b * N + qn[q]) * (long long)(L * K) + o)
+                       : 0.f;
+  }
+
+  // df1^T of the tile, summed over every level in registers: this warp's
+  // m-tile of 16 channels (mt) and two n-tiles of 8 queries (nt0, nt0 + 1).
+  // Lane (gq, c) holds channels 16 mt + 2 gq (rows gq of the mma) and
+  // 16 mt + 2 gq + 1 (rows gq + 8) of queries 8 nt + 2c and 8 nt + 2c + 1.
+  const int mt = warp & 3, nt0 = 2 * (warp >> 2);
+  float acc[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  unsigned phase = 0;
+
+  for (int lvl = 0; lvl < L; ++lvl) {
     const int Hp = lv.Hp[lvl], Wp = lv.Wp[lvl];
-    const CorrWindow win =
-        corr_window<R>(coords[q * 2], coords[q * 2 + 1], lv.scale[lvl], Hp, Wp);
-    if (!win.vq) continue;  // every tap is masked: no cotangent
-    for (int o = lane; o < K; o += 32) gs[o] = __ldg(gq + lvl * K + o);
-    __syncwarp();
-    const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
-    for (int tap = lane; tap < T * T; tap += 32) {
-      const int ty = tap / T, tx = tap - ty * T;
-      float d = 0.f;
-      if (ty < R1 && tx < R1)
-        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[ty * R1 + tx], gy), gx));
-      if (ty < R1 && tx >= 1)
-        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[ty * R1 + tx - 1], gy), win.fx));
-      if (ty >= 1 && tx < R1)
-        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[(ty - 1) * R1 + tx], win.fy), gx));
-      if (ty >= 1 && tx >= 1)
-        d = __fadd_rn(d, __fmul_rn(__fmul_rn(gs[(ty - 1) * R1 + tx - 1], win.fy),
-                                   win.fx));
-      ds[tap] = d;
-    }
-    __syncwarp();
-    const long long at = (b * Hp + win.sy) * Wp + win.sx;  // tap (0, 0)
-    const unsigned char* lp =
-        (const unsigned char*)lv.ptr[lvl] + at * PIX_BYTES + lane * 8;
-    float* gp = dl.ptr[lvl] + at * PC + lane * 4;
-    for (int ty = 0; ty < T; ++ty) {
-      for (int tx = 0; tx < T; ++tx) {
-        const float d = ds[ty * T + tx];
-        const long long off = (long long)ty * Wp + tx;
-        const uint2 kv = __ldg(reinterpret_cast<const uint2*>(lp + off * PIX_BYTES));
-        acc[0] = __fmaf_rn(d, bf16_lo(kv.x), acc[0]);
-        acc[1] = __fmaf_rn(d, bf16_hi(kv.x), acc[1]);
-        acc[2] = __fmaf_rn(d, bf16_lo(kv.y), acc[2]);
-        acc[3] = __fmaf_rn(d, bf16_hi(kv.y), acc[3]);
-        if (d != 0.f)
-          add4(gp + off * PC, __fmul_rn(d, f[0]), __fmul_rn(d, f[1]),
-               __fmul_rn(d, f[2]), __fmul_rn(d, f[3]));
+    const unsigned char* level = (const unsigned char*)lv.ptr[lvl];
+    __syncthreads();  // the last level's windows and chunk are used
+    if (warp == 0) {  // plan: each lane one query of the tile
+      CorrWindow win = corr_window<R>(qc[lane].x, qc[lane].y, lv.scale[lvl],
+                                      Hp, Wp);
+      win.vq = win.vq && qn[lane] >= 0;  // only these have taps
+      qwin[lane] = win;
+      const int x_lo = __reduce_min_sync(0xffffffffu, win.vq ? win.sx : 0x7fffffff);
+      const int y_lo = __reduce_min_sync(0xffffffffu, win.vq ? win.sy : 0x7fffffff);
+      const int x_hi = __reduce_max_sync(0xffffffffu, win.vq ? win.sx : -1);
+      const int y_hi = __reduce_max_sync(0xffffffffu, win.vq ? win.sy : -1);
+      if (lane == 0) {
+        const bool any = x_hi >= 0;
+        plan[0] = x_lo;
+        plan[1] = y_lo;
+        plan[2] = any ? x_hi - x_lo + T : 0;
+        plan[3] = any ? y_hi - y_lo + T : 0;
       }
     }
-    __syncwarp();  // gs and ds are the next level's
+    __syncthreads();
+    const int x_lo = plan[0], y_lo = plan[1], bw = plan[2], bh = plan[3];
+    if (bw == 0) continue;  // no window touches the level (block-uniform)
+    // The box in chunks of at most pmax pixels: bands of whole rows, or,
+    // for a box wider than pmax, runs of pmax pixels of one row.
+    const int cw = bw <= pmax ? bw : pmax;
+    const int rows = bw <= pmax ? pmax / bw : 1;
+    float* dlv = dl.ptr[lvl];
+    for (int cy = 0; cy < bh; cy += rows) {
+      for (int cx = 0; cx < bw; cx += cw) {
+        const int nr = min(rows, bh - cy), nc = min(cw, bw - cx);
+        const int P = nr * nc, Pp = (P + 15) & ~15;
+        const int ax = x_lo + cx, ay = y_lo + cy;  // on the padded level
+        __syncthreads();  // the last chunk's D and box are read
+        for (int e = tid; e < Pp * (KB_DROW / 4); e += KB_THREADS)
+          reinterpret_cast<float4*>(D)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int e = tid; e < (Pp - P) * (KB_PIX / 16); e += KB_THREADS)
+          reinterpret_cast<uint4*>(box + P * KB_PIX)[e] = make_uint4(0u, 0u, 0u, 0u);
+        __syncthreads();
+        // D (chunk pixel p, query q): q's tap cotangent at p, 0 where p is
+        // outside q's window; column 32 flags the pixels some window
+        // covers.  A tap's cotangent is the transpose of the bilinear
+        // combine, each corner's term added in the order d00, d01, d10, d11
+        // (corr.py:_bilinear_transpose).
+        int any = 0;
+        for (int e = tid; e < 32 * T * T; e += KB_THREADS) {
+          const int q = e / (T * T), tap = e - q * (T * T);
+          const int ty = tap / T, tx = tap - ty * T;
+          const CorrWindow win = qwin[q];
+          const int py = win.sy + ty - ay, px = win.sx + tx - ax;
+          if (win.vq && py >= 0 && py < nr && px >= 0 && px < nc) {
+            const float* gg = gs + q * (L * K) + lvl * K;
+            const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
+            float d = 0.f;
+            if (ty < R1 && tx < R1)
+              d = __fadd_rn(d, __fmul_rn(__fmul_rn(gg[ty * R1 + tx], gy), gx));
+            if (ty < R1 && tx >= 1)
+              d = __fadd_rn(d, __fmul_rn(__fmul_rn(gg[ty * R1 + tx - 1], gy), win.fx));
+            if (ty >= 1 && tx < R1)
+              d = __fadd_rn(d, __fmul_rn(__fmul_rn(gg[(ty - 1) * R1 + tx], win.fy), gx));
+            if (ty >= 1 && tx >= 1)
+              d = __fadd_rn(d, __fmul_rn(__fmul_rn(gg[(ty - 1) * R1 + tx - 1], win.fy),
+                                         win.fx));
+            const int p = py * nc + px;
+            D[p * KB_DROW + q] = d;
+            D[p * KB_DROW + 32] = 1.0f;
+            any = 1;
+          }
+        }
+        if (!__syncthreads_or(any)) continue;  // no window meets the chunk
+        // the chunk's half pixels, 16 bytes a thread at a time; each thread
+        // arrives on the barrier when its copies have landed
+        for (int e = tid; e < P * (KB_CH / 8); e += KB_THREADS) {
+          const int p = e / (KB_CH / 8), part = e % (KB_CH / 8);
+          const int py = p / nc, px = p - py * nc;
+          cp_async16(box + p * KB_PIX + 16 * part,
+                     level + (((long long)b * Hp + ay + py) * Wp + ax + px) *
+                                 PIX_BYTES + ch0 * 2 + 16 * part);
+        }
+        cp_async_arrive(smem_u32(&bar));
+
+        // The level's gradient on the chunk, dbox = D F1 (P x 32 queries x
+        // 64 channels): an m-tile of 16 pixels at a time a warp, D split
+        // into TF32 hi + lo (F1 is exact), small product first.  Each
+        // element is complete in one fresh accumulator (8 mma), so the
+        // block adds it to the level once: a 16-byte atomicAdd of 4
+        // channels, for the pixels some window covers.
+        for (int m0 = 16 * warp; m0 < Pp; m0 += 16 * (KB_THREADS / 32)) {
+          unsigned ah[4][4], al[4][4];
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const float* dr = D + (m0 + gq) * KB_DROW + 8 * s + c;
+            split_tf32(dr[0], ah[s][0], al[s][0]);
+            split_tf32(dr[8 * KB_DROW], ah[s][1], al[s][1]);
+            split_tf32(dr[4], ah[s][2], al[s][2]);
+            split_tf32(dr[8 * KB_DROW + 4], ah[s][3], al[s][3]);
+          }
+          // after the exchange below: row gq (even c) or gq + 8 (odd c)
+          const bool odd = c & 1;
+          const int p = m0 + gq + (odd ? 8 : 0);
+          const bool add = p < P && D[p * KB_DROW + 32] != 0.f;
+          const int py = p / nc, px = p - py * nc;
+          float* gp = dlv + (((long long)b * Hp + ay + py) * Wp + ax + px) * PC +
+                      ch0 + 2 * c - (odd ? 2 : 0);
+#pragma unroll 2
+          for (int nt = 0; nt < KB_CH / 8; ++nt) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              const unsigned b0 = __float_as_uint(f1s[(8 * s + c) * KB_F1ROW + 8 * nt + gq]);
+              const unsigned b1 =
+                  __float_as_uint(f1s[(8 * s + c + 4) * KB_F1ROW + 8 * nt + gq]);
+              mma_tf32(d, al[s], b0, b1);
+              mma_tf32(d, ah[s], b0, b1);
+            }
+            // lanes c and c ^ 1 trade halves: the even lane keeps row gq,
+            // channels 2c .. 2c + 3 of the n-tile; the odd one row gq + 8,
+            // channels 2c - 2 .. 2c + 1
+            const float r0 = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
+            const float r1 = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
+            if (add)
+              atomicAdd(reinterpret_cast<float4*>(gp + 8 * nt),
+                        odd ? make_float4(r0, r1, d[2], d[3])
+                            : make_float4(d[0], d[1], r0, r1));
+          }
+        }
+
+        // df1^T += box^T D (64 channels x P x 32 queries): bf16 box values
+        // are exact in TF32, D is split.  Groups of 8 k-steps go to a fresh
+        // accumulator and join the running sum by IEEE adds (the tensor
+        // cores truncate where they accumulate).
+        mbar_wait(smem_u32(&bar), phase & 1);
+        ++phase;
+        const unsigned char* ap = box + (16 * mt + 2 * gq) * 2;
+        for (int k0 = 0; k0 < Pp; k0 += 64) {
+          float part[2][4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+          const int kend = min(k0 + 64, Pp);
+          for (int kk = k0; kk < kend; kk += 8) {
+            const unsigned u0 = *reinterpret_cast<const unsigned*>(ap + (kk + c) * KB_PIX);
+            const unsigned u1 =
+                *reinterpret_cast<const unsigned*>(ap + (kk + c + 4) * KB_PIX);
+            const unsigned a[4] = {u0 << 16, u0 & 0xffff0000u, u1 << 16,
+                                   u1 & 0xffff0000u};
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float* dr = D + (kk + c) * KB_DROW + 8 * (nt0 + j) + gq;
+              unsigned h0, l0, h1, l1;
+              split_tf32(dr[0], h0, l0);
+              split_tf32(dr[4 * KB_DROW], h1, l1);
+              mma_tf32(part[j], a, l0, l1);
+              mma_tf32(part[j], a, h0, h1);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
+        }
+      }
+    }
   }
-  __nv_bfloat162 lo = __floats2bfloat162_rn(acc[0], acc[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(acc[2], acc[3]);
-  uint2 out;
-  out.x = *reinterpret_cast<unsigned*>(&lo);
-  out.y = *reinterpret_cast<unsigned*>(&hi);
-  reinterpret_cast<uint2*>(df1 + q * PC)[lane] = out;
+
+  // df1, written in full: each f32 sum rounded once to bf16
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int q = 8 * (nt0 + j) + 2 * c;
+    const int ch = ch0 + 16 * mt + 2 * gq;
+    if (qn[q] >= 0)
+      *reinterpret_cast<unsigned*>(df1 + (b * N + qn[q]) * PC + ch) =
+          pack_bf16(acc[j][0], acc[j][2]);
+    if (qn[q + 1] >= 0)
+      *reinterpret_cast<unsigned*>(df1 + (b * N + qn[q + 1]) * PC + ch) =
+          pack_bf16(acc[j][1], acc[j][3]);
+  }
 }
 
 template <int R>
 static int launch_backward(const void* f1, const CorrLevels& lv,
                            const CorrGrads& dl, const void* coords,
-                           const void* g, void* df1, long long N,
-                           long long total, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((total + KB_WARPS - 1) / KB_WARPS);
-  corr_patch_lookup_backward_kernel<R><<<blocks, 32 * KB_WARPS, 0, s>>>(
+                           const void* g, void* df1, int B, int h, int w,
+                           int pmax, cudaStream_t s) {
+  const int bytes = kb_smem_bytes(pmax, lv.n, (2 * R + 1) * (2 * R + 1));
+  cudaError_t err = cudaFuncSetAttribute(
+      corr_patch_lookup_backward_kernel<R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  // two blocks an SM need more than the default split of L1 and shared memory
+  err = cudaFuncSetAttribute(corr_patch_lookup_backward_kernel<R>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (w + TILE_W - 1) / TILE_W;
+  const int tiles_per_b = tiles_x * ((h + TILE_H - 1) / TILE_H);
+  dim3 grid((unsigned)(B * tiles_per_b), PC / KB_CH);
+  corr_patch_lookup_backward_kernel<R><<<grid, KB_THREADS, bytes, s>>>(
       (const unsigned char*)f1, lv, (const float*)coords, (const float*)g,
-      (__nv_bfloat16*)df1, dl, N, total);
+      (__nv_bfloat16*)df1, dl, h, w, tiles_x, tiles_per_b, pmax);
   return (int)cudaGetLastError();
 }
 
 // The backward: g (B, h, w, L * (2r+1)^2) f32 cotangents of one launch's
 // output (offset 0); df1 (B, h*w, 128) bf16, written in full; grads: L
 // device pointers, f32 (B, Hp, Wp, 128) zeroed buffers the kernel adds into.
+// box_bytes: the shared memory a block may stage a chunk of its box in
+// (KB_PIX_BYTES a pixel; at least one m-tile of 16 pixels).
 extern "C" int corr_patch_lookup_backward_launch(
     const void* f1, const void* const* levels, const int* hw,
     const float* scales, int L, const void* coords, const void* g, void* df1,
-    void* const* grads, int B, int h, int w, int r, void* stream) {
-  if (L < 1 || L > CORR_MAX_LEVELS || r < 0 || 2 * r + 2 > MAXT)
+    void* const* grads, int B, int h, int w, int r, int box_bytes,
+    void* stream) {
+  if (L < 1 || L > CORR_MAX_LEVELS || r < 0 || 2 * r + 2 > MAXT ||
+      box_bytes < 0)
     return (int)cudaErrorInvalidValue;
   CorrLevels lv = {};
   CorrGrads dl = {};
@@ -415,14 +670,15 @@ extern "C" int corr_patch_lookup_backward_launch(
     dl.ptr[i] = (float*)grads[i];
   }
   lv.n = L;
-  const long long N = (long long)h * w, total = (long long)B * N;
-  if (total == 0) return 0;
+  if ((long long)B * h * w == 0) return 0;
+  const int fit = box_bytes / KB_PIX_BYTES / 16 * 16;
+  const int pmax = fit > 16 ? fit : 16;
   cudaStream_t s = (cudaStream_t)stream;
   switch (r) {
-    case 0: return launch_backward<0>(f1, lv, dl, coords, g, df1, N, total, s);
-    case 1: return launch_backward<1>(f1, lv, dl, coords, g, df1, N, total, s);
-    case 2: return launch_backward<2>(f1, lv, dl, coords, g, df1, N, total, s);
-    default: return launch_backward<3>(f1, lv, dl, coords, g, df1, N, total, s);
+    case 0: return launch_backward<0>(f1, lv, dl, coords, g, df1, B, h, w, pmax, s);
+    case 1: return launch_backward<1>(f1, lv, dl, coords, g, df1, B, h, w, pmax, s);
+    case 2: return launch_backward<2>(f1, lv, dl, coords, g, df1, B, h, w, pmax, s);
+    default: return launch_backward<3>(f1, lv, dl, coords, g, df1, B, h, w, pmax, s);
   }
 }
 

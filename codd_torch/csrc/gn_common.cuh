@@ -183,11 +183,12 @@ __host__ __device__ inline int gn_row_keys(int R) {
   return (QX + 2 * R + CHUNK - 1) & ~(CHUNK - 1);
 }
 
-// floats of one staged row: [KW][AC] embeddings, KW * NV values with room
-// for the row's offset from a 16-byte boundary and for the last key's read
-// of 32 columns, [KW] squared norms
-__host__ __device__ inline int gn_stage_floats(int R) {
-  return gn_row_keys(R) * (AC + NV + 1) + 8;
+// floats of one staged row: [KW][AC] embeddings, then nval runs of the
+// keys' 27 values (vals; the backward also stages the sums' cotangent G),
+// each with room for the row's offset from a 16-byte boundary and for the
+// last key's read of 32 columns, then [KW] squared norms
+__host__ __device__ inline int gn_stage_floats(int R, int nval = 1) {
+  return gn_row_keys(R) * (AC + nval * NV + 1) + 8 * nval;
 }
 
 // dynamic shared memory a block needs: the ring of staged rows, reused for

@@ -51,8 +51,14 @@ respect to ``f1`` and the levels.  Per query and level the 49 cotangents
 go through the transpose of the bilinear combine to 8 x 8 tap cotangents
 (0 for a masked query), then ``df1 += sum_taps dtap * level[tap]`` (the
 query's own row: written in full, f32 sums rounded once to bf16) and
-``dlevel[tap] += dtap * f1`` (a scatter: f32 ``atomicAdd`` into a zeroed
-f32 padded level, rounded once to bf16).  The gradients come back in the
+``dlevel[tap] += dtap * f1`` (a scatter into a zeroed f32 padded level,
+rounded once to bf16).  The kernel takes the forward's tile and writes
+both as products over the bounding box of its windows: with D (box pixel
+x query) holding each query's tap cotangents at its window, ``dbox = D
+F1`` and ``df1^T = box^T D`` run on the tensor cores, and each pixel of
+the box meets one f32 ``atomicAdd`` a block, in chunks of
+``PATCH_BWD_BOX_BYTES`` (``patch_lookup_plan(backward=True)`` says which
+boxes take one).  The gradients come back in the
 inputs' bf16, and ``build_corr_pyramid``'s casts carry them to f32, as in
 ``codd_tpu`` (``corr.py:73-80``); the padding's own backward crops them.
 The coordinates carry no gradient in ``codd_tpu`` (they come from the
@@ -74,7 +80,8 @@ __all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_levels",
            "corr_lookup_level", "corr_lookup_level_plain",
            "corr_patch_lookup_levels", "corr_patch_lookup_level",
            "corr_patch_lookup_level_plain", "patch_lookup_plan", "CORR_IMPLS",
-           "PATCH_TILE", "PATCH_BOX_BYTES", "CorrPatchLookup",
+           "PATCH_TILE", "PATCH_BOX_BYTES", "PATCH_BWD_BOX_BYTES",
+           "CorrPatchLookup",
            "corr_patch_lookup_backward", "corr_patch_lookup_backward_plain",
            "corr_patch_lookup_level_backward_plain"]
 
@@ -86,6 +93,12 @@ Pyramid = Union[List[torch.Tensor], Dict[str, object]]
 # stage its window box in; 96 KB lets two blocks share an SM
 PATCH_TILE = (4, 8)
 PATCH_BOX_BYTES = 96 * 1024
+# kernel 6's backward: the shared memory a block may stage a chunk of its
+# box in, 320 bytes a pixel (its bf16 half pixel, 160, and its f32 row of
+# D, 160); whole m-tiles of 16 pixels, at least one.  240 pixels a chunk
+# let two blocks share an SM.
+PATCH_BWD_BOX_BYTES = 75 * 1024
+_BWD_PIXEL_BYTES = 320
 
 
 def _pool2(x):
@@ -373,7 +386,8 @@ def corr_patch_lookup_backward(g, f1, levels, coords, radius: int = 3,
     grads = (ctypes.c_void_p * len(levels))(*[d.data_ptr() for d in dl32])
     kernels.launch(name, f1.data_ptr(), ptrs, hw, sc, len(levels),
                    coords.data_ptr(), g.data_ptr(), df1.data_ptr(), grads,
-                   B, h, w, radius, kernels.stream_ptr(coords.device))
+                   B, h, w, radius, PATCH_BWD_BOX_BYTES,
+                   kernels.stream_ptr(coords.device))
     return df1, [d.to(l.dtype) for d, l in zip(dl32, levels)]
 
 
@@ -396,16 +410,22 @@ class CorrPatchLookup(torch.autograd.Function):
 
 
 def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
-                      box_bytes: int = PATCH_BOX_BYTES):
+                      box_bytes=None, backward: bool = False):
     """Which blocks of kernel 6 stage their window box in shared memory
     (True) and which read their taps from global memory (False), by the
     kernel's own rule.  A block takes ``PATCH_TILE`` queries of one level;
     its box spans the window starts (sx, sy) of those of its queries whose
     window touches the level, plus t = 2r+2 taps, a box row takes
     bw * 256 + 16 bytes, and it stages when its bh rows fit in
-    ``box_bytes``.  A block none of whose windows touches the level reads
-    nothing and counts as staged.  ``level_shapes``: (Hp, Wp) of each
-    padded level.  Returns (L, B, tiles_y, tiles_x) bool."""
+    ``box_bytes`` (default ``PATCH_BOX_BYTES``).  With ``backward`` the
+    rule of the backward kernel, which stages every box, in chunks: True
+    where the box is one chunk, bw * bh pixels at 320 bytes within
+    ``box_bytes`` (default ``PATCH_BWD_BOX_BYTES``; at least 16 pixels).
+    A block none of whose windows touches the level reads nothing and
+    counts as staged.  ``level_shapes``: (Hp, Wp) of each padded level.
+    Returns (L, B, tiles_y, tiles_x) bool."""
+    if box_bytes is None:
+        box_bytes = PATCH_BWD_BOX_BYTES if backward else PATCH_BOX_BYTES
     B, h, w, _ = coords.shape
     th, tw = PATCH_TILE
     ny, nx = -(-h // th), -(-w // tw)
@@ -428,8 +448,12 @@ def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
         x_hi = tiles(torch.where(vq, sx, -1), -1).amax(-1)
         y_hi = tiles(torch.where(vq, sy, -1), -1).amax(-1)
         touched = x_hi >= 0
-        nbytes = ((x_hi - x_lo + t) * 256 + 16) * (y_hi - y_lo + t)
-        plans.append(~touched | (nbytes <= box_bytes))
+        bw, bh = x_hi - x_lo + t, y_hi - y_lo + t
+        if backward:   # a chunk: whole m-tiles of 16 pixels, at least one
+            fits = bw * bh <= max(16, box_bytes // _BWD_PIXEL_BYTES // 16 * 16)
+        else:
+            fits = (bw * 256 + 16) * bh <= box_bytes
+        plans.append(~touched | fits)
     return torch.stack(plans)
 
 

@@ -60,7 +60,7 @@ KERNELS = {
                                      [_P] * 5 + [_I] * 4 + [_P]),
     "corr_patch_lookup_backward": ("corr_patch.cu",
                                    "corr_patch_lookup_backward_launch",
-                                   [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4
+                                   [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5
                                    + [_P]),
 }
 

@@ -174,8 +174,12 @@ def test_corr_lookup_dispatches_on_patch_layout():
                                rtol=0)
 
 
-def _plan_brute(coords, shapes, radius, box_bytes, tile=(4, 8)):
-    """Kernel 6's staging rule, tile by tile in numpy."""
+def _plan_brute(coords, shapes, radius, box_bytes, tile=(4, 8),
+                backward=False):
+    """Kernel 6's staging rule, tile by tile in numpy; with ``backward``
+    its backward's: the box's pixels at 320 bytes each (a bf16 half pixel
+    and an f32 row of D) within the budget, in whole 16-pixel m-tiles and
+    at least one."""
     B, h, w, _ = coords.shape
     t, P = 2 * radius + 2, 2 * radius + 1
     th, tw = tile
@@ -200,7 +204,12 @@ def _plan_brute(coords, shapes, radius, box_bytes, tile=(4, 8)):
                         continue
                     bw = max(sxs) - min(sxs) + t
                     bh = max(sys_) - min(sys_) + t
-                    out[lvl, b, ty, tx] = (bw * 256 + 16) * bh <= box_bytes
+                    if backward:
+                        pixels = max(16, box_bytes // 320 // 16 * 16)
+                        out[lvl, b, ty, tx] = bw * bh <= pixels
+                    else:
+                        out[lvl, b, ty, tx] = ((bw * 256 + 16) * bh
+                                               <= box_bytes)
     return out
 
 
@@ -230,6 +239,39 @@ def test_patch_lookup_plan(radius, box_bytes):
         assert got[0, 0].all() and not got[0, 1].all()
     if box_bytes == 0:
         assert not got[0, 0, 1:].any()
+
+
+@pytest.mark.parametrize("box_bytes", [0, 100 * 320, None])
+@pytest.mark.parametrize("field", ["smooth", "scattered"])
+def test_patch_backward_plan(field, box_bytes):
+    """The backward's rule in the plain planner (``backward=True``): a
+    block's box is one chunk when its bw * bh pixels, 320 bytes each, fit
+    the budget (the default ``PATCH_BWD_BOX_BYTES``), else several;
+    against each tile's box counted in numpy, on a smooth field (the
+    grid moved by a slowly varying +-8 px, as the model's targets are)
+    and a scattered one (plus N(0, 6^2) px), ragged tiles, B = 2."""
+    rng = np.random.RandomState(9)
+    B, h, w = 2, 22, 45
+    grid = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+    if field == "smooth":
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        drift = np.stack([8 * np.sin(xs / 13.0 + ys / 17.0),
+                          6 * np.cos(xs / 19.0 - ys / 11.0)], -1)
+        coords = grid + drift + 0.25 * rng.randn(B, h, w, 2)
+    else:
+        coords = grid + 6 * rng.randn(B, h, w, 2)
+    coords = coords.astype(np.float32)
+    shapes = [(-(-h // 2 ** i) + 14, -(-w // 2 ** i) + 14) for i in range(4)]
+    got = tcorr.patch_lookup_plan(torch.from_numpy(coords), shapes, 3,
+                                  box_bytes=box_bytes, backward=True)
+    budget = tcorr.PATCH_BWD_BOX_BYTES if box_bytes is None else box_bytes
+    ref = _plan_brute(coords, shapes, 3, budget, backward=True)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    share = got[0].float().mean()
+    if box_bytes is None:   # the default budget: one chunk where coherent
+        assert share > 0.9 if field == "smooth" else share < 0.1
+    if box_bytes == 0:      # one m-tile: no box of 8 x 8 taps or more
+        assert share < 0.1  # (a block whose windows all miss counts)
 
 
 @pytest.mark.parametrize("layout", ["volume", "patch"])

@@ -316,6 +316,86 @@ def test_single_tf32_breaks_the_sums_at_scale_4(kind):
     assert float(ratio.max()) > 10.0
 
 
+def _backward_split(g, ae, vals, radius, single=None):
+    """gn_window_aggregate_backward_plain's function with its four products
+    in split TF32, as kernel 5's backward computes them: the logits' S = A
+    A^T, P = [G | V] [V | G]^T, so that P_ij = G_i.v_j + V_i.G_j in one
+    product, then dvals = S G and U A with U = S (1 - S) P, and dae =
+    -2 (rowsum(U) a - U A); the f32 norms outside the product, the sigmoid
+    on f32 logits.  ``single`` ("S", "P", "SG" or "UA") takes that product
+    in one TF32 product, for the guards."""
+    def mm(a, b, name):
+        return _mm_split(a, b, 1 if name == single else 3)
+
+    B, h, w, C = ae.shape
+    n = h * w
+    q = ae.reshape(B, n, C)
+    sq = torch.sum(q * q, -1)
+    logits = (2.0 * mm(q, q.transpose(1, 2).contiguous(), "S")
+              - sq[:, :, None] - sq[:, None, :])
+    ys, xs = torch.arange(n) // w, torch.arange(n) % w
+    inside = (((ys[:, None] - ys[None, :]).abs() <= radius)
+              & ((xs[:, None] - xs[None, :]).abs() <= radius))
+    s = torch.sigmoid(logits) * inside[None].float()
+    G, V = g.reshape(B, n, 27), vals.reshape(B, n, 27)
+    P = mm(torch.cat([G, V], -1),
+           torch.cat([V, G], -1).transpose(1, 2).contiguous(), "P")
+    u = s * (1.0 - s) * P
+    dae = -2.0 * (u.sum(-1, keepdim=True) * q - mm(u, q, "UA"))
+    return dae.reshape(ae.shape), mm(s, G, "SG").reshape(vals.shape)
+
+
+def _backward_case(kind, scale):
+    ae, vals, _, noise = _split_case(kind, scale)
+    g = T(np.random.RandomState(12).randn(*vals.shape))
+    return g, ae, vals, noise
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_backward_split_tf32_products_keep_the_sums(kind, scale):
+    """Kernel 5's backward on the tensor cores: (dae, dvals) from its four
+    products in 3xTF32 stay within 1e-5 of each element's sum of |terms|
+    (``gn_window_aggregate_backward_terms``), plus the f32 rounding of the
+    logit (8 ulp of 2 max|a|^2, as chip_smoke.py allows), of the plain
+    backward and of an f64 evaluation."""
+    g, ae, vals, noise = _backward_case(kind, scale)
+    got = _backward_split(g, ae, vals, 32)
+    ref = tgn.gn_window_aggregate_backward_plain(g, ae, vals, 32)
+    terms = tgn.gn_window_aggregate_backward_terms(g, ae, vals, 32)
+    exact = tgn.gn_window_aggregate_backward_plain(g.double(), ae.double(),
+                                                   vals.double(), 32)
+    for a, b, e, t in zip(got, ref, exact, terms):
+        tol = (1e-5 + noise) * t + 1e-7
+        assert (torch.abs(a - b) <= tol).all()
+        assert (torch.abs(a.double() - e) <= tol).all()
+
+
+def _backward_ratio(kind, scale, single):
+    g, ae, vals, noise = _backward_case(kind, scale)
+    got = _backward_split(g, ae, vals, 32, single)
+    ref = tgn.gn_window_aggregate_backward_plain(g, ae, vals, 32)
+    terms = tgn.gn_window_aggregate_backward_terms(g, ae, vals, 32)
+    return max(float((torch.abs(a - b) / ((1e-5 + noise) * t + 1e-7)).max())
+               for a, b, t in zip(got, ref, terms))
+
+
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_backward_single_tf32_logits_break_the_sums_at_scale_4(kind):
+    """The guard: one TF32 product for the backward's logits (the other
+    three still split) is out by far more than that bound at scale 4."""
+    assert _backward_ratio(kind, 4.0, "S") > 10.0
+
+
+@pytest.mark.parametrize("single", ["P", "SG", "UA"])
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_backward_single_tf32_products_break_the_sums(kind, single):
+    """The other three products need their split too: one TF32 product in
+    place of P, S G or U A is out by more than three times that bound at
+    the model's embedding scale, 1/8."""
+    assert _backward_ratio(kind, 0.125, single) > 3.0
+
+
 @pytest.mark.parametrize("h,w,radius,B", [(5, 19, 3, 2), (9, 40, 32, 1),
                                           (12, 72, 32, 1)])
 def test_window_aggregate_plain_matches_dense_at_odd_shapes(h, w, radius, B):

@@ -516,11 +516,14 @@ def test_tile_warp_autograd_launches_both_kernels(dev):
 
 
 @pytest.mark.parametrize("h,w,radius,B", [(12, 72, 32, 2), (5, 19, 3, 1),
-                                         (48, 96, 32, 1)])
+                                         (7, 21, 3, 2), (13, 40, 32, 1),
+                                         (48, 96, 32, 4)])
 def test_gn_window_backward_kernel(dev, h, w, radius, B):
-    """Kernel 5's backward against its plain backward: each element within
-    1e-5 of its sum of |terms| (f32 sums of the window's pairs in another
-    order, s recomputed by FMAs); two launches give the same bits."""
+    """Kernel 5's backward against its plain backward, with ragged tiles
+    (w not a multiple of 16, odd h), R = 3 and 32, and the motion stage's
+    B = 4 at 48x96: each element within 1e-5 of its sum of |terms| (f32
+    sums of the window's pairs in another order, its four products in
+    3xTF32 on the tensor cores); two launches give the same bits."""
     ae, vals = _gn_inputs(dev, h, w, B)
     g = torch.randn(B, h, w, 27, generator=_g()).to(dev)
     got = _launched("gn_window_aggregate_backward",
@@ -534,29 +537,51 @@ def test_gn_window_backward_kernel(dev, h, w, radius, B):
     assert ((got[1] - ref[1]).abs() <= 1e-5 * tv + 1e-7).all()
 
 
-@pytest.mark.parametrize("r", [1, 3])
-def test_corr_patch_backward_kernel(dev, r):
-    """Kernel 6's backward against its plain backward, four levels: both
-    round f32 sums once to bf16 (the levels' by atomics in a run-dependent
-    order), so each element within one bf16 ulp of the larger of the two,
-    plus 1e-5 of the largest value for the outputs that cancel to ~0."""
-    g = _g()
-    f1, f2 = (torch.randn(2, 12, 40, 128, generator=g).to(dev)
-              for _ in range(2))
-    coords = _corr_coords(dev, r)
-    pyr = corr.build_corr_pyramid(f1, f2, 4, r, impl="patch")
-    gout = torch.randn(2, 12, 40, 4 * (2 * r + 1) ** 2, generator=g).to(dev)
-    got = _launched("corr_patch_lookup_backward",
-                    lambda: corr.corr_patch_lookup_backward(
-                        gout, pyr["f1"], pyr["levels"], coords, r))
-    ref = corr.corr_patch_lookup_backward_plain(gout, pyr["f1"],
-                                                pyr["levels"], coords, r)
+def _bf16_within_ulp(got, ref):
+    """Each element within one bf16 ulp of the larger of the two, plus
+    1e-5 of the largest value (for the outputs that cancel to ~0)."""
     for a, b in [(got[0], ref[0])] + list(zip(got[1], ref[1])):
         assert a.dtype == b.dtype == torch.bfloat16
         a, b = a.float(), b.float()
         big = torch.maximum(a.abs(), b.abs()).clamp(min=1e-30)
         ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
         assert ((a - b).abs() <= ulp + 1e-5 * b.abs().max()).all()
+
+
+@pytest.mark.parametrize("r,h,w,B", [(1, 12, 40, 2), (3, 12, 40, 2),
+                                     (3, 13, 21, 2), (3, 48, 96, 4)])
+def test_corr_patch_backward_kernel(dev, r, h, w, B, monkeypatch):
+    """Kernel 6's backward against its plain backward, four levels, on a
+    coherent and a scattered field (batch elements 0 and 1, then 2 and 3;
+    ragged tiles where w is not a multiple of 8 or h of 4): both round f32
+    sums once to bf16.  A block sums its own terms in a fixed order (the
+    tensor-core products D F1 and box^T D), so df1, which has no atomics,
+    gives equal bits on two launches; the levels meet one atomicAdd a
+    block and pixel, in a run-dependent order across blocks.  So each
+    element within one bf16 ulp of the larger of the two, plus 1e-5 of the
+    largest value.  The scattered field's boxes take several chunks; with
+    a budget of one m-tile every box goes in 16-pixel chunks (and runs of
+    one row where the box is wider): the same tolerance."""
+    g = _g()
+    f1, f2 = (torch.randn(B, h, w, 128, generator=g).to(dev)
+              for _ in range(2))
+    coords = _corr_coords(dev, r, 2, h, w)
+    coords = torch.cat([coords] * (B // 2)).contiguous()
+    pyr = corr.build_corr_pyramid(f1, f2, 4, r, impl="patch")
+    shapes = [tuple(l.shape[1:3]) for l in pyr["levels"]]
+    plan = corr.patch_lookup_plan(coords, shapes, r, backward=True)
+    assert plan[0].any() and not plan[0].all()
+    gout = torch.randn(B, h, w, 4 * (2 * r + 1) ** 2, generator=g).to(dev)
+    args = (gout, pyr["f1"], pyr["levels"], coords, r)
+    got = _launched("corr_patch_lookup_backward",
+                    lambda: corr.corr_patch_lookup_backward(*args))
+    ref = corr.corr_patch_lookup_backward_plain(*args)
+    _bf16_within_ulp(got, ref)
+    assert torch.equal(corr.corr_patch_lookup_backward(*args)[0], got[0])
+    monkeypatch.setattr(corr, "PATCH_BWD_BOX_BYTES", 0)
+    small = corr.patch_lookup_plan(coords, shapes, r, backward=True)
+    assert small[0].float().mean() < plan[0].float().mean()
+    _bf16_within_ulp(corr.corr_patch_lookup_backward(*args), ref)
 
 
 def test_backward_kernels_under_autograd(dev):
