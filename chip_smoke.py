@@ -26,8 +26,12 @@ Phases, in order:
      timed and equal in bits to the one chosen, with the run lengths and
      sort_fragments' time (projection, torch.sort, searchsorted) beside;
      kernel 1 also in its two bf16 forms ("exact", "pallas") against
-     their plain bf16 versions, each timed beside the f32 form, and its
-     backward (the VJP of tile_warping) against the plain backward; the
+     their plain bf16 versions, each timed beside the f32 form, with the
+     share of outputs off their plain version's bits, and its backward
+     (the VJP of tile_warping) against the plain backward on the random
+     and on a smooth field (shared taps; the row's ``ms_smooth``), dhyp3
+     and dfea_l equal in bits on two launches, timed at each channel
+     group a pass of its row block takes (16, 8, 4); the
      backward of kernels 5 and 6 at the motion stage's training call (B=4,
      48x96 queries) against their plain backward, timed, with their
      bounds: kernel 5's (tensor-core products) twice for equal bits;
@@ -389,20 +393,52 @@ def splat_check(label, X, intr, h, w, radius, feat):
 
 def tile_warp_backward_check(hyp3, fl, fr, gout):
     """Kernel 1's backward at the full-res call against its plain version
-    (the VJP of tile_warping, scatter by index_add_)."""
+    (the VJP of tile_warping, scatter by index_add_), on the random field
+    and on a smooth one (one disparity, no slant: neighbouring pixels share
+    their taps); dhyp3 and dfea_l equal in bits on two launches; the time
+    at channel groups of 16, 8 and 4 channels a pass."""
     import torch
     from codd_torch.ops import tile_warp
-    got = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
-    ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
-    torch.cuda.synchronize()
-    # the same floor() and sign decisions; dhyp3 sums 16 pixels x 16
-    # channels x 3 offsets in another order, dfea_r up to 12 terms a value
-    # by atomics in a run-dependent order: 1e-5 of each output's largest
-    # value and 1e-5 relative
-    err = max(_compare(f"tile_warp_cost_backward {n}", a, b,
-                       1e-5 * float(b.abs().max()), 1e-5)
-              for n, a, b in zip(("dhyp3", "dfea_l", "dfea_r"), got, ref))
+    smooth = torch.zeros_like(hyp3)
+    smooth[..., 0] = 20.3
+    err = 0.0
+    for label, h in (("random", hyp3), ("smooth", smooth)):
+        got = tile_warp.tile_warp_cost_backward(gout, h, fl, fr)
+        ref = tile_warp.tile_warp_cost_backward_plain(gout, h, fl, fr)
+        again = tile_warp.tile_warp_cost_backward(gout, h, fl, fr)
+        torch.cuda.synchronize()
+        # the same floor() and sign decisions; dhyp3 sums 16 pixels x 16
+        # channels x 3 offsets in another order, dfea_r gathers up to 12
+        # terms a value in an order that the sort's ranks (integer atomics)
+        # vary from run to run: 1e-5 of each output's largest value and
+        # 1e-5 relative
+        err = max(err, *(_compare(f"tile_warp_cost_backward {label} {n}", a,
+                                  b, 1e-5 * float(b.abs().max()), 1e-5)
+                         for n, a, b in zip(("dhyp3", "dfea_l", "dfea_r"),
+                                            got, ref)))
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            fail(f"tile_warp_cost_backward {label}: dhyp3 or dfea_l differ "
+                 "between two launches")
+        if not torch.equal(got[1], ref[1]):
+            fail(f"tile_warp_cost_backward {label}: dfea_l is not the plain "
+                 "backward's bits")
     npx, C = fl.shape[1] * fl.shape[2], fl.shape[3]
+    ms_smooth = cuda_ms(lambda: tile_warp.tile_warp_cost_backward(
+        gout, smooth, fl, fr))
+    by_group, budget = {}, tile_warp.BWD_ROW_BYTES
+    try:
+        for cg in (16, 8, 4):
+            tile_warp.BWD_ROW_BYTES = fl.shape[2] * cg
+            by_group[cg] = cuda_ms(lambda: tile_warp.tile_warp_cost_backward(
+                gout, hyp3, fl, fr))
+    finally:
+        tile_warp.BWD_ROW_BYTES = budget
+    print("  tile_warp_cost_backward: smooth field "
+          f"{ms_smooth:.4f} ms; by channel group (random field) "
+          + ", ".join(f"{k}: {v:.4f} ms" for k, v in by_group.items())
+          + f" (the wrapper takes "
+          f"{tile_warp.backward_channel_group(fl.shape[2], C)})")
     return dict(
         name="tile_warp_cost_backward", source="codd_torch/csrc/tile_warp.cu",
         replaces="codd_tpu/models/stereo/hitnet.py:260", max_abs_err=err,
@@ -410,6 +446,7 @@ def tile_warp_backward_check(hyp3, fl, fr, gout):
             gout, hyp3, fl, fr)),
         plain_ms=cuda_ms(lambda: tile_warp.tile_warp_cost_backward_plain(
             gout, hyp3, fl, fr)),
+        ms_smooth=ms_smooth,
         # read hyp3, fea_l, fea_r, g once; write dhyp3, dfea_l, dfea_r once
         bytes=4 * (2 * hyp3.numel() + 4 * npx * C + gout.numel()),
         # per pixel, channel and offset: lerp, sign, dfea_l, two taps and
@@ -681,6 +718,7 @@ def kernel_checks(dev):
         ulps, unequal = float((diff / ulp).max()), float(
             (diff > 0).float().mean())
         row[f"max_abs_err_bf16_{form}"] = float(diff.max())
+        row[f"unequal_share_bf16_{form}"] = unequal
         row[f"ms_bf16_{form}"] = cuda_ms(
             lambda: tile_warp.tile_warp_cost(*b16, form))
         row[f"plain_ms_bf16_{form}"] = cuda_ms(
@@ -1961,9 +1999,11 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "ms_quarter", "bound_ms_quarter", "launches_bf16",
-            "max_abs_err_bf16_exact", "ms_bf16_exact", "plain_ms_bf16_exact",
-            "max_abs_err_bf16_pallas", "ms_bf16_pallas",
-            "plain_ms_bf16_pallas", "bound_ms_bf16")
+            "max_abs_err_bf16_exact", "unequal_share_bf16_exact",
+            "ms_bf16_exact", "plain_ms_bf16_exact", "max_abs_err_bf16_pallas",
+            "unequal_share_bf16_pallas", "ms_bf16_pallas",
+            "plain_ms_bf16_pallas", "bound_ms_bf16", "ms_smooth",
+            "ms_scattered", "one_chunk_share", "global_adds")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

@@ -33,6 +33,9 @@ Under bf16 features the function has two forms, as in ``codd_tpu``:
   [0, W - 1], computed exactly), and the channel sum of the L1 costs runs
   in f32 with one rounding, as ``jnp.sum`` upcasts.  On the CPU this is
   bit for bit ``jax.jit(tile_warping)`` (``tests/test_torch_bf16.py``).
+  The kernel runs each channel's lerp and ``|l - w|`` as native bf16x2
+  operations, which give the same bits as the f32 step rounded to bf16
+  (``tests/test_torch_tile_warp.py::test_bf16_ops_round_once``).
 * ``"pallas"``: the f32 body on the widened inputs (exact), only the
   output rounded to bf16, as ``ops/pallas/tile_warp.py`` computes.
 
@@ -47,6 +50,14 @@ a second kernel of ``csrc/tile_warp.cu`` for CUDA tensors, and
 scatter to ``fea_r`` by ``index_add_``) for CPU tensors.  It computes the
 VJP of ``tile_warping``: ``floor()`` has no gradient and ``|x|``'s is
 ``sign(x)``, 0 at 0, as in JAX.  bf16 training raises.
+
+The backward kernel gives each image row one block (a cluster of four per
+tile row): a pixel's taps lie on its own row, so the block owns the row of
+``dfea_r``.  It sorts the row's pixels by their first tap; then, for a
+group of ``backward_channel_group`` channels at a time, each pixel packs
+the signs of its L1 terms into shared memory and each column rebuilds and
+sums the cotangents of the taps that read it and stores them once: no
+atomics on floats, no zero fill.
 """
 
 from __future__ import annotations
@@ -60,13 +71,33 @@ from .warp import meshgrid_xy
 
 __all__ = ["tile_warp_cost", "tile_warp_cost_plain", "TileWarpCost",
            "tile_warp_cost_backward", "tile_warp_cost_backward_plain",
-           "FORMS", "VARIANT_FORMS"]
+           "backward_channel_group", "BWD_ROW_BYTES", "FORMS",
+           "VARIANT_FORMS"]
 
 # the launcher's form codes: f32, and the two bf16 forms
 FORMS = {"f32": 0, "exact": 1, "pallas": 2}
 # runtime.tile_warp_variant -> the bf16 form it selects
 VARIANT_FORMS = {"auto": "exact", "exact": "exact", "tilewin": "exact",
                  "grouped": "exact", "pallas": "pallas"}
+
+
+# the shared memory (bytes) the backward's row block may give the packed
+# signs of one channel group, W x cg bytes (2 bits a channel and offset):
+# every channel in one group at the main path's widths (1280 x 16: 20 KB)
+BWD_ROW_BYTES = 32 * 1024
+
+
+def backward_channel_group(W: int, C: int, budget: int = None) -> int:
+    """The channels a pass of the backward kernel's row block takes: the
+    largest multiple of 4 that divides C whose W x cg bytes of packed signs
+    fit ``budget`` (default ``BWD_ROW_BYTES``)."""
+    budget = BWD_ROW_BYTES if budget is None else budget
+    fits = [cg for cg in range(4, C + 1, 4) if C % cg == 0 and W * cg <= budget]
+    if not fits:
+        raise ValueError(f"tile_warp_cost_backward: a row of width {W} "
+                         f"does not fit {budget} bytes of shared memory "
+                         "four channels at a time")
+    return fits[-1]
 
 
 def _resolve_form(dtype, form: str) -> str:
@@ -223,13 +254,14 @@ def tile_warp_cost_backward(g, hyp3, fea_l, fea_r):
     _check_shapes("tile_warp_cost_backward", hyp3, fea_l, fea_r)
     if tuple(g.shape) != (B, H // 4, W // 4, 48):
         raise ValueError(f"tile_warp_cost_backward: g {tuple(g.shape)}")
+    cg = backward_channel_group(W, C)
     dhyp3 = torch.empty_like(hyp3)
     dfea_l = torch.empty_like(fea_l)
-    dfea_r = torch.zeros_like(fea_r)
+    dfea_r = torch.empty_like(fea_r)
     kernels.launch("tile_warp_cost_backward", hyp3.data_ptr(),
                    fea_l.data_ptr(), fea_r.data_ptr(), g.data_ptr(),
                    dhyp3.data_ptr(), dfea_l.data_ptr(), dfea_r.data_ptr(),
-                   B, H, W, C, kernels.stream_ptr(fea_r.device))
+                   B, H, W, C, cg, kernels.stream_ptr(fea_r.device))
     return dhyp3, dfea_l, dfea_r
 
 

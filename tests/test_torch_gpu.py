@@ -68,7 +68,8 @@ def test_tile_warp_kernel_bf16_forms(dev, form):
     form's bf16 x grid rounds above 512 and 1024; taps past both edges)
     against their plain versions on the card: within 1 bf16 ulp (the
     kernel sums a pixel's channels in order, PyTorch in its own order,
-    both in f32 before the one rounding), almost all equal."""
+    both in f32 before the one rounding), almost all equal; the share off
+    the plain version's bits is printed (``-s``)."""
     g = _g()
     B, H, W, C = 2, 8, 1280, 16
     fl, fr = (torch.randn(B, H, W, C, generator=g).to(dev, torch.bfloat16)
@@ -82,6 +83,8 @@ def test_tile_warp_kernel_bf16_forms(dev, form):
     ref = tile_warp.tile_warp_cost_plain(hyp3, fl, fr, form)
     assert got.dtype == ref.dtype == torch.bfloat16
     u = _bf16_ulps(got, ref)
+    print(f"tile_warp_cost bf16 {form}: {u.max().item():.2f} ulps, unequal "
+          f"share {(u > 0).float().mean().item():.2e}")
     assert u.max().item() <= 1.0 and (u > 0).float().mean().item() < 1e-2
     with pytest.raises(TypeError):
         tile_warp.tile_warp_cost(hyp3.float(), fl, fr, form)
@@ -460,9 +463,11 @@ def test_eval_path_goes_through_kernels_5_and_6(dev):
     assert metrics["count"] > 0
 
 
-def _tile_warp_inputs(dev, B, H, W, C):
+def _tile_warp_inputs(dev, B, H, W, C, field="random"):
     """Disparities from -20 to W + 20 and slants in [-2, 2]: taps past
-    both edges of the image."""
+    both edges of the image.  ``"smooth"``: one disparity (20.3) and no
+    slant, so that neighbouring pixels share their taps; ``"pile"``: every
+    pixel's taps on the same 4 columns (x0 = 100), one sort bin."""
     g = _g()
     fl, fr = (torch.randn(B, H, W, C, generator=g).to(dev) for _ in range(2))
     hyp3 = torch.stack([torch.rand(B, H // 4, W // 4, generator=g)
@@ -470,19 +475,40 @@ def _tile_warp_inputs(dev, B, H, W, C):
                         torch.rand(B, H // 4, W // 4, generator=g) * 4 - 2,
                         torch.rand(B, H // 4, W // 4, generator=g) * 4 - 2],
                        -1).to(dev)
+    if field != "random":
+        hyp3 = torch.zeros_like(hyp3)
+        hyp3[..., 0] = 20.3
+    if field == "pile":
+        # local_d = d + (j - 1.5) dx with dx = 1: x - local_d = 100.25
+        hyp3[..., 0] = (torch.arange(W // 4, device=dev) * 4.0 + 1.5
+                        - 100.25)
+        hyp3[..., 1] = 1.0
     gout = torch.randn(B, H // 4, W // 4, 48, generator=g).to(dev)
     return hyp3, fl, fr, gout
 
 
-@pytest.mark.parametrize("B,H,W,C", [(2, 16, 64, 16), (1, 32, 1280, 16),
-                                     (3, 8, 40, 24)])
-def test_tile_warp_backward_kernel(dev, B, H, W, C):
+@pytest.mark.parametrize("B,H,W,C,field", [
+    (2, 16, 64, 16, "random"), (1, 32, 1280, 16, "random"),
+    (3, 8, 40, 24, "random"),
+    (1, 8, 4096, 16, "random"),  # two channel groups of 8
+    (1, 8, 2048, 24, "random"),  # two groups of 12
+    (1, 8, 1280, 24, "random"),  # the coarse levels' C at full width
+    (2, 8, 1280, 32, "random"),
+    (2, 16, 96, 32, "random"),
+    (1, 12, 64, 24, "random"),   # B*H/4 odd: 3 clusters of 4 row blocks
+    (1, 32, 1280, 16, "smooth"),  # shared taps
+    (3, 4, 768, 16, "smooth"),
+    (1, 8, 256, 16, "pile"),     # a whole row in one sort bin
+])
+def test_tile_warp_backward_kernel(dev, B, H, W, C, field):
     """Kernel 1's backward against its plain version.  The same floor()
     and sign decisions by construction; dhyp3 sums a tile's 16 pixels x C
-    channels x 3 offsets in another order, dfea_r adds up to 12 terms a
-    value by atomics in a run-dependent order: 1e-5 of each output's
-    largest value, 1e-5 relative.  dfea_l sums in the same order: equal."""
-    hyp3, fl, fr, gout = _tile_warp_inputs(dev, B, H, W, C)
+    channels x 3 offsets in another order, dfea_r gathers up to 12 terms
+    a value in an order that the row's sort varies from run to run: 1e-5
+    of each output's largest value, 1e-5 relative.  dfea_l sums in the same
+    order: equal.  A second launch gives dfea_l and dhyp3 the same bits
+    (dhyp3 in a fixed order across the cluster's rows)."""
+    hyp3, fl, fr, gout = _tile_warp_inputs(dev, B, H, W, C, field)
     got = _launched("tile_warp_cost_backward",
                     lambda: tile_warp.tile_warp_cost_backward(gout, hyp3, fl,
                                                               fr))
@@ -492,6 +518,8 @@ def test_tile_warp_backward_kernel(dev, B, H, W, C):
         torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()),
                                    rtol=1e-5)
     assert torch.equal(got[1], ref[1])
+    again = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 def test_tile_warp_autograd_launches_both_kernels(dev):
