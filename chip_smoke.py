@@ -39,7 +39,14 @@ Phases, in order:
      on the smooth and the scattered field, df1 twice for equal bits, the
      share of blocks whose box is one chunk and the global atomics it
      adds into the levels' gradients (the row's ``one_chunk_share``,
-     ``global_adds`` and ``ms_scattered``);
+     ``global_adds`` and ``ms_scattered``); the lookup's coordinate
+     gradient at the same call (kernel 6 recomputing its tap dots, four
+     levels a block) against its plain version on both fields, twice for
+     equal bits (the row's ``ms_scattered``); kernel 4's backward at the
+     joint stage's two splat calls (one image of B=4: full res 384x768,
+     C=6, r=1, the row's time; quarter res 96x192, C=32, r=2, the row's
+     ``ms_quarter``) on random cotangents against its plain backward,
+     twice for equal bits;
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -66,14 +73,25 @@ Phases, in order:
      and motion frozen, OneCycle 2e-4), then the motion stage
      (configs/models/stereo_motion.py: stereo frozen, no fusion, RAFT-3D
      trained by motion_loss; OneCycle 2e-4, on the panning plane, whose
-     flow and disparity change are known in closed form); each step's
-     loss, grad_norm, ms (CUDA events) and the stage's peak memory and
+     flow and disparity change are known in closed form), then the joint
+     stage (configs/models/codd.py with the stereo frozen: RAFT-3D and
+     the fusion trained together, the splats differentiated by kernel 4's
+     backward; OneCycle 2e-4, the motion stage's batches), then the full
+     joint stage (configs/models/codd.py as it stands, nothing frozen,
+     schedule_stereo's Adam 4e-4 MultiGamma, clip 1.0, as
+     configs/training_config.py composes them: kernel 1's backward and
+     the correlation lookup's coordinate gradient too); each step's loss,
+     grad_norm, ms (CUDA events) and the stage's peak memory and
      launches.  Fails on a non-finite loss, a stereo stage without kernel
      1's backward, a fusion stage that launches a backward or misses one
      of kernels 1-4, a motion stage whose launches a step are not kernels
      5 and 6 32 times forward (each GN iteration is recomputed in the
      backward) and 16 times backward, kernel 1 18 times, kernel 4 twice an
-     image and kernels 2 and 3 never, a frozen parameter that moved,
+     image, its backward, kernels 2 and 3 never, a joint stage whose
+     launches a step are not the motion stage's with kernel 4's backward
+     twice an image, a full joint stage whose launches a step are not the
+     joint stage's with kernel 1's backward 18 times and the coordinate
+     gradient 16 times, a frozen parameter that moved,
      kernel 1's backward off its plain version on one stereo step's own
      calls, stereo gradients with the kernels beyond 1e-5 of those with
      kernel 1's plain backward alone or beyond 1e-3 of those with its
@@ -81,9 +99,11 @@ Phases, in order:
      plain version on one motion step's own 16 calls, motion gradients
      beyond 1e-3 of those with both backward kernels swapped for their
      plain versions (printed beside the run-to-run difference of the
-     kernels' own gradients), or joint
-     training (trainable RAFT-3D and Fusion) that does not raise naming
-     ROADMAP item 12b-ii.
+     kernels' own gradients), kernel 4's backward off its plain version
+     on one joint step's own 8 calls or the coordinate gradient on one
+     full joint step's own 16, joint gradients beyond 1e-3 of those with
+     these two swapped for their plain versions, a stereo gradient in the
+     joint stage, or none in the full joint stage.
   bench: ``codd_torch/tools/bench.py`` in this process at 384x1280, a few
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
@@ -92,7 +112,11 @@ Phases, in order:
      and of the default one in bf16, under torch.profiler, split by
      category into chiprun_out/profile_step*.txt; both configurations
      streamed in turns; with the train phase, one more training step of
-     each stage into chiprun_out/profile_train_{stereo,fusion,motion}.txt.
+     each stage into chiprun_out/profile_train_{stereo,fusion,motion,joint,
+     joint_full}.txt, and one batch of the motion and the joint stage run
+     twice in several configurations (each backward kernel alone,
+     deterministic cuDNN and ATen), the gradients' run-to-run difference
+     traced.
 
 Any failure exits non-zero.  The line before the last holds the kernel
 table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -116,6 +140,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 in the tensor cores
 H, W = 384, 1280
+# kernel 4's backward against its plain version: the plain version's
+# index_add_ adds by float atomics, which flush subnormals to zero on the
+# card, so a sum of up to K = 16 products may lose 16 x 2^-126
+SPLAT_FLOOR = 2.0 ** -122
 
 
 def fail(msg: str) -> None:
@@ -391,6 +419,68 @@ def splat_check(label, X, intr, h, w, radius, feat):
     return dict(res, plain_ms=cuda_ms(lambda: splat.composite_plain(*args)))
 
 
+def splat_backward_check(label, X, intr, h, w, radius, feat, g, gz, ppp=8):
+    """Kernel 4's backward at one training call on seeded points and random
+    cotangents, against ``composite_backward_plain`` on the same saved
+    forward: each element within 1e-5 of its sum of |terms|
+    (``composite_backward_terms``: f32 sums against the plain version's f64
+    transmittance and suffix sums, a transmittance T counted (1 + |log T|)
+    times as the kernel sums log T in f32, dalpha's suffix part over
+    1 - alpha) plus 2^-122 (``SPLAT_FLOOR``: the plain version's atomics
+    flush subnormals);
+    two launches equal in bits; its time, the plain version's, and the
+    bytes and operations the function needs on this input: per run
+    fragment its 8-byte id, per fragment its alpha (read) and dalpha
+    (written), per pixel its offset and cotangents, the feature rows of
+    the points composited, dfeat and dz; per composited fragment its dot
+    and dfeat's products (4C) and ~12 scalar operations."""
+    import torch
+    from codd_torch.ops import splat
+    order, offsets, alpha, Z = splat.sort_fragments(X, intr, h, w, radius)
+    args = (order, offsets, alpha, feat, g, gz, ppp)
+    got = splat.composite_backward(*args)
+    ref = splat.composite_backward_plain(*args)
+    terms = splat.composite_backward_terms(*args)
+    again = splat.composite_backward(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"splat_composite_backward ({label}): two launches differ in "
+             "bits (its sums have a fixed order)")
+    err, worst = 0.0, 0.0
+    for name, a, b, t in zip(("dfeat", "dalpha", "dz"), got, ref, terms):
+        if not torch.isfinite(a).all():
+            fail(f"splat_composite_backward ({label}): non-finite {name}")
+        e = (a - b).abs()
+        share = float((e / (1e-5 * t + SPLAT_FLOOR)).max())
+        if share > 1.0:
+            fail(f"splat_composite_backward ({label}): {name} disagrees with "
+                 f"its plain backward ({share:.3f} of its allowance)")
+        err = max(err, float(e.max()))
+        worst = max(worst, share)
+    N, C = feat.shape
+    npix, M = h * w, order.numel()
+    used = (offsets[1:] - offsets[:-1]).clamp(max=ppp)
+    Mr, ncomp = int(offsets[-1]), int(used.sum())
+    pid = torch.repeat_interleave(torch.arange(npix, device=X.device), used)
+    rank = torch.arange(ncomp, device=X.device) - (torch.cumsum(used, 0)
+                                                     - used)[pid]
+    rows = torch.unique(order[offsets[:-1][pid] + rank] % N).numel()
+    nbytes = (8 * Mr + 8 * M + 8 * (npix + 1) + 4 * npix * (C + 1)
+              + 4 * C * rows + 4 * N * (C + 1))
+    flops = float(ncomp) * (4 * C + 12)
+    ms = cuda_ms(lambda: splat.composite_backward(*args))
+    plain_ms = cuda_ms(lambda: splat.composite_backward_plain(*args))
+    lb, by = bound_ms(nbytes, flops)
+    print(f"  splat_composite_backward ({label}): {N} points, {M} fragments "
+          f"({Mr} in runs, {ncomp} composited), C={C}: {ms:.4f} ms (bound "
+          f"{lb:.4f} ms by {by}, {ms / lb:.1f}x), plain {plain_ms:.4f} ms; "
+          f"worst |err| {worst:.3f} of its allowance (1e-5 of the sum of "
+          f"|terms| + 2^-122), max |err| "
+          f"{err:.3e}; equal in bits on two launches", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+                bound_ms=lb)
+
+
 def tile_warp_backward_check(hyp3, fl, fr, gout):
     """Kernel 1's backward at the full-res call against its plain version
     (the VJP of tile_warping, scatter by index_add_), on the random field
@@ -664,6 +754,66 @@ def corr_patch_backward_check(pyr, fields, g):
         flops=float(valid * 64 * (8 + 4 * 128)), library_ms=None)
 
 
+def corr_coords_backward_check(pyr, fields, g):
+    """The lookup's coordinate gradient at the motion stage's training
+    call (B=4, 48x96 queries, four levels) against its plain version on a
+    smooth and a scattered field: each element within 1e-5 of its sum of
+    |terms| (``corr_patch_lookup_coords_backward_terms``: the tap dots are
+    f32 sums of 128 products in another order, and the derivative takes
+    their differences); two launches equal in bits; its time (the smooth
+    field's is the row's), the plain version's, and the bound: f1, the
+    levels, g and the coordinates read once, the gradient written once;
+    the tap dots of every unmasked query-level (bf16 products, at the
+    tensor cores' peak as row 6 counts them) and the epilogue's 49 x 12
+    f32 operations."""
+    import torch
+    from codd_torch.ops import corr
+    f1, levels = pyr["f1"], pyr["levels"]
+    ms, err = {}, {}
+    for fname, coords in fields.items():
+        args = (g, f1, levels, coords)
+        got = corr.corr_patch_lookup_coords_backward(*args)
+        ref = corr.corr_patch_lookup_coords_backward_plain(*args)
+        terms = corr.corr_patch_lookup_coords_backward_terms(*args)
+        again = corr.corr_patch_lookup_coords_backward(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail("corr_patch_lookup_coords_backward: two launches differ in "
+                 "bits (its sums have a fixed order)")
+        if not torch.isfinite(got).all():
+            fail("corr_patch_lookup_coords_backward: non-finite output")
+        e = (got - ref).abs()
+        share = float((e / (1e-5 * terms).clamp(min=1e-30)).max())
+        if share > 1.0:
+            fail(f"corr_patch_lookup_coords_backward ({fname}): disagrees "
+                 f"with its plain version ({share:.3f} of its allowance)")
+        err[fname] = float(e.max())
+        ms[fname] = cuda_ms(lambda: corr.corr_patch_lookup_coords_backward(
+            *args))
+        print(f"  corr_patch_lookup_coords_backward ({fname}): "
+              f"{ms[fname]:.4f} ms; worst |err| {share:.3f} of its allowance "
+              f"(1e-5 of the sum of |terms|), max |err| {err[fname]:.3e}, "
+              f"max |ref| {float(ref.abs().max()):.3e}; equal in bits on two "
+              "launches", flush=True)
+    coords = fields["smooth"]
+    valid = 0
+    for i, l in enumerate(levels):
+        *_, vq = corr._window_starts(coords / 2 ** i, l.shape[1] - 14,
+                                     l.shape[2] - 14, 3)
+        valid += int(vq.sum())
+    return dict(
+        name="corr_patch_lookup_coords_backward",
+        source="codd_torch/csrc/corr_patch.cu",
+        replaces="codd_tpu/ops/corr.py:208", max_abs_err=max(err.values()),
+        ms=ms["smooth"], ms_scattered=ms["scattered"],
+        plain_ms=cuda_ms(lambda: corr.corr_patch_lookup_coords_backward_plain(
+            g, f1, levels, coords)),
+        bytes=float(2 * f1.numel() + 2 * sum(l.numel() for l in levels)
+                    + 4 * g.numel() + 4 * coords.numel() * 2),
+        flops=float(valid * 64 * 256 + coords[..., 0].numel() * len(levels)
+                    * 49 * 12), peak=BF16_FLOPS_PER_S, library_ms=None)
+
+
 def kernel_checks(dev):
     import torch
     from codd_torch.ops import corr, gn, se3, splat, tile_warp
@@ -857,8 +1007,36 @@ def kernel_checks(dev):
     tfields = {k: torch.cat([v] * tb).contiguous() for k, v in corr_fields(
         randn(1, th, tw, 2, scale=6.0), th, tw, dev).items()}
     tpyr = corr.build_corr_pyramid(tf1, tf2, 4, 3, impl="patch")
-    rows.append(corr_patch_backward_check(tpyr, tfields,
-                                          randn(tb, th, tw, 4 * 49)))
+    tg = randn(tb, th, tw, 4 * 49)
+    rows.append(corr_patch_backward_check(tpyr, tfields, tg))
+    rows.append(corr_coords_backward_check(tpyr, tfields, tg))
+
+    # -- kernel 4's backward at the joint stage's two training calls, one
+    # image of B=4 each: full res 384x768 (C=6, r=1; the row's time) and
+    # quarter res 96x192 (C=32, r=2), built as the motion module builds
+    # them, SceneFlow's intrinsics --
+    intr_t = torch.tensor([[1050.0, 1050.0, 480.0, 270.0]], device=dev)
+    depth = rand(1, TRAIN_H, TRAIN_W, lo=2.0, hi=60.0)
+    Ts = se3.exp(randn(1, TRAIN_H, TRAIN_W, 6, scale=0.01))
+    X2 = se3.act(Ts, inv_project(depth, intr_t)).reshape(-1, 3)
+    hq, wq = TRAIN_H // 4, TRAIN_W // 4
+    X2q = se3.act(Ts[:, 1::4, 1::4], inv_project(depth[:, 1::4, 1::4],
+                                                 intr_t / 4)).reshape(-1, 3)
+    bfull = splat_backward_check(
+        f"full res {TRAIN_H}x{TRAIN_W}, C=6, r=1", X2, intr_t[0], TRAIN_H,
+        TRAIN_W, 1.0, randn(TRAIN_H * TRAIN_W, 6),
+        randn(TRAIN_H * TRAIN_W, 6), randn(TRAIN_H * TRAIN_W))
+    bquarter = splat_backward_check(
+        f"quarter res {hq}x{wq}, C=32, r=2", X2q, intr_t[0] / 4, hq, wq, 2.0,
+        randn(hq * wq, 32), randn(hq * wq, 32), randn(hq * wq))
+    rows.append(dict(
+        name="splat_composite_backward",
+        source="codd_torch/csrc/splat_composite.cu",
+        replaces="codd_tpu/ops/splat.py:76",
+        max_abs_err=max(bfull["err"], bquarter["err"]), ms=bfull["ms"],
+        plain_ms=bfull["plain_ms"], bytes=bfull["bytes"],
+        flops=bfull["flops"], library_ms=None, ms_quarter=bquarter["ms"],
+        bound_ms_quarter=bquarter["bound_ms"]))
 
     # -- kernel 4: splat compositor at both call sites of the motion module:
     # full res (C=6, r=1; the row's time and bound) and quarter res (C=32,
@@ -1035,12 +1213,9 @@ def main_path(dev, steps: int):
         t_first, step_ms, outs = stream(model, intr, seq)
     launches = kernels.counts()
 
-    expect = {"tile_warp_cost": 9 * (steps + 1), "corr_lookup": 16 * steps,
-              "gn_fused_solve": 16 * steps, "splat_composite": 2 * steps,
-              "gn_window_aggregate": 0, "corr_patch_lookup": 0,
-              "tile_warp_cost_backward": 0,
-              "gn_window_aggregate_backward": 0,
-              "corr_patch_lookup_backward": 0}
+    expect = dict(dict.fromkeys(kernels.KERNELS, 0),
+                  tile_warp_cost=9 * (steps + 1), corr_lookup=16 * steps,
+                  gn_fused_solve=16 * steps, splat_composite=2 * steps)
     print(f"  launches {launches} (expected {expect})")
     if launches != expect:
         fail(f"launch counts {launches} != expected {expect}")
@@ -1175,13 +1350,10 @@ def eval_phase(dev, steps, default_ms):
     counts over the two sequences.  ``default_ms`` is the main path's
     median ms/frame over ``steps`` steps, or None."""
     import torch
+    from codd_torch.ops import kernels
     esteps = EVAL_FRAMES - 1
     tile = 9 * EVAL_FRAMES
-    zero = {"corr_lookup": 0, "gn_fused_solve": 0, "gn_window_aggregate": 0,
-            "corr_patch_lookup": 0, "splat_composite": 0,
-            "tile_warp_cost_backward": 0,
-            "gn_window_aggregate_backward": 0,
-            "corr_patch_lookup_backward": 0}
+    zero = dict.fromkeys(kernels.KERNELS, 0)
     model = build_model(runtime=EVAL_RUNTIME)
     launches, _ = _eval_run(
         "pallas_window + patch", model, 2,
@@ -1313,31 +1485,76 @@ def motion_batches(n: int, dev, seed: int = 11):
 
 
 @contextlib.contextmanager
-def motion_backwards(gn_bwd=None, corr_bwd=None):
-    """The backward of kernels 5 and 6 as the model's Functions call them,
-    replaced by ``gn_bwd`` / ``corr_bwd`` where given (their plain
-    versions, say); yields the inputs of every call, by kernel."""
-    from codd_torch.ops import corr, gn
-    real = (gn.gn_window_aggregate_backward, corr.corr_patch_lookup_backward)
-    kept = {"gn": [], "corr": []}
+def recorded(module, name, replacement=None):
+    """``module.name`` as the model calls it, replaced by ``replacement``
+    where given (a plain version, say); yields the inputs of every call."""
+    real, kept = getattr(module, name), []
 
-    def gn_keep(*args):
-        kept["gn"].append(args)
-        return (gn_bwd or real[0])(*args)
+    def keep(*args):
+        kept.append(args)
+        return (replacement or real)(*args)
 
-    def corr_keep(*args):
-        kept["corr"].append(args)
-        return (corr_bwd or real[1])(*args)
-
-    gn.gn_window_aggregate_backward = gn_keep
-    corr.corr_patch_lookup_backward = corr_keep
+    setattr(module, name, keep)
     try:
         yield kept
     finally:
-        gn.gn_window_aggregate_backward, corr.corr_patch_lookup_backward = real
+        setattr(module, name, real)
 
 
-def motion_grad_checks(model, lc, batch):
+@contextlib.contextmanager
+def motion_backwards(gn_bwd=None, corr_bwd=None):
+    """The backward of kernels 5 and 6 as the model's Functions call them,
+    replaced by ``gn_bwd`` / ``corr_bwd`` where given; yields the inputs
+    of every call, by kernel."""
+    from codd_torch.ops import corr, gn
+    with recorded(gn, "gn_window_aggregate_backward", gn_bwd) as g, \
+            recorded(corr, "corr_patch_lookup_backward", corr_bwd) as c:
+        yield {"gn": g, "corr": c}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and ATen's (``index_add_`` and
+    the scatters sorted instead of atomic; warnings only where an op has
+    none)."""
+    import warnings
+    import torch
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            old[:2]
+        torch.use_deterministic_algorithms(old[2], warn_only=old[3])
+
+
+def run_to_run(label, model, lc, batch, cases):
+    """Traced, not gated: each case's one-batch gradients twice, and how
+    far apart the two runs are (the worst tensor's |diff| / |norm|, a norm
+    counted as at least 1e-5 of the largest, and the worst 3 tensors).
+    ``cases``: (name, a function returning the case's context)."""
+    print(f"  {label}, one batch run twice in each configuration "
+          "(run-to-run, traced):", flush=True)
+    res = {}
+    for name, ctx in cases:
+        runs = []
+        for _ in range(2):
+            with ctx():
+                runs.append(stage_grads(model, lc, batch)[1])
+        print(f"    {name}:", flush=True)
+        res[name] = grads_apart(runs[0], runs[1], 1e-5, show=3)[0]
+        print(f"      worst {res[name]:.2e}", flush=True)
+    return res
+
+
+def motion_grad_checks(model, lc, batch, trace=False):
     """One batch of the motion stage, gradients only, no update.  Gated:
     each of the step's 16 calls of both backward kernels against its plain
     backward on the same inputs (phase 3's tolerances); the whole batch's
@@ -1348,7 +1565,9 @@ def motion_grad_checks(model, lc, batch):
     head's bias, which every logit difference cancels) are f32 noise of
     ~1e-9 against a largest norm of ~10, so a norm is taken as at least
     1e-5 of the largest.  Reported: the same run with the kernels again
-    (the atomics' run-to-run order)."""
+    (the atomics' run-to-run order); with ``trace``, ``run_to_run`` in six
+    configurations (each backward kernel alone, deterministic cuDNN and
+    ATen)."""
     import torch
     from codd_torch.ops import corr, gn
     with motion_backwards() as kept:
@@ -1401,6 +1620,133 @@ def motion_grad_checks(model, lc, batch):
              "with those of their plain backward")
     if any(k.startswith("stereo.") for k in gk):
         fail("motion stage: a frozen stereo parameter has a gradient")
+    if not trace:
+        return
+    gp, cp = gn.gn_window_aggregate_backward_plain, \
+        corr.corr_patch_lookup_backward_plain
+
+    def both(gb, cb, det):
+        @contextlib.contextmanager
+        def ctx():
+            with motion_backwards(gb, cb), (deterministic() if det else
+                                            contextlib.nullcontext()):
+                yield
+        return ctx
+
+    run_to_run("motion stage", model, lc, batch, [
+        ("both backward kernels", both(None, None, False)),
+        ("both backward kernels, deterministic cuDNN and ATen",
+         both(None, None, True)),
+        ("kernel 5's backward alone (6b plain), deterministic",
+         both(None, cp, True)),
+        ("kernel 6's backward alone (5b plain), deterministic",
+         both(gp, None, True)),
+        ("both plain, deterministic", both(gp, cp, True)),
+        ("both plain", both(gp, cp, False))])
+
+
+def joint_grad_checks(label, model, lc, batch, stereo_frozen=True,
+                      trace=False):
+    """One batch of a joint stage, gradients only, no update.  Gated:
+    kernel 4's backward on each of the step's 8 calls (two splats an
+    image) against its plain backward (phase 3's tolerance), and with the
+    stereo trained the coordinate gradient on each of its 16 calls (one a
+    GN iteration) against its plain version; the whole batch's gradients
+    with those backward kernels swapped for their plain versions (every
+    other kernel kept): each parameter's gradient within 1e-3 of its norm
+    (a norm counted as at least 1e-5 of the largest, as in the motion
+    stage), the loss equal to 1e-6; with the stereo frozen, no stereo
+    parameter has a gradient and the coordinate gradient never runs.
+    With ``trace``: run to run, with and without deterministic cuDNN and
+    ATen, and with kernel 4's backward the only backward kernel."""
+    import torch
+    from codd_torch.ops import corr, gn, splat
+    with recorded(splat, "composite_backward") as kept, \
+            recorded(corr, "corr_patch_lookup_coords_backward") as kept_c:
+        lk, gk, _ = stage_grads(model, lc, batch)
+    if len(kept) != 2 * TRAIN_B:
+        fail(f"{label}: {len(kept)} calls of kernel 4's backward in one "
+             f"batch, not {2 * TRAIN_B}")
+    want_c = 0 if stereo_frozen else model.motion.raft3d.iters
+    if len(kept_c) != want_c:
+        fail(f"{label}: {len(kept_c)} calls of the coordinate gradient in "
+             f"one batch, not {want_c}")
+    worst_c = 0.0
+    for i, args in enumerate(kept_c):
+        with torch.no_grad():
+            got = corr.corr_patch_lookup_coords_backward(*args)
+            ref = corr.corr_patch_lookup_coords_backward_plain(*args)
+            terms = corr.corr_patch_lookup_coords_backward_terms(*args)
+        share = float(((got - ref).abs() / (1e-5 * terms).clamp(min=1e-30))
+                      .max())
+        if not torch.isfinite(got).all() or share > 1.0:
+            fail(f"{label}: the coordinate gradient of call {i} disagrees "
+                 f"with its plain version ({share:.3f} of its allowance)")
+        worst_c = max(worst_c, share)
+    if kept_c:
+        print(f"  {label}, one batch: the coordinate gradient on the step's "
+              f"{len(kept_c)} calls against its plain version on the same "
+              f"inputs: worst |err| {worst_c:.3f} of its allowance (1e-5 of "
+              "the sum of |terms|)", flush=True)
+    del kept_c
+    worst = 0.0
+    for i, args in enumerate(kept):
+        with torch.no_grad():
+            got = splat.composite_backward(*args)
+            ref = splat.composite_backward_plain(*args)
+            terms = splat.composite_backward_terms(*args)
+        for name, a, b, t in zip(("dfeat", "dalpha", "dz"), got, ref, terms):
+            share = float(((a - b).abs() / (1e-5 * t + SPLAT_FLOOR)).max())
+            if not torch.isfinite(a).all() or share > 1.0:
+                fail(f"{label}: kernel 4's backward, {name} of call {i}, "
+                     f"disagrees with its plain backward (worst |err| "
+                     f"{share:.3f} of its allowance)")
+            worst = max(worst, share)
+    print(f"  {label}, one batch: kernel 4's backward on the step's "
+          f"{len(kept)} calls (C {sorted({a[3].shape[1] for a in kept})}) "
+          f"against its plain backward on the same inputs: worst |err| "
+          f"{worst:.3f} of its allowance (1e-5 of the sum of |terms| + "
+          "2^-122)", flush=True)
+    del kept
+    with recorded(splat, "composite_backward",
+                  splat.composite_backward_plain), \
+            recorded(corr, "corr_patch_lookup_coords_backward",
+                     corr.corr_patch_lookup_coords_backward_plain):
+        lx, gx, _ = stage_grads(model, lc, batch)
+    err, where = grads_apart(gk, gx, 1e-5, show=4)
+    loss_err = abs(lk - lx) / abs(lx)
+    print(f"  {label}, one batch, {len(gk)} gradient tensors (loss "
+          f"{lk:.6f}); kernel 4's plain backward"
+          f"{'' if stereo_frozen else ' and the plain coordinate gradient'}"
+          f" (bound 1e-3, loss 1e-6): loss rel {loss_err:.2e}, worst "
+          f"gradient |diff| / |plain| {err:.2e} at {where}", flush=True)
+    if set(gx) != set(gk) or err > 1e-3 or loss_err > 1e-6:
+        fail(f"{label}: the gradients with the new backward kernels disagree "
+             "with those of their plain versions")
+    if stereo_frozen and any(k.startswith("stereo.") for k in gk):
+        fail(f"{label}: a frozen stereo parameter has a gradient")
+    if not stereo_frozen and not any(k.startswith("stereo.") for k in gk):
+        fail(f"{label}: the trained stereo has no gradient")
+    if not trace:
+        return
+    gp, cp = gn.gn_window_aggregate_backward_plain, \
+        corr.corr_patch_lookup_backward_plain
+
+    def case(plain_others, det):
+        @contextlib.contextmanager
+        def ctx():
+            with motion_backwards(*((gp, cp) if plain_others
+                                    else (None, None))), \
+                    (deterministic() if det else contextlib.nullcontext()):
+                yield
+        return ctx
+
+    run_to_run(label, model, lc, batch, [
+        ("every backward kernel", case(False, False)),
+        ("every backward kernel, deterministic cuDNN and ATen",
+         case(False, True)),
+        ("kernel 4's backward alone (5b, 6b plain), deterministic",
+         case(True, True))])
 
 
 @contextlib.contextmanager
@@ -1696,14 +2042,16 @@ def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
 
 
 def train_phase(dev, profile_dir=None):
-    """The stereo stage, the fusion stage, then the motion stage; returns
-    the launches of the three runs, summed by kernel.  With
-    ``profile_dir``, one more step of each under torch.profiler
-    (profile_train_{stereo,fusion,motion}.txt)."""
+    """The stereo stage, the fusion stage, the motion stage, the joint
+    stage, then the full joint stage; returns the launches of the five
+    runs, summed by kernel.  With ``profile_dir``, one more step of each
+    under torch.profiler (profile_train_{stereo,fusion,motion,joint,
+    joint_full}.txt) and the run-to-run traces."""
     prof = (lambda n: None) if profile_dir is None else \
         (lambda n: profile_dir / f"profile_train_{n}.txt")
     import torch
     from codd_torch.models.builder import build_loss_config
+    from codd_torch.ops import kernels
     from codd_torch.train import optim
 
     batches = train_batches(TRAIN_STEPS, dev)
@@ -1740,7 +2088,7 @@ def train_phase(dev, profile_dir=None):
     mb = motion_batches(TRAIN_STEPS, dev)
     cfg = model_cfg("stereo_motion.py")
     model, lc = build_model("stereo_motion.py"), build_loss_config(cfg)
-    motion_grad_checks(model, lc, mb[0])
+    motion_grad_checks(model, lc, mb[0], trace=profile_dir is not None)
     opt = optim.make_optimizer(optim.one_cycle_schedule(2e-4, 200000 // 8),
                                1.0, dict(model.named_parameters()),
                                ["stereo"])
@@ -1749,27 +2097,59 @@ def train_phase(dev, profile_dir=None):
     # a step: frozen stereo 9 tile warps a frame; 16 GN iterations, each
     # checkpointed, so kernels 5 and 6 run their forward twice and their
     # backward once; both splats of each of the 4 images, forward only
-    per_step = {"tile_warp_cost": 18, "corr_patch_lookup": 32,
-                "gn_window_aggregate": 32, "corr_patch_lookup_backward": 16,
-                "gn_window_aggregate_backward": 16,
-                "splat_composite": 2 * TRAIN_B, "corr_lookup": 0,
-                "gn_fused_solve": 0, "tile_warp_cost_backward": 0}
+    per_step = dict(dict.fromkeys(kernels.KERNELS, 0), tile_warp_cost=18,
+                    corr_patch_lookup=32, gn_window_aggregate=32,
+                    corr_patch_lookup_backward=16,
+                    gn_window_aggregate_backward=16,
+                    splat_composite=2 * TRAIN_B)
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if motion != want:
         fail(f"motion stage: launches {motion} != {want}")
     del model, opt
     torch.cuda.empty_cache()
 
-    b = batches[0]
-    try:
-        build_model("codd.py")(b["l_img"], b["r_img"], b["intrinsics"],
-                               train=True)
-        fail("joint training (a trainable RAFT-3D and Fusion) did not raise")
-    except NotImplementedError as e:
-        if "12b-ii" not in str(e):
-            fail(f"joint training raised without naming item 12b-ii: {e}")
-        print(f"  joint training raises: {e}")
-    return {k: stereo[k] + fusion[k] + motion[k] for k in stereo}
+    # the joint stage, stereo frozen: the motion stage's launches, and
+    # kernel 4's backward after each splat (the fusion net reads the
+    # warped memory; its convolutions launch no hand kernel)
+    freeze = {"freeze_stereo": True}
+    cfg = model_cfg("codd.py", train_cfg=freeze)
+    model, lc = build_model("codd.py", train_cfg=freeze), \
+        build_loss_config(cfg)
+    joint_grad_checks("joint stage", model, lc, mb[0],
+                      trace=profile_dir is not None)
+    opt = optim.make_optimizer(optim.one_cycle_schedule(2e-4, 100000 // 8),
+                               1.0, dict(model.named_parameters()),
+                               ["stereo"])
+    joint = train_stage("joint stage", model, opt, lc, mb, ("stereo",),
+                        prof("joint"))
+    joint_step = dict(per_step, splat_composite_backward=2 * TRAIN_B)
+    want = {k: v * TRAIN_STEPS for k, v in joint_step.items()}
+    if joint != want:
+        fail(f"joint stage: launches {joint} != {want}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # the whole model trained (configs/models/codd.py as it stands, with
+    # schedule_stereo's optimizer, as configs/training_config.py composes
+    # them): the stereo stage's kernel 1 backward, 9 a frame, and the
+    # coordinate gradient once a GN iteration, beside the joint stage's
+    cfg = model_cfg("codd.py")
+    model, lc = build_model("codd.py"), build_loss_config(cfg)
+    joint_grad_checks("full joint stage", model, lc, mb[0],
+                      stereo_frozen=False)
+    opt = optim.make_optimizer(optim.multi_gamma_schedule(
+        4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
+    full = train_stage("full joint stage", model, opt, lc, mb,
+                       profile_to=prof("joint_full"))
+    want = {k: v * TRAIN_STEPS for k, v in dict(
+        joint_step, tile_warp_cost_backward=18,
+        corr_patch_lookup_coords_backward=16).items()}
+    if full != want:
+        fail(f"full joint stage: launches {full} != {want}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {k: stereo[k] + fusion[k] + motion[k] + joint[k] + full[k]
+            for k in stereo}
 
 
 def bench_phase():
@@ -1834,14 +2214,20 @@ def profile_call(run, label: str, out_file: Path):
             "tile_warp_cost_backward_kernel": "tile_warp_cost_backward",
             "corr_lookup_kernel": "corr_lookup",
             "gn_fused_solve_kernel": "gn_fused_solve",
-            "splat_composite_": "splat_composite",  # _walk or _lanes
+            "splat_composite_walk": "splat_composite",
+            "splat_composite_lanes": "splat_composite",
+            "splat_composite_backward_": "splat_composite_backward",
             "gn_window_aggregate_kernel": "gn_window_aggregate",
             "corr_patch_lookup_kernel": "corr_patch_lookup",
             "gn_window_aggregate_backward_kernel":
                 "gn_window_aggregate_backward",
             "corr_patch_lookup_backward_kernel":
-                "corr_patch_lookup_backward"}
-    mine = {v: sum(r[1] for r in rows if k in r[0]) for k, v in hand.items()}
+                "corr_patch_lookup_backward",
+            "corr_patch_lookup_coords_backward_kernel":
+                "corr_patch_lookup_coords_backward"}
+    mine: dict = {}
+    for k, v in hand.items():
+        mine[v] = mine.get(v, 0.0) + sum(r[1] for r in rows if k in r[0])
     cats: dict = {}
     for key, ms, n in rows:
         c = cats.setdefault(_category(key, hand), [0.0, 0])
@@ -1952,8 +2338,8 @@ def main():
     train_launches = {}
     if "train" in phases:
         print(f"[train] {TRAIN_STEPS} training steps a stage at B={TRAIN_B}, "
-              f"T={TRAIN_T}, {TRAIN_H}x{TRAIN_W}: the stereo stage, the "
-              "fusion stage, the motion stage", flush=True)
+              f"T={TRAIN_T}, {TRAIN_H}x{TRAIN_W}: the stereo, fusion, "
+              "motion, joint and full joint stages", flush=True)
         train_launches = train_phase(dev, Path(__file__).resolve().parent
                                      / "chiprun_out" if "profile" in phases
                                      else None)

@@ -188,6 +188,175 @@ __device__ __forceinline__ void tap_dots(const unsigned char* base,
                   __fadd_rn(v01y[1], __fadd_rn(uy[1], wy[1])));
 }
 
+// A block's work, both kernels.  The forward (corr_patch_lookup_kernel,
+// COORDS false): grid (tiles, levels), a block one level of one tile, its
+// queries' 49 outputs.  The coordinate gradient
+// (corr_patch_lookup_coords_backward_kernel, COORDS true): grid
+// (tiles, 1), a block every level of one tile in turn; the
+// same dots, then for each query sum_o g[o] d out[o] / d (fx, fy) over the
+// window, the bilinear weights' derivatives (floor() has none):
+//   d out / d fx = (1 - fy)(d01 - d00) + fy (d11 - d10)
+//   d out / d fy = (1 - fx)(d10 - d00) + fx (d11 - d01)
+// in output order a lane, joined by a fixed xor-shuffle tree, and
+// dcoords[q] = sum over levels, in order, of scale * that: two floats a
+// query, no atomics, the same bits on every launch.  A masked query
+// (vq = 0) has zero dots and so zero gradient, as in codd_tpu.
+template <int R, bool COORDS>
+__device__ __forceinline__ void lookup_tile(
+    const unsigned char* __restrict__ f1, const CorrLevels& lv,
+    const float* __restrict__ coords, float* __restrict__ out,
+    const float* __restrict__ g, int h, int w, int tiles_x, int tiles_per_b,
+    int out_c, int offset, int box_bytes) {
+  constexpr int T = 2 * R + 2, R1 = 2 * R + 1, K = R1 * R1;
+  extern __shared__ __align__(128) unsigned char box[];
+  __shared__ __align__(16) float f1s[K6_WARPS][PC];
+  __shared__ float sdots[K6_WARPS][MAXT * MAXT];
+  __shared__ CorrWindow qwin[TILE_H * TILE_W];
+  __shared__ int qn[TILE_H * TILE_W];  // query index n, or -1 off the grid
+  __shared__ int plan[4];              // box x0, y0, row stride; staged
+  __shared__ float2 qgrad[TILE_H * TILE_W];  // COORDS: d coords a query
+  __shared__ __align__(8) unsigned long long bar;
+
+  const int b = blockIdx.x / tiles_per_b, tile = blockIdx.x % tiles_per_b;
+  const int qy0 = (tile / tiles_x) * TILE_H, qx0 = (tile % tiles_x) * TILE_W;
+  const long long N = (long long)h * w;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lvl0 = COORDS ? 0 : blockIdx.y, lvl1 = COORDS ? lv.n : lvl0 + 1;
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&bar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (COORDS && warp == 0) qgrad[lane] = make_float2(0.f, 0.f);
+  unsigned phase = 0;  // the staged levels so far: the barrier's phase
+
+  for (int lvl = lvl0; lvl < lvl1; ++lvl) {
+    const int Hp = lv.Hp[lvl], Wp = lv.Wp[lvl];
+    const unsigned char* level = (const unsigned char*)lv.ptr[lvl];
+    if (warp == 0) {  // plan: each lane one query of the tile
+      const int qy = qy0 + lane / TILE_W, qx = qx0 + lane % TILE_W;
+      const bool in = qy < h && qx < w;
+      const long long n = (long long)qy * w + qx;
+      CorrWindow win = {0, 0, 0.f, 0.f, false};
+      if (in) {
+        const long long q = b * N + n;
+        win = corr_window<R>(coords[q * 2], coords[q * 2 + 1], lv.scale[lvl],
+                             Hp, Wp);
+      }
+      qwin[lane] = win;
+      qn[lane] = in ? (int)n : -1;
+      const bool use = in && win.vq;  // only these read taps
+      const int x_lo =
+          __reduce_min_sync(0xffffffffu, use ? win.sx : 0x7fffffff);
+      const int y_lo =
+          __reduce_min_sync(0xffffffffu, use ? win.sy : 0x7fffffff);
+      const int x_hi = __reduce_max_sync(0xffffffffu, use ? win.sx : -1);
+      const int y_hi = __reduce_max_sync(0xffffffffu, use ? win.sy : -1);
+      // no query reads taps: nothing to stage and nothing to read
+      const bool any = x_hi >= 0;
+      const int bw = any ? x_hi - x_lo + T : 0, bh = any ? y_hi - y_lo + T : 0;
+      const long long stride = (long long)bw * PIX_BYTES + 16;
+      const bool staged = any && stride * bh <= box_bytes;
+      if (lane == 0) {
+        plan[0] = x_lo;
+        plan[1] = y_lo;
+        plan[2] = (int)stride;
+        plan[3] = staged;
+        if (staged) mbar_expect(smem_u32(&bar), (unsigned)(bw * bh * PIX_BYTES));
+      }
+      __syncwarp();
+      if (staged) {
+        for (int row = lane; row < bh; row += 32)
+          bulk_copy(box + row * stride,
+                    level + (((long long)b * Hp + y_lo + row) * Wp + x_lo) *
+                                PIX_BYTES,
+                    (unsigned)(bw * PIX_BYTES), smem_u32(&bar));
+      }
+    }
+    __syncthreads();
+    const bool staged = plan[3] != 0;
+    if (staged) mbar_wait(smem_u32(&bar), phase++ & 1);
+
+    float* a = f1s[warp];
+    float* dots = sdots[warp];
+    // a query's f1 row is loaded while the one before it computes
+    auto f1_row = [&](int i) {
+      return qn[i] >= 0
+                 ? __ldg((const uint2*)(f1 + (b * N + qn[i]) * (PC * 2)) + lane)
+                 : make_uint2(0u, 0u);
+    };
+    uint2 v = f1_row(warp);
+    for (int i = warp; i < TILE_H * TILE_W; i += K6_WARPS) {
+      const uint2 next = i + K6_WARPS < TILE_H * TILE_W ? f1_row(i + K6_WARPS)
+                                                        : make_uint2(0u, 0u);
+      const int n = qn[i];
+      if (n >= 0) {  // the whole warp
+        const CorrWindow win = qwin[i];
+        const long long q = b * N + n;
+        if (win.vq) {
+          *(float4*)(a + 4 * lane) = make_float4(bf16_lo(v.x), bf16_hi(v.x),
+                                                 bf16_lo(v.y), bf16_hi(v.y));
+          __syncwarp();
+          if (staged) {
+            const long long stride = plan[2];
+            tap_dots<R, true>(box + (win.sy - plan[1]) * stride +
+                                  (win.sx - plan[0]) * PIX_BYTES,
+                              stride, a, dots, lane);
+          } else {
+            const long long stride = (long long)Wp * PIX_BYTES;
+            tap_dots<R, false>(
+                level + (((long long)b * Hp + win.sy) * Wp + win.sx) * PIX_BYTES,
+                stride, a, dots, lane);
+          }
+        } else {
+          // the whole window lies outside the level: every tap is masked
+          for (int tap = lane; tap < T * T; tap += 32) dots[tap] = 0.f;
+        }
+        __syncwarp();
+        const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
+        if (!COORDS) {
+          float* op = out + offset + lvl * K + q * out_c;
+          for (int o = lane; o < K; o += 32) {
+            const int yy = o / R1, xx = o - yy * R1;
+            const float* d = dots + yy * T + xx;
+            op[o] = corr_bilinear(gx, win.fx, gy, win.fy, d[0], d[1], d[T],
+                                  d[T + 1]);
+          }
+        } else {
+          const float* gp = g + offset + lvl * K + q * out_c;
+          float px = 0.f, py = 0.f;
+          for (int o = lane; o < K; o += 32) {
+            const int yy = o / R1, xx = o - yy * R1;
+            const float* d = dots + yy * T + xx;
+            const float dfx =
+                __fadd_rn(__fmul_rn(gy, __fsub_rn(d[1], d[0])),
+                          __fmul_rn(win.fy, __fsub_rn(d[T + 1], d[T])));
+            const float dfy =
+                __fadd_rn(__fmul_rn(gx, __fsub_rn(d[T], d[0])),
+                          __fmul_rn(win.fx, __fsub_rn(d[T + 1], d[1])));
+            px = fmaf(gp[o], dfx, px);
+            py = fmaf(gp[o], dfy, py);
+          }
+#pragma unroll
+          for (int m = 16; m > 0; m >>= 1) {
+            px = __fadd_rn(px, __shfl_xor_sync(0xffffffffu, px, m));
+            py = __fadd_rn(py, __shfl_xor_sync(0xffffffffu, py, m));
+          }
+          if (lane == 0) {
+            const float sc = lv.scale[lvl];
+            qgrad[i].x = fmaf(sc, px, qgrad[i].x);
+            qgrad[i].y = fmaf(sc, py, qgrad[i].y);
+          }
+        }
+        __syncwarp();  // dots and a are the next query's
+      }
+      v = next;
+    }
+    if (COORDS) __syncthreads();  // the box and the plan: the next level's
+  }
+  if (COORDS && warp == 0 && qn[lane] >= 0)
+    ((float2*)out)[b * N + qn[lane]] = qgrad[lane];
+}
+
 template <int R>
 __global__ void __launch_bounds__(32 * K6_WARPS, 2)
 corr_patch_lookup_kernel(const unsigned char* __restrict__ f1,
@@ -196,133 +365,42 @@ corr_patch_lookup_kernel(const unsigned char* __restrict__ f1,
                          float* __restrict__ out, int h, int w, int tiles_x,
                          int tiles_per_b, int out_c, int offset,
                          int box_bytes) {
-  constexpr int T = 2 * R + 2, R1 = 2 * R + 1, K = R1 * R1;
-  extern __shared__ __align__(128) unsigned char box[];
-  __shared__ __align__(16) float f1s[K6_WARPS][PC];
-  __shared__ float sdots[K6_WARPS][MAXT * MAXT];
-  __shared__ CorrWindow qwin[TILE_H * TILE_W];
-  __shared__ int qn[TILE_H * TILE_W];  // query index n, or -1 off the grid
-  __shared__ int plan[4];              // box x0, y0, row stride; staged
-  __shared__ __align__(8) unsigned long long bar;
-
-  const int lvl = blockIdx.y;
-  const int b = blockIdx.x / tiles_per_b, tile = blockIdx.x % tiles_per_b;
-  const int qy0 = (tile / tiles_x) * TILE_H, qx0 = (tile % tiles_x) * TILE_W;
-  const int Hp = lv.Hp[lvl], Wp = lv.Wp[lvl];
-  const unsigned char* level = (const unsigned char*)lv.ptr[lvl];
-  const long long N = (long long)h * w;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  if (warp == 0) {  // plan: each lane one query of the tile
-    const int qy = qy0 + lane / TILE_W, qx = qx0 + lane % TILE_W;
-    const bool in = qy < h && qx < w;
-    const long long n = (long long)qy * w + qx;
-    CorrWindow win = {0, 0, 0.f, 0.f, false};
-    if (in) {
-      const long long q = b * N + n;
-      win = corr_window<R>(coords[q * 2], coords[q * 2 + 1], lv.scale[lvl],
-                           Hp, Wp);
-    }
-    qwin[lane] = win;
-    qn[lane] = in ? (int)n : -1;
-    const bool use = in && win.vq;  // only these read taps
-    const int x_lo = __reduce_min_sync(0xffffffffu, use ? win.sx : 0x7fffffff);
-    const int y_lo = __reduce_min_sync(0xffffffffu, use ? win.sy : 0x7fffffff);
-    const int x_hi = __reduce_max_sync(0xffffffffu, use ? win.sx : -1);
-    const int y_hi = __reduce_max_sync(0xffffffffu, use ? win.sy : -1);
-    // no query reads taps: nothing to stage and nothing to read
-    const bool any = x_hi >= 0;
-    const int bw = any ? x_hi - x_lo + T : 0, bh = any ? y_hi - y_lo + T : 0;
-    const long long stride = (long long)bw * PIX_BYTES + 16;
-    const bool staged = any && stride * bh <= box_bytes;
-    if (lane == 0) {
-      plan[0] = x_lo;
-      plan[1] = y_lo;
-      plan[2] = (int)stride;
-      plan[3] = staged;
-      if (staged) {
-        mbar_init(smem_u32(&bar), 1);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        mbar_expect(smem_u32(&bar), (unsigned)(bw * bh * PIX_BYTES));
-      }
-    }
-    __syncwarp();
-    if (staged) {
-      for (int row = lane; row < bh; row += 32)
-        bulk_copy(box + row * stride,
-                  level + (((long long)b * Hp + y_lo + row) * Wp + x_lo) *
-                              PIX_BYTES,
-                  (unsigned)(bw * PIX_BYTES), smem_u32(&bar));
-    }
-  }
-  __syncthreads();
-  const bool staged = plan[3] != 0;
-  if (staged) mbar_wait(smem_u32(&bar), 0);
-
-  float* a = f1s[warp];
-  float* dots = sdots[warp];
-  float* outl = out + offset + lvl * K;
-  // a query's f1 row is loaded while the one before it computes
-  auto f1_row = [&](int i) {
-    return qn[i] >= 0 ? __ldg((const uint2*)(f1 + (b * N + qn[i]) * (PC * 2)) +
-                              lane)
-                      : make_uint2(0u, 0u);
-  };
-  uint2 v = f1_row(warp);
-  for (int i = warp; i < TILE_H * TILE_W; i += K6_WARPS) {
-    const uint2 next =
-        i + K6_WARPS < TILE_H * TILE_W ? f1_row(i + K6_WARPS) : make_uint2(0u, 0u);
-    const int n = qn[i];
-    if (n >= 0) {  // the whole warp
-      const CorrWindow win = qwin[i];
-      const long long q = b * N + n;
-      if (win.vq) {
-        *(float4*)(a + 4 * lane) =
-            make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
-        __syncwarp();
-        if (staged) {
-          const long long stride = plan[2];
-          tap_dots<R, true>(box + (win.sy - plan[1]) * stride +
-                                (win.sx - plan[0]) * PIX_BYTES,
-                            stride, a, dots, lane);
-        } else {
-          const long long stride = (long long)Wp * PIX_BYTES;
-          tap_dots<R, false>(
-              level + (((long long)b * Hp + win.sy) * Wp + win.sx) * PIX_BYTES,
-              stride, a, dots, lane);
-        }
-      } else {
-        // the whole window lies outside the level: every tap is masked to 0
-        for (int tap = lane; tap < T * T; tap += 32) dots[tap] = 0.f;
-      }
-      __syncwarp();
-      const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
-      float* op = outl + q * out_c;
-      for (int o = lane; o < K; o += 32) {
-        const int yy = o / R1, xx = o - yy * R1;
-        const float* d = dots + yy * T + xx;
-        op[o] = corr_bilinear(gx, win.fx, gy, win.fy, d[0], d[1], d[T], d[T + 1]);
-      }
-      __syncwarp();  // dots and a are the next query's
-    }
-    v = next;
-  }
+  lookup_tile<R, false>(f1, lv, coords, out, nullptr, h, w, tiles_x,
+                        tiles_per_b, out_c, offset, box_bytes);
 }
 
 template <int R>
+__global__ void __launch_bounds__(32 * K6_WARPS, 2)
+corr_patch_lookup_coords_backward_kernel(
+    const unsigned char* __restrict__ f1, const __grid_constant__ CorrLevels lv,
+    const float* __restrict__ coords, float* __restrict__ dcoords,
+    const float* __restrict__ g, int h, int w, int tiles_x, int tiles_per_b,
+    int gc, int box_bytes) {
+  lookup_tile<R, true>(f1, lv, coords, dcoords, g, h, w, tiles_x,
+                       tiles_per_b, gc, 0, box_bytes);
+}
+
+template <int R, bool COORDS>
 static int launch(const void* f1, const CorrLevels& lv, const void* coords,
-                  void* out, int B, int h, int w, int out_c, int offset,
-                  int box_bytes, cudaStream_t s) {
+                  void* out, const void* g, int B, int h, int w, int out_c,
+                  int offset, int box_bytes, cudaStream_t s) {
+  const void* fn = COORDS ? (const void*)corr_patch_lookup_coords_backward_kernel<R>
+                          : (const void*)corr_patch_lookup_kernel<R>;
   cudaError_t err = cudaFuncSetAttribute(
-      corr_patch_lookup_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      box_bytes);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, box_bytes);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (w + TILE_W - 1) / TILE_W;
   const int tiles_per_b = tiles_x * ((h + TILE_H - 1) / TILE_H);
-  dim3 grid((unsigned)(B * tiles_per_b), (unsigned)lv.n);
-  corr_patch_lookup_kernel<R><<<grid, 32 * K6_WARPS, box_bytes, s>>>(
-      (const unsigned char*)f1, lv, (const float*)coords, (float*)out, h, w,
-      tiles_x, tiles_per_b, out_c, offset, box_bytes);
+  dim3 grid((unsigned)(B * tiles_per_b), COORDS ? 1u : (unsigned)lv.n);
+  if (COORDS)
+    corr_patch_lookup_coords_backward_kernel<R>
+        <<<grid, 32 * K6_WARPS, box_bytes, s>>>(
+            (const unsigned char*)f1, lv, (const float*)coords, (float*)out,
+            (const float*)g, h, w, tiles_x, tiles_per_b, out_c, box_bytes);
+  else
+    corr_patch_lookup_kernel<R><<<grid, 32 * K6_WARPS, box_bytes, s>>>(
+        (const unsigned char*)f1, lv, (const float*)coords, (float*)out, h, w,
+        tiles_x, tiles_per_b, out_c, offset, box_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -707,9 +785,37 @@ extern "C" int corr_patch_lookup_launch(const void* f1,
   if ((long long)B * h * w == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (r) {
-    case 0: return launch<0>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
-    case 1: return launch<1>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
-    case 2: return launch<2>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
-    default: return launch<3>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
+    case 0: return launch<0, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
+    case 1: return launch<1, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
+    case 2: return launch<2, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
+    default: return launch<3, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
+  }
+}
+
+// The gradient of the lookup's coordinates: g (B,h,w,L*K) the cotangent of
+// the four-level output, dcoords (B,h,w,2) f32, written in full.
+extern "C" int corr_patch_lookup_coords_backward_launch(
+    const void* f1, const void* const* levels, const int* hw,
+    const float* scales, int L, const void* coords, const void* g,
+    void* dcoords, int B, int h, int w, int r, int box_bytes, void* stream) {
+  if (L < 1 || L > CORR_MAX_LEVELS || r < 0 || 2 * r + 2 > MAXT ||
+      box_bytes < 0 || box_bytes % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  CorrLevels lv = {};
+  for (int i = 0; i < L; ++i) {
+    lv.ptr[i] = levels[i];
+    lv.Hp[i] = hw[2 * i];
+    lv.Wp[i] = hw[2 * i + 1];
+    lv.scale[i] = scales[i];
+  }
+  lv.n = L;
+  if ((long long)B * h * w == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int gc = L * (2 * r + 1) * (2 * r + 1);
+  switch (r) {
+    case 0: return launch<0, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
+    case 1: return launch<1, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
+    case 2: return launch<2, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
+    default: return launch<3, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
   }
 }

@@ -26,6 +26,32 @@
 //   pixel of that call in flight at once.
 // No tensor cores: there are no products to batch (the TPU kernel's
 // one-hot matmuls stand in for scatters, which a GPU does not need).
+//
+// The backward (training; the VJP of codd_tpu/ops/splat.py:_splat_one_sort,
+// whose forward is this function).  For pixel p's run, fragments i in key
+// order with w_i = a_i T_i (T_i = exp of the exclusive sum of log1p(-a)),
+// i < ppp, and the cotangents g_p (C floats) and gz_p:
+//   dfeat[n] += w_i g_p over the fragments i of point n;
+//   dalpha_i  = T_i (g_p . f_i) - (1 / (1 - a_i)) sum_{i<k<ppp} w_k (g_p . f_k)
+//               (0 for i >= ppp);
+//   dz[n]    += gz_p for the run's head fragment.
+// Two launches, no float atomics, so every sum has a fixed order and two
+// runs give the same bits.  A point's sum runs over its K fragments, which
+// lie in K different runs, so it needs every run done first; a launch
+// boundary is that grid-wide barrier.
+// - splat_composite_backward_runs: BLANES lanes of a warp a pixel, lane r
+//   the run's rank-r fragment (so ppp <= BLANES): its dot g_p . f in
+//   channel order, the exclusive sum of log1p(-a) passed up the lanes one
+//   add at a time (the forward's sequence of rounded adds, so w_i is the
+//   forward's weight in bits), the suffix sum of w_k (g.f_k) passed down
+//   the same way.  It writes dalpha at each fragment id of the run, and
+//   frag[o] = (w_i, p, head flag in the sign bit) for the second pass;
+//   fragments past ppp get w = 0 and dalpha = 0.
+// - splat_composite_backward_points: a thread a point and group of 4
+//   channels walks the point's K fragments (o = k N + n) in order: one
+//   with alpha > 0 lies in a run (a culled fragment has alpha 0, the
+//   projection's mask) and adds w g_p, and gz_p where it heads its run;
+//   the culled ones get dalpha = 0 here, so dalpha needs no zero fill.
 #include <cuda_runtime.h>
 
 #define WALK_C 8          // channels a walk holds in registers, at most
@@ -34,6 +60,9 @@
 #define LANE_CH 4         // channels a lane holds
 #define ROWS 2            // feature rows a lane loads at a time
 #define LANE_THREADS 256  // threads a block of splat_composite_lanes
+#define BLANES 8          // lanes a pixel in the backward's run pass (ppp max)
+#define BWD_THREADS 256   // threads a block of either backward pass
+#define HEAD_BIT 0x80000000u  // frag[o].y: the fragment heads its run
 
 // a thread a pixel, its run in order (C <= WALK_C)
 __global__ void __launch_bounds__(WALK_THREADS)
@@ -169,6 +198,173 @@ extern "C" int splat_composite_launch(const void* order, const void* offsets,
                             LANE_THREADS, 0, st>>>(
         o, off, (const float*)alpha, (const float*)z, (const float*)feat,
         (float*)out, (float*)zbuf, (float*)cnt, npix, N, C, ppp);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward
+
+// g . f over C channels in channel order, one fmaf each: by 16- or
+// 8-byte loads where every row of that C is so aligned (the same bits)
+__device__ __forceinline__ float row_dot(const float* __restrict__ gp,
+                                        const float* __restrict__ fp, int C) {
+  float dot = 0.f;
+  if ((C & 3) == 0) {
+#pragma unroll 4
+    for (int c = 0; c < C; c += 4) {
+      const float4 u = *(const float4*)(gp + c), v = *(const float4*)(fp + c);
+      dot = fmaf(u.w, v.w, fmaf(u.z, v.z, fmaf(u.y, v.y, fmaf(u.x, v.x, dot))));
+    }
+  } else if ((C & 1) == 0) {
+#pragma unroll 4
+    for (int c = 0; c < C; c += 2) {
+      const float2 u = *(const float2*)(gp + c), v = *(const float2*)(fp + c);
+      dot = fmaf(u.y, v.y, fmaf(u.x, v.x, dot));
+    }
+  } else {
+    for (int c = 0; c < C; ++c) dot = fmaf(gp[c], fp[c], dot);
+  }
+  return dot;
+}
+
+// BLANES lanes a pixel, lane r the run's rank-r fragment
+__global__ void __launch_bounds__(BWD_THREADS)
+splat_composite_backward_runs(const long long* __restrict__ order,
+                              const long long* __restrict__ offsets,
+                              const float* __restrict__ alpha,
+                              const float* __restrict__ feat,
+                              const float* __restrict__ g,
+                              float* __restrict__ dalpha,
+                              int2* __restrict__ frag, int npix, int N, int C,
+                              int ppp) {
+  static_assert(32 % BLANES == 0, "groups within a warp");
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x % BLANES;
+  const long long q =
+      ((long long)blockIdx.x * BWD_THREADS + threadIdx.x) / BLANES;
+  const bool live = q < npix;
+  const int p = live ? (int)q : 0;
+  int s = 0, e = 0;
+  if (live) {
+    s = (int)offsets[p];
+    e = (int)offsets[p + 1];
+  }
+  const int m = e - s > ppp ? ppp : e - s;  // fragments composited
+  const bool mine = lane < m;
+  int o = 0;
+  float a = 0.f, dot = 0.f;
+  if (mine) {
+    o = (int)order[s + lane];
+    a = alpha[o];
+    const long long fo = (long long)((unsigned)o % (unsigned)N) * C;
+    dot = row_dot(g + (long long)p * C, feat + fo, C);
+  }
+  // exclusive sum of log1p(-a) up the lanes: after round r the lanes <= r
+  // hold theirs, each the forward's running sum, one add at a time
+  const float la = mine ? log1pf(-a) : 0.f;
+  float excl = 0.f;
+#pragma unroll
+  for (int r = 1; r < BLANES; ++r) {
+    const float up = __shfl_up_sync(FULL, __fadd_rn(excl, la), 1, BLANES);
+    if (lane >= 1) excl = up;
+  }
+  const float T = expf(excl);
+  const float w = mine ? __fmul_rn(a, T) : 0.f;
+  const float wd = __fmul_rn(w, dot);
+  // sum of w_k (g . f_k) over the later fragments, passed down the lanes
+  float after = 0.f;
+#pragma unroll
+  for (int r = 1; r < BLANES; ++r) {
+    const float dn = __shfl_down_sync(FULL, __fadd_rn(after, wd), 1, BLANES);
+    if (lane < BLANES - 1) after = dn;
+  }
+  if (mine) {
+    dalpha[o] = __fsub_rn(__fmul_rn(T, dot),
+                          __fdiv_rn(after, __fsub_rn(1.0f, a)));
+    frag[o] = make_int2(__float_as_int(w),
+                        (int)((unsigned)p | (lane == 0 ? HEAD_BIT : 0u)));
+  }
+  for (int r = ppp + lane; r < e - s; r += BLANES) {  // past ppp: no weight
+    const int o2 = (int)order[s + r];
+    dalpha[o2] = 0.f;
+    frag[o2] = make_int2(0, p);
+  }
+}
+
+// a thread a point and group of 4 channels, its K fragments in order
+__global__ void __launch_bounds__(BWD_THREADS)
+splat_composite_backward_points(const float* __restrict__ alpha,
+                                const int2* __restrict__ frag,
+                                const float* __restrict__ g,
+                                const float* __restrict__ gz,
+                                float* __restrict__ dfeat,
+                                float* __restrict__ dalpha,
+                                float* __restrict__ dz, int N, int C, int K,
+                                int groups) {
+  const long long t = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (t >= (long long)N * groups) return;
+  const int n = (int)(t / groups), c0 = (int)(t % groups) * 4;
+  const bool first = c0 == 0;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f}, az = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const long long o = (long long)k * N + n;
+    if (alpha[o] > 0.f) {
+      const int2 fr = frag[o];
+      const float w = __int_as_float(fr.x);
+      const unsigned pu = (unsigned)fr.y;
+      const float* gp = g + (long long)(pu & ~HEAD_BIT) * C + c0;
+      float gv[4];
+      if ((C & 3) == 0) {
+        const float4 v = *(const float4*)gp;
+        gv[0] = v.x, gv[1] = v.y, gv[2] = v.z, gv[3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gv[j] = c0 + j < C ? gp[j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(w, gv[j]));
+      if (first && (pu & HEAD_BIT)) az = __fadd_rn(az, gz[pu & ~HEAD_BIT]);
+    } else if (first) {
+      dalpha[o] = 0.f;  // culled: in no run
+    }
+  }
+  float* dp = dfeat + (long long)n * C;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c0 + j < C) dp[c0 + j] = acc[j];
+  if (first) dz[n] = az;
+}
+
+// frag: K*N int2 of scratch, written where the first pass reaches
+extern "C" int splat_composite_backward_launch(
+    const void* order, const void* offsets, const void* alpha,
+    const void* feat, const void* g, const void* gz, void* frag, void* dfeat,
+    void* dalpha, void* dz, int npix, int N, int C, int K, int ppp,
+    void* stream) {
+  if (ppp > BLANES || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (npix > 0) {
+    const long long threads = (long long)npix * BLANES;
+    splat_composite_backward_runs<<<(int)((threads + BWD_THREADS - 1) /
+                                          BWD_THREADS),
+                                    BWD_THREADS, 0, st>>>(
+        (const long long*)order, (const long long*)offsets,
+        (const float*)alpha, (const float*)feat, (const float*)g,
+        (float*)dalpha, (int2*)frag, npix, N, C, ppp);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (N > 0) {
+    const int groups = (C + 3) / 4;
+    const long long threads = (long long)N * groups;
+    splat_composite_backward_points<<<(int)((threads + BWD_THREADS - 1) /
+                                            BWD_THREADS),
+                                      BWD_THREADS, 0, st>>>(
+        (const float*)alpha, (const int2*)frag, (const float*)g,
+        (const float*)gz, (float*)dfeat, (float*)dalpha, (float*)dz, N, C, K,
+        groups);
   }
   return (int)cudaGetLastError();
 }

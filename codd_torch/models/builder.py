@@ -45,10 +45,13 @@ through).  What each knob does here:
                        The ``xla_window`` splats are *approximations* in
                        ``codd_tpu`` (overflow drop); the port's kernel is
                        exact and does not reproduce them.
-``splat_impl_train``   validated only: it names the differentiable splat
-                       of joint training, not ported yet (ROADMAP item
-                       12b-ii); the motion stage's splats reach no loss
-                       and run kernel 4's forward.
+``splat_impl_train``   the differentiable splat of joint training
+                       (``xla`` or the approximate ``xla_sort_window``
+                       in ``codd_tpu``): the port runs kernel 4 with its
+                       backward (``ops/splat.py:SplatComposite``)
+                       whatever the value; the value is validated.  The
+                       motion stage's splats reach no loss and run kernel
+                       4's forward only.
 =====================  ====================================================
 """
 

@@ -11,12 +11,16 @@ Every stage runs under ``torch.no_grad()`` unless it trains: in eval
 ``codd_tpu``'s stop-gradients at module boundaries, so a frozen stage
 runs its eval branch under ``torch.no_grad()`` (its kernels launch
 forward only) and a trainable one under autograd.  The glue between
-the stages has no parameters.  This slice trains the stereo, the motion
-(``configs/models/stereo_motion.py``) and the fusion stage; a trainable
-RAFT-3D whose warped memory a fusion would differentiate (joint training:
-a trainable ``Fusion``, or ``GTFusion`` / ``KalmanFusion``, whose output
-feeds the next frame's motion) raises: that needs the differentiable
-training splat (ROADMAP item 12b-ii).
+the stages has no parameters.  A trainable RAFT-3D whose warped memory
+a fusion differentiates (a trainable ``Fusion``, or ``GTFusion`` /
+``KalmanFusion``, whose output feeds the next frame's motion) runs its
+splats under autograd (``Motion.forward``'s ``warp_grad``, kernel 4 and its
+backward), as ``codd_tpu``'s training splat; where nothing reads the
+memory with a gradient (``configs/models/stereo_motion.py``, or a frozen
+fusion) they run forward only.  With the stereo trainable too
+(``configs/models/codd.py`` as it stands) the depth that RAFT-3D projects
+carries a gradient, and so do the correlation lookup's coordinates
+(``ops/corr.py:CorrPatchLookup``).
 
 Images are (B, H, W, 3), intrinsics (B, 4) ``[fx, fy, cx, cy]``.
 
@@ -94,20 +98,15 @@ class CODD(nn.Module):
             self.fusion = Fusion(in_channels=stereo_feat_channels,
                                  fusion_channel=fusion_channel)
 
-    def _check_train(self, train: bool) -> None:
+    def _warp_grad(self, train: bool) -> bool:
+        """Whether a loss reaches the warped memory: RAFT-3D trains and a
+        fusion differentiates its output (``codd_tpu`` stops the memory at
+        a frozen motion or fusion stage)."""
         reads_memory = (self.fusion_type in ("GTFusion", "KalmanFusion")
                         or (self.fusion_type == "Fusion"
                             and not self.freeze_fusion))
-        if (train and self.motion_type == "Motion" and not self.freeze_motion
-                and reads_memory):
-            raise NotImplementedError(
-                "CODD: training RAFT-3D jointly with a fusion that "
-                f"differentiates its warped memory (fusion_type "
-                f"{self.fusion_type!r}) needs the differentiable training "
-                "splat, which is not ported yet (ROADMAP item 12b-ii).  Set "
-                "train_cfg.freeze_motion, or freeze_fusion, or train the "
-                "motion stage without fusion (configs/models/"
-                "stereo_motion.py)")
+        return (train and self.motion_type == "Motion"
+                and not self.freeze_motion and reads_memory)
 
     def _stereo_forward(self, left, right, train: bool):
         s_train = train and not self.freeze_stereo
@@ -125,7 +124,6 @@ class CODD(nn.Module):
     def first_step(self, left, right, intrinsics, train: bool = False
                    ) -> Tuple[CoddCarry, Dict[str, Any]]:
         """Frame 0: stereo + feature caches; no motion/fusion compute."""
-        self._check_train(train)
         out = self._stereo_forward(left, right, train)
         B, H, W, _ = left.shape
         if self.motion_type == "Motion":
@@ -147,7 +145,6 @@ class CODD(nn.Module):
         ``gt`` holds this frame's ground truth for the oracle variants:
         GTMotion reads gt_flow / gt_disp_change / gt_flow_occ, GTFusion
         gt_disp."""
-        self._check_train(train)
         out = self._stereo_forward(left, right, train)
         pred_disp = out["pred_disp"]
         B, H, W, _ = left.shape
@@ -159,7 +156,8 @@ class CODD(nn.Module):
                 memory5, raft_out, fmap, netinp = self.motion(
                     left, pred_disp[..., 0], carry.memory_img,
                     carry.memory_feat, carry.memory_disp, carry.fmap,
-                    carry.netinp, intrinsics, train_mode=m_train)
+                    carry.netinp, intrinsics, train_mode=m_train,
+                    warp_grad=self._warp_grad(train))
             _, feat_warp, confidence_warp, disp_warp, flow_warp = memory5
             out.update(raft_out)
         elif self.motion_type == "GTMotion":

@@ -5,11 +5,13 @@ Converts disparities to clipped depth, estimates the dense SE(3) field,
 then splats (kernel 4) the induced flow and confidence at full res
 (C=6, r=1 px) and the fusion features at 1/4 res (C=32, r=2 px) into the
 current frame.  In training (``train_mode``) RAFT-3D runs its train
-branch and the splats run under ``torch.no_grad()`` on detached inputs:
-their result is kernel 4's forward, and no loss reaches the warped memory
-(``CODD`` trains the motion net only where no fusion reads the memory,
-or where the fusion net that reads it is frozen, which ``codd_tpu``
-stops at its outputs).
+branch.  With ``warp_grad`` (``CODD`` sets it where a trainable fusion
+reads the warped memory) the splats run under autograd, differentiable
+in the points and the features (``ops/splat.py:SplatComposite``, kernel
+4 and its backward), as ``codd_tpu``'s training splat; without it they
+run under ``torch.no_grad()``: kernel 4's forward, nothing saved, no loss
+reaching the warped memory (the motion stage, or a frozen fusion, which
+``codd_tpu`` stops at its outputs).
 """
 
 from __future__ import annotations
@@ -53,15 +55,15 @@ class Motion(nn.Module):
 
     def forward(self, img_curr, disp_curr, memory_img, memory_feat,
                 memory_disp, fmap_prev, netinp_prev, intrinsics,
-                train_mode: bool = False):
+                train_mode: bool = False, warp_grad: bool = False):
         """Returns (warped 5-slot memory, raft outputs, fmap, netinp)."""
         depth_prev = disp_to_depth(memory_disp)
         depth_curr = disp_to_depth(disp_curr)
         raft_out, fmap_curr, netinp_curr = self.raft3d(
             img_curr, depth_prev, depth_curr, intrinsics, fmap_prev,
             netinp_prev, train_mode=train_mode)
-        # training: no loss reaches the warped memory (see the docstring)
-        with torch.no_grad() if train_mode else contextlib.nullcontext():
+        # no loss reaches the warped memory without warp_grad (docstring)
+        with contextlib.nullcontext() if warp_grad else torch.no_grad():
             memory5 = self._warp(img_curr, raft_out, memory_img, memory_feat,
                                  depth_prev, intrinsics)
         return memory5, raft_out, fmap_curr, netinp_curr

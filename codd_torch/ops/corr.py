@@ -47,7 +47,8 @@ Training takes the patch layout (``codd_tpu``'s ``corr_impl="auto"`` in
 training, ``raft3d.py:227,258``).  Under autograd the patch lookup runs as
 ``CorrPatchLookup``, whose backward is ``csrc/corr_patch.cu``'s second
 kernel: the VJP of ``codd_tpu/ops/corr.py:208-246 _lookup_level`` with
-respect to ``f1`` and the levels.  Per query and level the 49 cotangents
+respect to ``f1``, the levels and the coordinates.  Per query and level
+the 49 cotangents
 go through the transpose of the bilinear combine to 8 x 8 tap cotangents
 (0 for a masked query), then ``df1 += sum_taps dtap * level[tap]`` (the
 query's own row: written in full, f32 sums rounded once to bf16) and
@@ -61,10 +62,17 @@ the box meets one f32 ``atomicAdd`` a block, in chunks of
 boxes take one).  The gradients come back in the
 inputs' bf16, and ``build_corr_pyramid``'s casts carry them to f32, as in
 ``codd_tpu`` (``corr.py:73-80``); the padding's own backward crops them.
-The coordinates carry no gradient in ``codd_tpu`` (they come from the
-stop-gradient SE(3) field and frozen depth), so a lookup whose coords
-require grad raises.  The volume lookup (kernel 2) has no backward and
-raises wherever autograd would need it.
+The coordinates carry a gradient where the depth they are projected from
+trains (joint training with a trainable stereo; ``codd_tpu`` stops only
+the SE(3) field): ``floor()`` has none, so per query and level
+``d out / d fx = (1 - fy)(d01 - d00) + fy (d11 - d10)`` and
+``d out / d fy = (1 - fx)(d10 - d00) + fx (d11 - d01)`` from the masked tap
+dots d, and ``d coords = sum_levels scale_l sum_taps g . d out / d f``.
+``corr_patch_lookup_coords_backward`` (``csrc/corr_patch.cu``'s third
+entry) recomputes the dots as the forward does, on its tile and staged
+box, and sums the levels inside a block: two floats a query, no atomics.
+It launches only where the coordinates require grad.  The volume lookup
+(kernel 2) has no backward and raises wherever autograd would need it.
 """
 
 from __future__ import annotations
@@ -83,7 +91,10 @@ __all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_levels",
            "PATCH_TILE", "PATCH_BOX_BYTES", "PATCH_BWD_BOX_BYTES",
            "CorrPatchLookup",
            "corr_patch_lookup_backward", "corr_patch_lookup_backward_plain",
-           "corr_patch_lookup_level_backward_plain"]
+           "corr_patch_lookup_level_backward_plain",
+           "corr_patch_lookup_coords_backward",
+           "corr_patch_lookup_coords_backward_plain",
+           "corr_patch_lookup_coords_backward_terms"]
 
 # runtime.corr_impl values; the three volume selects of codd_tpu are
 # bit-identical there and are one lookup (kernel 2) here
@@ -272,13 +283,11 @@ def corr_lookup_level(vol, coords, radius: int = 3, scale: float = 1.0,
     return corr_lookup_levels([vol], coords, radius, [scale], out, offset)
 
 
-def corr_patch_lookup_level_plain(f1, f2p, coords, radius: int = 3):
-    """f1 (B,N,C) bf16, f2p (B,Hp,Wp,C) bf16 padded level, coords (B,h,w,2)
-    in level pixels -> (B,h,w,(2r+1)^2) f32: the (t,t,C) patches gathered
-    by index, f32 products summed over C, combined bilinearly."""
+def _tap_dots(f1, f2p, coords, radius):
+    """The masked (B,N,t,t) tap dots of every query, f32 products summed
+    over C, and its bilinear fractions fy, fx."""
     B, Hp, Wp, C = f2p.shape
     N = f1.shape[1]
-    h, w = coords.shape[1:3]
     t = 2 * radius + 2
     P = 2 * radius + 1
     sy, sx, fy, fx, vq = _window_starts(coords, Hp - 2 * P, Wp - 2 * P,
@@ -290,8 +299,15 @@ def corr_patch_lookup_level_plain(f1, f2p, coords, radius: int = 3):
                            idx[..., None].expand(-1, -1, C))
     dots = (patches.reshape(B, N, t * t, C).float()
             * f1.float()[:, :, None, :]).sum(-1)
-    dots = dots.reshape(B, N, t, t) * vq[:, :, None, None]
-    return _bilinear_combine(dots, fy, fx, h, w)
+    return dots.reshape(B, N, t, t) * vq[:, :, None, None], fy, fx
+
+
+def corr_patch_lookup_level_plain(f1, f2p, coords, radius: int = 3):
+    """f1 (B,N,C) bf16, f2p (B,Hp,Wp,C) bf16 padded level, coords (B,h,w,2)
+    in level pixels -> (B,h,w,(2r+1)^2) f32: the (t,t,C) patches gathered
+    by index, f32 products summed over C, combined bilinearly."""
+    h, w = coords.shape[1:3]
+    return _bilinear_combine(*_tap_dots(f1, f2p, coords, radius), h, w)
 
 
 def _bilinear_transpose(g, fy, fx, t):
@@ -310,13 +326,29 @@ def _bilinear_transpose(g, fy, fx, t):
     return dd
 
 
+def _bilinear_coords(g, dots, fy, fx, sign=-1.0):
+    """The VJP of ``_bilinear_combine`` with respect to its fractions:
+    (B,N,(t-1)^2) cotangents and (B,N,t,t) tap values -> (B,N,2), the
+    derivatives with respect to (fx, fy); ``sign=1`` adds the corners'
+    terms instead (their |terms| on |g| and |dots|)."""
+    B, N, t, _ = dots.shape
+    gg = g.reshape(B, N, t - 1, t - 1)
+    d00, d01 = dots[:, :, :-1, :-1], dots[:, :, :-1, 1:]
+    d10, d11 = dots[:, :, 1:, :-1], dots[:, :, 1:, 1:]
+    fx_, fy_ = fx[..., None], fy[..., None]
+    dfx = (1 - fy_) * (d01 + sign * d00) + fy_ * (d11 + sign * d10)
+    dfy = (1 - fx_) * (d10 + sign * d00) + fx_ * (d11 + sign * d01)
+    return torch.stack([(gg * dfx).sum((2, 3)), (gg * dfy).sum((2, 3))], -1)
+
+
 def corr_patch_lookup_level_backward_plain(g, f1, f2p, coords,
                                            radius: int = 3):
     """The VJP of ``corr_patch_lookup_level_plain`` at (f1, f2p) for the
     cotangent g (B,h,w,(2r+1)^2) -> (df1 (B,N,C), df2p (B,Hp,Wp,C)), both
     f32: the bilinear transpose, the vq mask, then the gather's dots
     against the patches and the scatter-add of dtap * f1 into the padded
-    level."""
+    level.  The coordinates' gradient is
+    ``corr_patch_lookup_coords_backward_plain``'s."""
     B, Hp, Wp, C = f2p.shape
     N = f1.shape[1]
     t = 2 * radius + 2
@@ -339,6 +371,70 @@ def corr_patch_lookup_level_backward_plain(g, f1, f2p, coords,
                        device=f2p.device)
     df2p.index_add_(0, rows, terms.reshape(-1, C))
     return df1, df2p.reshape(B, Hp, Wp, C)
+
+
+def _coords_backward(g, f1, levels, coords, radius, scales, sign):
+    """Each level's masked tap dots against the bilinear weights'
+    derivatives (``floor()`` has none), times its scale, in level order."""
+    K = (2 * radius + 1) ** 2
+    dc = 0.0
+    for i, (f2p, sc) in enumerate(zip(levels, _scales(len(levels), scales))):
+        d = _bilinear_coords(
+            g[..., i * K:(i + 1) * K].reshape(g.shape[0], -1, K).float(),
+            *_tap_dots(f1, f2p, coords * sc, radius), sign)
+        dc = dc + sc * d.reshape(coords.shape)
+    return dc
+
+
+def corr_patch_lookup_coords_backward_plain(g, f1, levels, coords,
+                                            radius: int = 3, scales=None):
+    """The VJP of ``corr_patch_lookup_levels`` with respect to ``coords``
+    for the cotangent g (B,h,w,L*(2r+1)^2) -> (B,h,w,2) f32: level by
+    level at ``coords * scale``, each level's gradient times its scale,
+    summed in level order."""
+    return _coords_backward(g, f1, levels, coords, radius, scales, -1.0)
+
+
+def corr_patch_lookup_coords_backward_terms(g, f1, levels, coords,
+                                            radius: int = 3, scales=None):
+    """Each coordinate gradient's sum of |terms|: the plain version on |g|,
+    |f1| and |levels| with the corners' terms added, the scale against
+    which a kernel's rounding is held."""
+    return _coords_backward(g.abs(), f1.abs(), [l.abs() for l in levels],
+                            coords, radius, scales, 1.0)
+
+
+def corr_patch_lookup_coords_backward(g, f1, levels, coords, radius: int = 3,
+                                      scales=None):
+    """The coordinates' gradient: one launch of kernel 6's coordinate mode
+    (every level) for CUDA tensors, the plain version for CPU tensors ->
+    (B,h,w,2) f32."""
+    levels = list(levels)
+    if not levels[0].is_cuda:
+        return corr_patch_lookup_coords_backward_plain(g, f1, levels, coords,
+                                                       radius, scales)
+    B, h, w = coords.shape[:3]
+    K = (2 * radius + 1) ** 2
+    name = "corr_patch_lookup_coords_backward"
+    kernels.check_cuda(name, g, f1, *levels, coords,
+                       dtypes=(torch.float32,) + (torch.bfloat16,)
+                       * (1 + len(levels)) + (torch.float32,))
+    _check_levels(name, levels, coords, g, 0, radius, K)
+    P = 2 * radius + 1
+    if (g.shape[-1] != len(levels) * K
+            or tuple(f1.shape) != (B, h * w, 128) or f1.data_ptr() % 16
+            or any(l.dim() != 4 or l.shape[0] != B or l.shape[3] != 128
+                   or min(l.shape[1:3]) <= 2 * P for l in levels)):
+        raise ValueError(f"{name}: bad shapes g {tuple(g.shape)} f1 "
+                         f"{tuple(f1.shape)} levels "
+                         f"{[tuple(l.shape) for l in levels]}")
+    dc = torch.empty((B, h, w, 2), dtype=torch.float32, device=g.device)
+    ptrs, hw, sc = _levels_args(levels, [l.shape[1:3] for l in levels],
+                                _scales(len(levels), scales))
+    kernels.launch(name, f1.data_ptr(), ptrs, hw, sc, len(levels),
+                   coords.data_ptr(), g.data_ptr(), dc.data_ptr(), B, h, w,
+                   radius, PATCH_BOX_BYTES, kernels.stream_ptr(g.device))
+    return dc
 
 
 def corr_patch_lookup_backward_plain(g, f1, levels, coords, radius: int = 3,
@@ -392,8 +488,8 @@ def corr_patch_lookup_backward(g, f1, levels, coords, radius: int = 3,
 
 
 class CorrPatchLookup(torch.autograd.Function):
-    """The four-level patch lookup with kernel 6's backward; no gradient
-    to the coordinates."""
+    """The four-level patch lookup with kernel 6's backward, and the
+    coordinates' gradient where they require it."""
 
     @staticmethod
     def forward(ctx, coords, radius, scales, f1, *levels):
@@ -404,9 +500,13 @@ class CorrPatchLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         coords, f1, *levels = ctx.saved_tensors
+        g = g.contiguous()
         df1, dlevels = corr_patch_lookup_backward(
-            g.contiguous(), f1, levels, coords, ctx.radius, ctx.scales)
-        return (None, None, None, df1, *dlevels)
+            g, f1, levels, coords, ctx.radius, ctx.scales)
+        dc = (corr_patch_lookup_coords_backward(g, f1, levels, coords,
+                                                ctx.radius, ctx.scales)
+              if ctx.needs_input_grad[0] else None)
+        return (dc, None, None, df1, *dlevels)
 
 
 def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
@@ -465,19 +565,13 @@ def corr_patch_lookup_levels(f1, levels: Sequence[torch.Tensor], coords,
     level i into channels [offset + i*49, ...) of ``out`` (B,h,w,C) f32,
     which is made when not given: one launch of kernel 6 for CUDA tensors,
     the plain version level by level for CPU tensors; through
-    ``CorrPatchLookup`` when autograd needs the gradient of ``f1`` or a
-    level."""
+    ``CorrPatchLookup`` when autograd needs the gradient of ``f1``, a
+    level or the coordinates."""
     B, h, w = coords.shape[:3]
     K = (2 * radius + 1) ** 2
     scales = _scales(len(levels), scales)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (f1, coords, *levels)):
-        if coords.requires_grad:
-            raise NotImplementedError(
-                "corr_patch_lookup: the coordinates require grad, and the "
-                "backward gives none to them (codd_tpu's coords carry no "
-                "gradient: they come from the stop-gradient SE(3) field and "
-                "frozen depth)")
         if out is not None or offset:
             raise NotImplementedError("corr_patch_lookup: under autograd "
                                       "the lookup makes its own output")

@@ -2,8 +2,9 @@
 
 Each source is an ``sm_90a`` translation unit with plain C launch
 functions that return their ``cudaError_t`` (``tile_warp.cu``,
-``gn_window.cu`` and ``corr_patch.cu`` hold two: the forward and the
-backward); sources may share code through
+``gn_window.cu``, ``splat_composite.cu`` and ``corr_patch.cu`` hold the
+forward and the backward, ``corr_patch.cu`` also the coordinates'
+gradient); sources may share code through
 the headers in ``csrc/*.cuh``.  ``load()`` compiles every source with its
 own ``nvcc`` process, all started together, into
 ``<repo>/build/kernels/<name>-<content hash>.so`` and opens each library with
@@ -62,6 +63,12 @@ KERNELS = {
                                    "corr_patch_lookup_backward_launch",
                                    [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5
                                    + [_P]),
+    "corr_patch_lookup_coords_backward": (
+        "corr_patch.cu", "corr_patch_lookup_coords_backward_launch",
+        [_P] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_P]),
+    "splat_composite_backward": ("splat_composite.cu",
+                                 "splat_composite_backward_launch",
+                                 [_P] * 10 + [_I] * 5 + [_P]),
 }
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -1,10 +1,10 @@
 """The six CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors, and a small streaming run whose launch
 counts show that every step went through them; the backward of kernels 1,
-5 and 6, the forward-only kernels' raises under autograd, and a training
-step of the stereo, the fusion and the motion stage.  Marked ``gpu``; each test
-skips itself when there is no CUDA card (chip_smoke.py runs the same
-checks at the full 384x1280 shapes).  Torch only, so that it also runs
+4, 5 and 6, the forward-only kernels' raises under autograd, and a
+training step of the stereo, the fusion, the motion and the joint stage.
+Marked ``gpu``; each test skips itself when there is no CUDA card
+(chip_smoke.py runs the same checks at the full 384x1280 shapes).  Torch only, so that it also runs
 where JAX is not installed:
 ``python -m pytest tests/test_torch_gpu.py --noconftest -m gpu``."""
 
@@ -182,9 +182,11 @@ def test_corr_patch_kernel(dev, r, monkeypatch):
            "levels": [l[..., :64].contiguous() for l in pyr["levels"]]}
     with pytest.raises(ValueError):
         corr.corr_lookup(bad, coords, r)
-    with pytest.raises(NotImplementedError):
-        corr.corr_patch_lookup_level(pyr["f1"], pyr["levels"][0],
-                                     coords.clone().requires_grad_(), r)
+    # coordinates that require grad: the same forward, under autograd
+    level0 = corr.corr_patch_lookup_level(pyr["f1"], pyr["levels"][0],
+                                          coords.clone().requires_grad_(), r)
+    assert level0.requires_grad and torch.equal(level0.detach(),
+                                                got[..., :K])
 
 
 def _gn_inputs(dev, h=12, w=72, B=1, scale=1 / 8):
@@ -370,6 +372,90 @@ def test_splat_composite_kernel(dev, C, radius, cluster, ppp):
         splat.composite_form(*args[:5], "walk", ppp)
 
 
+@pytest.mark.parametrize("C,radius,cluster,ppp", [
+    (6, 1.0, False, 8),    # the full-res training call
+    (32, 2.0, False, 8),   # the quarter-res training call
+    (40, 2.0, True, 8),    # runs far past points_per_pixel
+    (6, 1.0, True, 3),
+    (1, 2.0, False, 1)])
+def test_splat_composite_backward_kernel(dev, C, radius, cluster, ppp):
+    """Kernel 4's backward against ``composite_backward_plain`` on random
+    cotangents, each element within 1e-5 of its sum of |terms|
+    (``composite_backward_terms``: f32 sums of at most C products, K
+    fragments or ppp suffix terms against the plain version's f64
+    transmittance and suffix sums, a transmittance T counted
+    (1 + |log T|) times as the kernel sums log T in f32; dalpha's suffix
+    part divides by
+    1 - alpha, down to 1e-4, and its two parts may cancel) plus 2^-122
+    (the plain version's ``index_add_`` adds by float atomics, which flush
+    subnormals to zero on the card: K = 16 of 2^-126); every fragment id
+    written (culled ones 0); two launches equal in bits."""
+    h, w = 48, 80
+    pts, intr, g = _splat_points(dev, h, w, cluster)
+    feat = torch.randn(h * w, C, generator=g).to(dev)
+    order, offsets, alpha, Z = splat.sort_fragments(pts, intr, h, w, radius)
+    gout = torch.randn(h * w, C, generator=g).to(dev)
+    gz = torch.randn(h * w, generator=g).to(dev)
+    args = (order, offsets, alpha, feat, gout, gz, ppp)
+    got = _launched("splat_composite_backward",
+                    lambda: splat.composite_backward(*args))
+    ref = splat.composite_backward_plain(*args)
+    terms = splat.composite_backward_terms(*args)
+    for a, b, t in zip(got, ref, terms):
+        assert torch.isfinite(a).all()
+        assert bool(((a - b).abs() <= 1e-5 * t + 2.0 ** -122).all())
+    assert not got[1][alpha == 0].any()
+    again = splat.composite_backward(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="points_per_pixel"):
+        splat.composite_backward(*args[:6], splat.BWD_PPP + 1)
+
+
+def test_splat_render_under_autograd(dev):
+    """``splat_render`` on points and features that need a gradient runs
+    kernel 4 and its backward once an image each, and its gradients are
+    autograd's through the plain version to 1e-4 of their largest; with
+    no gradient needed, the forward alone."""
+    h, w, C = 48, 80, 6
+    pts, intr, g = _splat_points(dev, h, w, False)
+    feat = torch.randn(2, h * w, C, generator=g).to(dev)
+    pts = torch.stack([pts, pts * 1.01])
+    intr2 = torch.stack([intr, intr])
+    gout = torch.randn(2, h, w, C, generator=g).to(dev)
+    gz = torch.randn(2, h, w, generator=g).to(dev)
+    grads = []
+    for kernel in (True, False):
+        p, f = pts.clone().requires_grad_(), feat.clone().requires_grad_()
+        kernels.reset_counts()
+        if kernel:
+            out, zb = splat.splat_render(p, f, intr2, h, w, 1.0)
+        else:
+            outs, zbs = [], []
+            for b in range(2):
+                order, offsets, alpha, Z = splat.sort_fragments(
+                    p[b], intr2[b], h, w, 1.0)
+                o, z, _ = splat.composite_plain(order, offsets, alpha, Z,
+                                                f[b])
+                outs.append(o.reshape(h, w, C))
+                zbs.append(z.reshape(h, w))
+            out, zb = torch.stack(outs), torch.stack(zbs)
+        ((out * gout).sum() + (zb * gz).sum()).backward()
+        torch.cuda.synchronize()
+        if kernel:
+            assert kernels.counts()["splat_composite"] == 2
+            assert kernels.counts()["splat_composite_backward"] == 2
+        grads.append((p.grad, f.grad))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                   rtol=1e-4)
+    kernels.reset_counts()
+    splat.splat_render(pts, feat, intr2, h, w, 1.0)
+    torch.cuda.synchronize()
+    assert kernels.counts()["splat_composite"] == 2
+    assert kernels.counts()["splat_composite_backward"] == 0
+
+
 def test_streaming_goes_through_the_kernels(dev):
     model = CODD(max_disp=64, iters=2).to(dev).eval()
     g = _g()
@@ -390,7 +476,9 @@ def test_streaming_goes_through_the_kernels(dev):
                                 "corr_patch_lookup": 0,
                                 "tile_warp_cost_backward": 0,
                                 "gn_window_aggregate_backward": 0,
-                                "corr_patch_lookup_backward": 0}
+                                "corr_patch_lookup_backward": 0,
+                                "splat_composite_backward": 0,
+                                "corr_patch_lookup_coords_backward": 0}
     assert torch.isfinite(out["pred_disp"]).all()
 
 
@@ -416,7 +504,9 @@ def test_bf16_streaming_goes_through_the_kernels(dev):
                                 "corr_patch_lookup": 0,
                                 "tile_warp_cost_backward": 0,
                                 "gn_window_aggregate_backward": 0,
-                                "corr_patch_lookup_backward": 0}
+                                "corr_patch_lookup_backward": 0,
+                                "splat_composite_backward": 0,
+                                "corr_patch_lookup_coords_backward": 0}
     assert carry.memory_disp.dtype == out["pred_disp"].dtype == torch.float32
     assert out["pred_curr"].dtype == out["Ts"].dtype == torch.bfloat16
     assert all(torch.isfinite(v.float()).all() for v in out.values())
@@ -458,7 +548,9 @@ def test_eval_path_goes_through_kernels_5_and_6(dev):
                                 "corr_patch_lookup": 4,
                                 "tile_warp_cost_backward": 0,
                                 "gn_window_aggregate_backward": 0,
-                                "corr_patch_lookup_backward": 0}
+                                "corr_patch_lookup_backward": 0,
+                                "splat_composite_backward": 0,
+                                "corr_patch_lookup_coords_backward": 0}
     assert all(np.isfinite(v) for v in metrics.values())
     assert metrics["count"] > 0
 
@@ -612,6 +704,37 @@ def test_corr_patch_backward_kernel(dev, r, h, w, B, monkeypatch):
     _bf16_within_ulp(corr.corr_patch_lookup_backward(*args), ref)
 
 
+@pytest.mark.parametrize("r,h,w,B", [(3, 12, 40, 2), (3, 13, 37, 4),
+                                     (1, 12, 40, 2)])
+def test_corr_patch_coords_backward_kernel(dev, r, h, w, B, monkeypatch):
+    """The lookup's coordinate gradient against its plain version, four
+    levels, on a coherent and a scattered field with windows wholly and
+    partly outside the levels (ragged tiles where w is not a multiple of 8
+    or h of 4): each element within 1e-5 of its sum of |terms|
+    (``corr_patch_lookup_coords_backward_terms``: the tap dots are f32
+    sums of 128 products in another order, and the derivative takes their
+    differences); the same bits on two launches, and with every block
+    reading its taps from global memory (``PATCH_BOX_BYTES = 0``); a
+    query whose window misses every level has none."""
+    g = _g()
+    f1, f2 = (torch.randn(B, h, w, 128, generator=g).to(dev)
+              for _ in range(2))
+    coords = _corr_coords(dev, r, 2, h, w)
+    coords = torch.cat([coords] * (B // 2)).contiguous()
+    pyr = corr.build_corr_pyramid(f1, f2, 4, r, impl="patch")
+    gout = torch.randn(B, h, w, 4 * (2 * r + 1) ** 2, generator=g).to(dev)
+    args = (gout, pyr["f1"], pyr["levels"], coords, r)
+    got = _launched("corr_patch_lookup_coords_backward",
+                    lambda: corr.corr_patch_lookup_coords_backward(*args))
+    ref = corr.corr_patch_lookup_coords_backward_plain(*args)
+    terms = corr.corr_patch_lookup_coords_backward_terms(*args)
+    assert torch.isfinite(got).all() and float(got.abs().max()) > 0
+    assert bool(((got - ref).abs() <= 1e-5 * terms).all())
+    assert torch.equal(corr.corr_patch_lookup_coords_backward(*args), got)
+    monkeypatch.setattr(corr, "PATCH_BOX_BYTES", 0)
+    assert torch.equal(corr.corr_patch_lookup_coords_backward(*args), got)
+
+
 def test_backward_kernels_under_autograd(dev):
     """Under autograd kernels 5 and 6 run as their Functions: the forward
     kernel and, in backward(), the backward kernel, once each; the
@@ -638,12 +761,24 @@ def test_backward_kernels_under_autograd(dev):
     torch.cuda.synchronize()
     assert kernels.counts()["corr_patch_lookup"] == 1
     assert kernels.counts()["corr_patch_lookup_backward"] == 1
+    assert kernels.counts()["corr_patch_lookup_coords_backward"] == 0
     assert torch.isfinite(a.grad).all() and torch.isfinite(b.grad).all()
+    # coordinates that require grad: the coordinate kernel too, once
+    c = coords.clone().requires_grad_()
+    pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
+    kernels.reset_counts()
+    out = corr.corr_lookup(pyr, c, 3)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_patch_lookup_coords_backward"] == 1
+    assert torch.equal(c.grad, corr.corr_patch_lookup_coords_backward(
+        torch.ones_like(out), pyr["f1"], pyr["levels"], coords, 3))
 
 
 def test_forward_only_kernels_raise_under_autograd(dev):
-    """Kernels 2-4 have no backward, and kernels 5 and 6 none for bf16
-    scores or for the coordinates: asked for such a gradient, each wrapper
+    """Kernels 2 and 3 have no backward, kernel 5 none for bf16 scores,
+    and kernel 4 called directly (``composite``, not ``splat_render``'s
+    ``SplatComposite``) none: asked for such a gradient, each wrapper
     raises instead of returning a tensor cut from the graph; under
     torch.no_grad() the same call launches."""
     g = _g()
@@ -651,7 +786,6 @@ def test_forward_only_kernels_raise_under_autograd(dev):
               for _ in range(2))
     coords = _corr_coords(dev, 3, B=1)
     vols = corr.build_corr_pyramid(f1, f2, 4, 3)
-    pyr = corr.build_corr_pyramid(f1, f2, 4, 3, impl="patch")
     ae, vals = _gn_inputs(dev)
     pts, intr, g = _splat_points(dev, 48, 80, False)
     order, offsets, alpha, Z = splat.sort_fragments(pts, intr, 48, 80, 1.0)
@@ -660,8 +794,6 @@ def test_forward_only_kernels_raise_under_autograd(dev):
     calls = {
         "corr_lookup": lambda grad: corr.corr_lookup(
             [need(v) if grad else v for v in vols], coords, 3),
-        "corr_patch_lookup": lambda grad: corr.corr_lookup(
-            pyr, need(coords) if grad else coords, 3),
         "gn_fused_solve": lambda grad: gn.gn_fused_solve(
             need(ae) if grad else ae, vals),
         "gn_window_aggregate": lambda grad: gn.gn_window_aggregate(
@@ -688,15 +820,20 @@ def _train_batch(dev, B=1, T=2, H=64, W=128):
                                        device=dev)}
 
 
-@pytest.mark.parametrize("stage", ["stereo", "fusion", "motion"])
+@pytest.mark.parametrize("stage", ["stereo", "fusion", "motion", "joint",
+                                   "full"])
 def test_training_step_on_the_card(dev, stage):
     """One step of each stage at 64x128, T=2: the stereo stage launches
     kernel 1 and its backward 9 times a frame; the fusion stage launches
     kernels 1-4 forward only (stereo and motion frozen) and no backward;
     the motion stage (stereo frozen, no fusion, 2 GN iterations, each
     checkpointed) kernels 5 and 6 twice an iteration forward and once
-    backward, kernel 4 twice (forward only) and no volume or fused GN.
-    Finite loss; the frozen parameters keep their bits."""
+    backward, kernel 4 twice (forward only) and no volume or fused GN;
+    the joint stage (stereo frozen, RAFT-3D and fusion trained) the same,
+    with kernel 4's backward after each of its two splats; the full joint
+    stage (nothing frozen) also kernel 1's backward 9 times a frame and
+    the coordinate gradient once an iteration.  Finite loss; the frozen
+    parameters keep their bits."""
     from codd_torch.losses.assembly import LossConfig
     from codd_torch.train import optim, trainer
     if stage == "stereo":
@@ -708,11 +845,19 @@ def test_training_step_on_the_card(dev, stage):
                      freeze_motion=True)
         lc = LossConfig(max_disp=32, stereo=False, motion=False)
         frozen = ("stereo", "motion")
-    else:
+    elif stage == "motion":
         model = CODD(max_disp=32, iters=2, fusion_type="none",
                      freeze_stereo=True)
         lc = LossConfig(max_disp=32, stereo=False, fusion=False)
         frozen = ("stereo",)
+    elif stage == "joint":
+        model = CODD(max_disp=32, iters=2, freeze_stereo=True)
+        lc = LossConfig(max_disp=32, stereo=False, motion_loss_weight=0.5)
+        frozen = ("stereo",)
+    else:
+        model = CODD(max_disp=32, iters=2)
+        lc = LossConfig(max_disp=32, motion_loss_weight=0.5)
+        frozen = ()
     model = model.to(dev)
     params = dict(model.named_parameters())
     before = {k: p.detach().clone() for k, p in params.items()}
@@ -720,7 +865,7 @@ def test_training_step_on_the_card(dev, stage):
     step = trainer.make_train_step(model, tx, lc)
     kernels.reset_counts()
     batch = _train_batch(dev)
-    if stage == "motion":
+    if stage in ("motion", "joint", "full"):
         batch["gt_flow"] = torch.zeros(batch["gt_disp"].shape[:-1] + (2,),
                                        device=dev)
         batch["gt_disp_change"] = torch.zeros_like(batch["gt_disp"])
@@ -737,12 +882,18 @@ def test_training_step_on_the_card(dev, stage):
         assert min(counts["corr_lookup"], counts["gn_fused_solve"],
                    counts["splat_composite"]) > 0
     else:
-        assert counts == {"tile_warp_cost": 18, "tile_warp_cost_backward": 0,
+        full = stage == "full"
+        assert counts == {"tile_warp_cost": 18,
+                          "tile_warp_cost_backward": 18 if full else 0,
                           "corr_lookup": 0, "gn_fused_solve": 0,
                           "splat_composite": 2, "gn_window_aggregate": 4,
                           "corr_patch_lookup": 4,
                           "gn_window_aggregate_backward": 2,
-                          "corr_patch_lookup_backward": 2}
+                          "corr_patch_lookup_backward": 2,
+                          "splat_composite_backward":
+                              0 if stage == "motion" else 2,
+                          "corr_patch_lookup_coords_backward":
+                              2 if full else 0}
     for k, p in params.items():
         if k.split(".")[0] in frozen:
             assert torch.equal(p.detach(), before[k]), k

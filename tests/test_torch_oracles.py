@@ -155,8 +155,10 @@ def test_step_needs_gt_and_train_raises():
                fusion_type="GTFusion").eval()
     x = torch.zeros(1, 2, 64, 128, 3)
     intr = torch.tensor([[100.0, 100.0, 64.0, 32.0]])
-    with pytest.raises(NotImplementedError):  # a trainable RAFT-3D
-        TCODD(max_disp=64, iters=1)(x, x, intr, train=True)
+    # a trainable RAFT-3D under a trainable fusion: the warped memory is
+    # differentiable (the training splat), no longer a raise
+    outs = TCODD(max_disp=64, iters=1)(x, x, intr, train=True)
+    assert outs[1]["pred_warp"].requires_grad
     with pytest.raises(TypeError):
         tm(x, x, intr)            # GTMotion without ground truth
     with pytest.raises(ValueError):

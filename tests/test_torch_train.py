@@ -664,10 +664,6 @@ def test_non_finite_gradients_are_zeroed(stereo_stage):
 def test_unported_training_raises():
     batch = {k: _t(v[:1]) for k, v in _batch().items()}
     args = (batch["l_img"], batch["r_img"], batch["intrinsics"])
-    motion = build_estimator(_cfg("codd.py", "model.motion.iters=1"),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="12b"):
-        motion(*args, train=True)
     with pytest.raises(NotImplementedError):
         build_estimator(_cfg("stereo.py",
                              "model.runtime.tile_warp_variant=pallas"),

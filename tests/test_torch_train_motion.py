@@ -16,9 +16,9 @@ weights and batches.
   ``jax.value_and_grad``, stereo without gradients; one step of the
   port's ``make_train_step`` against codd_tpu's optimizer on codd_tpu's
   gradients;
-* the raises: ``gn_impl="fused"``, a volume ``corr_impl``,
-  ``gn_bf16_scores`` and coordinates that require grad; joint training
-  names ROADMAP item 12b-ii.
+* the raises: ``gn_impl="fused"``, a volume ``corr_impl`` and
+  ``gn_bf16_scores`` (joint training, with the coordinates' gradient, is
+  ``tests/test_torch_train_joint.py``'s).
 
 One JAX compile of the stage (``value_and_grad``, ~65 s on an 8-core
 CPU); codd_tpu's own ``make_train_step`` compiles the same graph again
@@ -725,28 +725,13 @@ def test_motion_train_step_matches(motion_stage):
 # what the motion stage does not train
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["fused", "volume", "bf16_scores", "coords",
-                                  "joint"])
+@pytest.mark.parametrize("case", ["fused", "volume", "bf16_scores"])
 def test_motion_training_raises(case):
     batch = {k: _t(v) for k, v in _batch(b=1).items()}
     args = (batch["l_img"], batch["r_img"], batch["intrinsics"])
     opts = {"fused": ["model.runtime.gn_impl=fused"],
             "volume": ["model.runtime.corr_impl=volume_reduce"],
             "bf16_scores": ["model.runtime.gn_bf16_scores=True"]}
-    if case == "coords":
-        f1 = torch.randn(1, 4, 8, 128)
-        pyr = tcorr.build_corr_pyramid(f1, f1.clone().requires_grad_(), 2,
-                                       3, impl="patch")
-        coords = torch.rand(1, 4, 8, 2).requires_grad_()
-        with pytest.raises(NotImplementedError, match="coordinates"):
-            tcorr.corr_lookup(pyr, coords, 3)
-        return
-    if case == "joint":
-        model = build_estimator(_cfg("codd.py", "model.motion.iters=1"),
-                                device="cpu")
-        with pytest.raises(NotImplementedError, match="12b-ii"):
-            model(*args, train=True)
-        return
     model = build_estimator(_cfg("stereo_motion.py", "model.motion.iters=1",
                                  *opts[case]), device="cpu")
     with pytest.raises(NotImplementedError):
