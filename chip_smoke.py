@@ -104,6 +104,34 @@ Phases, in order:
      full joint step's own 16, joint gradients beyond 1e-3 of those with
      these two swapped for their plain versions, a stereo gradient in the
      joint stage, or none in the full joint stage.
+  entry: the training entry, ``python -m codd_torch.tools.train``'s path,
+     in this process: a SceneFlow-shaped synthetic dataset (3 sequences x
+     4 frames of 540x960, the train phase's panning plane with its ground
+     truth in closed form: 8-bit PNGs whose rows cycle through the five
+     filter types, PFM disparity, flow and disparity change, a split
+     file), every PNG through the native decoder and through read_png
+     (equal bytes, ms a frame of each); configs/training_config.py with
+     only the data paths, checkpoint.interval=2, evaluation.interval=4
+     and log_interval=1 overridden (codd.py, nothing frozen, 384x768
+     crops, photometric asym, B=4, T=2, Adam 4e-4 MultiGamma, clip 1.0);
+     (a) ``train_estimator(max_steps=4)``, with validation at step 4 on
+     the val split padded to 576x960; (b) a fresh run resumed from ckpt_2
+     to step 4; (c) the CLI for one step in a subprocess; between them,
+     the train phase's full joint step on in-memory batches of the same
+     shape, alone, then with the entry's data work beside it (a batch
+     drawn and dropped a step) in the entry's prefetch thread and in a
+     process of its own: the data's host work without its use.  Per
+     step: loss, grad_norm, host ms (data included) split into the ms
+     spent waiting on the prefetcher, ``to_device`` and the step, and
+     launches; the peak memory, the validation's metric table, ms and
+     launches.  Fails on a non-finite
+     loss, a step whose launches are not the full joint stage's, a
+     validation whose launches are not the default configuration's per
+     frame (phase 4), a checkpoint that does not reload to the saved
+     state in bits, a resumed run that does not start at step 2 with
+     Adam's count 2 on run (a)'s batches, a frozen parameter (the config
+     freezes none), a native decode off read_png's bytes, or a CLI run
+     that exits non-zero.
   bench: ``codd_torch/tools/bench.py`` in this process at 384x1280, a few
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
@@ -1991,6 +2019,28 @@ def stereo_grad_checks(model, lc, batch):
              "1's plain forward and backward")
 
 
+def motion_step_launches():
+    """The motion stage's launches a step: frozen stereo 9 tile warps a
+    frame; 16 GN iterations, each checkpointed, so kernels 5 and 6 run
+    their forward twice and their backward once; both splats of each of
+    the 4 images, forward only."""
+    from codd_torch.ops import kernels
+    return dict(dict.fromkeys(kernels.KERNELS, 0), tile_warp_cost=18,
+                corr_patch_lookup=32, gn_window_aggregate=32,
+                corr_patch_lookup_backward=16,
+                gn_window_aggregate_backward=16, splat_composite=2 * TRAIN_B)
+
+
+def full_joint_step_launches():
+    """The full joint stage's launches a step (configs/models/codd.py,
+    nothing frozen): the motion stage's, kernel 4's backward after each
+    splat, the stereo stage's kernel 1 backward (9 a frame) and the
+    coordinate gradient once a GN iteration."""
+    return dict(motion_step_launches(), splat_composite_backward=2 * TRAIN_B,
+                tile_warp_cost_backward=18,
+                corr_patch_lookup_coords_backward=16)
+
+
 def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
                 profile_to=None):
     """``len(batches)`` training steps, each timed by CUDA events; the
@@ -2094,14 +2144,7 @@ def train_phase(dev, profile_dir=None):
                                ["stereo"])
     motion = train_stage("motion stage", model, opt, lc, mb, ("stereo",),
                          prof("motion"))
-    # a step: frozen stereo 9 tile warps a frame; 16 GN iterations, each
-    # checkpointed, so kernels 5 and 6 run their forward twice and their
-    # backward once; both splats of each of the 4 images, forward only
-    per_step = dict(dict.fromkeys(kernels.KERNELS, 0), tile_warp_cost=18,
-                    corr_patch_lookup=32, gn_window_aggregate=32,
-                    corr_patch_lookup_backward=16,
-                    gn_window_aggregate_backward=16,
-                    splat_composite=2 * TRAIN_B)
+    per_step = motion_step_launches()
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if motion != want:
         fail(f"motion stage: launches {motion} != {want}")
@@ -2131,8 +2174,7 @@ def train_phase(dev, profile_dir=None):
 
     # the whole model trained (configs/models/codd.py as it stands, with
     # schedule_stereo's optimizer, as configs/training_config.py composes
-    # them): the stereo stage's kernel 1 backward, 9 a frame, and the
-    # coordinate gradient once a GN iteration, beside the joint stage's
+    # them)
     cfg = model_cfg("codd.py")
     model, lc = build_model("codd.py"), build_loss_config(cfg)
     joint_grad_checks("full joint stage", model, lc, mb[0],
@@ -2141,15 +2183,414 @@ def train_phase(dev, profile_dir=None):
         4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
     full = train_stage("full joint stage", model, opt, lc, mb,
                        profile_to=prof("joint_full"))
-    want = {k: v * TRAIN_STEPS for k, v in dict(
-        joint_step, tile_warp_cost_backward=18,
-        corr_patch_lookup_coords_backward=16).items()}
+    want = {k: v * TRAIN_STEPS for k, v in full_joint_step_launches().items()}
     if full != want:
         fail(f"full joint stage: launches {full} != {want}")
     del model, opt
     torch.cuda.empty_cache()
     return {k: stereo[k] + fusion[k] + motion[k] + joint[k] + full[k]
             for k in stereo}
+
+
+# ---------------------------------------------------------------------------
+# entry: python -m codd_torch.tools.train's path, through the data pipeline
+# ---------------------------------------------------------------------------
+
+ENTRY_SEQS, ENTRY_FRAMES, ENTRY_H, ENTRY_W = 3, 4, 540, 960
+ENTRY_STEPS = 4
+ENTRY_DIR = Path(__file__).resolve().parent / "build" / "entry_smoke"
+TRAINING_CONFIG = Path(__file__).resolve().parent / "configs" / \
+    "training_config.py"
+
+
+def write_entry_dataset(root: Path) -> Path:
+    """SceneFlow-shaped synthetic data under ``root``: ``ENTRY_SEQS``
+    sequences of ``ENTRY_FRAMES`` 540x960 frames of ``frames()``' panning
+    plane (8-bit PNGs whose rows cycle through the five filter types,
+    encoded with zlib by ``io.write_png``), PFM disparity 8 + t, flow
+    (-2, 0) and disparity change 1, and a split file; returns the split's
+    path."""
+    import torch
+    from codd_torch.data.io import write_pfm, write_png
+    lines = []
+    shape = (ENTRY_H, ENTRY_W)
+    flow = np.zeros(shape + (3,), np.float32)
+    flow[..., 0] = -2.0
+    for s in range(ENTRY_SEQS):
+        seq = frames(ENTRY_FRAMES, "cpu", seed=21 + s, h=ENTRY_H, w=ENTRY_W)
+        for t, pair in enumerate(seq):
+            name = f"{s:02d}/{t:04d}"
+            cols = []
+            for side, img in zip(("left", "right"), pair):
+                (root / side / f"{s:02d}").mkdir(parents=True, exist_ok=True)
+                u8 = (img[0].clamp(0, 1.1) / 1.1 * 255).round().to(
+                    torch.uint8).numpy()
+                write_png(str(root / side / f"{name}.png"), u8)
+                cols.append(f"{side}/{name}.png")
+            for kind, arr in (("disp", np.full(shape, 8.0 + t, np.float32)),
+                              ("flow", flow),
+                              ("disp_change", np.ones(shape, np.float32))):
+                (root / kind / f"{s:02d}").mkdir(parents=True, exist_ok=True)
+                write_pfm(str(root / kind / f"{name}.pfm"), arr)
+                cols.append(f"{kind}/{name}.pfm")
+            lines.append(" ".join(cols))
+    split = root / "split.txt"
+    split.write_text("\n".join(lines) + "\n")
+    return split
+
+
+def decoder_check(root: Path):
+    """Every PNG of the phase through the native decoder and through
+    ``read_png``: equal in every byte; ms a frame of each (and of
+    ``imread``)."""
+    from codd_torch.data import io as dio
+    from codd_torch.data import native
+    paths = sorted(root.rglob("*.png"))
+    native.load_library()
+    t_native = t_plain = t_imread = 0.0
+    for p in paths:
+        t0 = time.perf_counter()
+        a = native.decode(str(p))
+        t1 = time.perf_counter()
+        b = dio.read_png(str(p))
+        t2 = time.perf_counter()
+        c = dio.imread(str(p))
+        t3 = time.perf_counter()
+        t_native, t_plain, t_imread = (t_native + t1 - t0, t_plain + t2 - t1,
+                                       t_imread + t3 - t2)
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or not np.array_equal(a, b) or not np.array_equal(a, c):
+            fail(f"entry: the native decode of {p} differs from read_png")
+    n = len(paths)
+    print(f"  decoder: {n} PNGs of {ENTRY_H}x{ENTRY_W}x3 (rows cycling "
+          f"through filters 0-4) equal in bits to read_png; ms a frame: "
+          f"native decode {1e3 * t_native / n:.2f}, imread "
+          f"{1e3 * t_imread / n:.2f}, read_png {1e3 * t_plain / n:.1f}",
+          flush=True)
+    return 1e3 * t_native / n, 1e3 * t_plain / n
+
+
+def entry_config(root: Path, split: Path):
+    """configs/training_config.py with only the data paths, the checkpoint
+    and evaluation intervals and the log interval overridden; fails if the
+    composition is not the full joint recipe at SceneFlow's shape.
+    Returns the config and the data paths' ``--options``."""
+    from codd_torch.config import load_config
+    paths = [f"data.{part}.{k}={v}" for part in ("train", "val")
+             for k, v in (("data_root", root), ("split", split))]
+    cfg = load_config(str(TRAINING_CONFIG), paths + [
+        "checkpoint.interval=2", f"evaluation.interval={ENTRY_STEPS}",
+        "runtime.log_interval=1"])
+    m, d, sch = cfg["model"], cfg["data"]["train"], cfg["schedule"]
+    want = {"motion": "Motion", "fusion": "Fusion",
+            "frozen": [], "crop_size": (TRAIN_H, TRAIN_W), "photometric": True,
+            "asym": True, "batch_size": TRAIN_B, "num_frames": TRAIN_T,
+            "schedule": ("multi_gamma", 4e-4, 1.0)}
+    got = {"motion": m["motion"]["type"], "fusion": m["fusion"]["type"],
+           "frozen": [k for k, v in (m.get("train_cfg") or {}).items() if v],
+           "crop_size": tuple(d["augment"]["crop_size"]),
+           "photometric": d["augment"]["photometric"],
+           "asym": d["augment"]["asym"], "batch_size": d["batch_size"],
+           "num_frames": d["num_frames"],
+           "schedule": (sch["kind"], sch["base_lr"], sch["grad_clip"])}
+    if got != want:
+        fail(f"entry: configs/training_config.py composed to {got}, "
+             f"not {want}")
+    return cfg, paths
+
+
+def validation_launches(n_seqs: int, T: int):
+    """The default configuration's launches over ``n_seqs`` sequences of
+    ``T`` frames (phase 4's per frame: kernel 1 9 a frame; kernels 2 and
+    3 16, kernel 4 twice, from the second frame on)."""
+    from codd_torch.ops import kernels
+    return dict(dict.fromkeys(kernels.KERNELS, 0),
+                tile_warp_cost=9 * T * n_seqs,
+                corr_lookup=16 * (T - 1) * n_seqs,
+                gn_fused_solve=16 * (T - 1) * n_seqs,
+                splat_composite=2 * (T - 1) * n_seqs)
+
+
+def _load_paced(train_dcfg, ready, go, stop):
+    """In a process of its own: draw the entry's training batches, one
+    each time ``go`` is released, and drop them."""
+    from codd_torch.apis.train import build_dataset_from_cfg
+    from codd_torch.data.loader import batch_iterator
+    it = batch_iterator(build_dataset_from_cfg(train_dcfg, train=True),
+                        TRAIN_B)
+    next(it)
+    ready.set()
+    while not stop.is_set():
+        if go.acquire(timeout=0.1):
+            next(it)
+
+
+def inmemory_steps(label, step, state, batches, beside=None):
+    """The train phase's full joint step on in-memory batches, timed on
+    the host clock up to a synchronize (the entry's ms, without data).
+    ``beside()``, where given, runs before each step: it starts the
+    entry's host work on one batch elsewhere (a thread or a process),
+    which the step does not use."""
+    import torch
+    ms = []
+    for b in batches:
+        t0 = time.perf_counter()
+        if beside is not None:
+            beside()
+        state, logs = step(state, b)
+        loss = float(logs["loss"])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(loss):
+            fail(f"{label}: non-finite loss")
+    torch.cuda.synchronize()
+    print(f"  {label}: full joint step on in-memory batches, host ms "
+          f"{['%.1f' % t for t in ms]}", flush=True)
+    return state, ms
+
+
+def entry_run(label, cfg, work: Path, dev, **kw):
+    """``train_estimator`` on the card; per step its loss, grad_norm, host
+    ms (data included), data wait and launches, and the validation rows
+    with theirs.  Returns (state, step, step rows, validation rows, log
+    lines, crc32 of each batch's left images)."""
+    import zlib
+
+    import torch
+    from codd_torch.apis import train as tapi
+    from codd_torch.ops import kernels
+
+    steps, vals, lines, crcs = [], [], [], []
+    split_ms = {"to_device": [], "step": []}
+
+    class Rows(tapi.MetricLogger):
+        """Each row of metrics.jsonl with the launches since the last."""
+
+        def log(self, step, row):
+            super().log(step, row)
+            launches = kernels.counts()
+            kernels.reset_counts()
+            (vals if "val/ms" in row else steps).append((step, row,
+                                                         launches))
+
+    # the step's parts on the host clock, each up to a synchronize: the
+    # move to the card and make_train_step's step
+    real, real_make, real_log = (tapi.to_device, tapi.make_train_step,
+                                 tapi.MetricLogger)
+
+    def timed(part, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        split_ms[part].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def to_device(batch, device):
+        crcs.append(zlib.crc32(np.ascontiguousarray(batch["l_img"]).data))
+        return timed("to_device", real, batch, device)
+
+    def make_train_step(*args, **kwargs):
+        fn = real_make(*args, **kwargs)
+        return lambda state, batch: timed("step", fn, state, batch)
+
+    tapi.to_device, tapi.make_train_step, tapi.MetricLogger = (
+        to_device, make_train_step, Rows)
+    try:
+        kernels.reset_counts()
+        state, step = tapi.train_estimator(cfg, str(work), device=dev,
+                                           log=lines.append, **kw)
+    finally:
+        tapi.to_device, tapi.make_train_step, tapi.MetricLogger = (
+            real, real_make, real_log)
+    want = full_joint_step_launches()
+    for (s, row, launches), move, fn in zip(steps, split_ms["to_device"],
+                                            split_ms["step"]):
+        print(f"  {label} step {s}: loss {row['loss']:.6f}  grad_norm "
+              f"{row['grad_norm']:.6f}  {row['step_ms']:.1f} ms (host, data "
+              f"included: data wait {row['data_wait_ms']:.1f}, to_device "
+              f"{move:.1f}, the step {fn:.1f})  launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if not np.isfinite(row["loss"]):
+            fail(f"{label}: non-finite loss at step {s}")
+        if launches != want:
+            fail(f"{label}: step {s} launches {launches} != the full joint "
+                 f"stage's {want}")
+    return state, step, steps, vals, lines, crcs
+
+
+def entry_phase(dev):
+    """The training entry on the card (module docstring, phase entry).
+    Returns the launches of runs (a) and (b), summed by kernel."""
+    import shutil
+
+    import torch
+    from codd_torch.models.builder import build_loss_config
+    from codd_torch.train import optim, trainer
+    from codd_torch.train.checkpoint import STATE_FILE
+
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    root = ENTRY_DIR / "data"
+    t0 = time.perf_counter()
+    split = write_entry_dataset(root)
+    print(f"  dataset: {ENTRY_SEQS} sequences x {ENTRY_FRAMES} frames at "
+          f"{ENTRY_H}x{ENTRY_W} written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    decoder_check(root)
+    cfg, paths = entry_config(root, split)
+
+    # the in-memory full joint step, in turns with the entry's runs
+    model = build_model("codd.py")
+    opt = optim.make_optimizer(optim.multi_gamma_schedule(
+        4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
+    step = trainer.make_train_step(model, opt,
+                                   build_loss_config(model_cfg("codd.py")))
+    mstate = trainer.create_train_state(model, opt)
+    mb = motion_batches(2, dev)
+    mstate, mem_ms = inmemory_steps("in-memory (before a)", step, mstate, mb)
+
+    # (a) 4 steps from scratch, checkpoints at 2 and 4, validation at 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, reached, rows_a, vals, lines_a, crc_a = entry_run(
+        "entry (a)", cfg, ENTRY_DIR / "a", dev, max_steps=ENTRY_STEPS)
+    wall_a = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if reached != ENTRY_STEPS or [s for s, _, _ in rows_a] != list(
+            range(1, ENTRY_STEPS + 1)):
+        fail(f"entry (a): reached step {reached}, rows "
+             f"{[s for s, _, _ in rows_a]}")
+    if len(vals) != 1 or vals[0][0] != ENTRY_STEPS:
+        fail(f"entry (a): validation rows {[(s, r) for s, r, _ in vals]} "
+             f"(one at step {ENTRY_STEPS} expected; log {lines_a[-5:]})")
+    _, vrow, vlaunches = vals[0]
+    vwant = validation_launches(ENTRY_SEQS, ENTRY_FRAMES)
+    print(f"  entry (a): validation at step {ENTRY_STEPS} over "
+          f"{ENTRY_SEQS} sequences x {ENTRY_FRAMES} frames padded to 576x960: "
+          f"{vrow['val/ms']:.1f} ms; launches "
+          f"{ {k: v for k, v in vlaunches.items() if v} }", flush=True)
+    print("  " + "\n  ".join(l for line in lines_a if "Summary" in str(line)
+                             or "|" in str(line) for l in
+                             str(line).strip().splitlines()))
+    if vlaunches != vwant:
+        fail(f"entry (a): validation launches {vlaunches} != {vwant}")
+    bad = [k for k, v in vrow.items() if not np.isfinite(v)]
+    if bad or vrow.get("val/count", 0) <= 0:
+        fail(f"entry (a): validation metrics {bad} non-finite or no "
+             f"scene-flow pixels: {vrow}")
+    # the last checkpoint reloads to the state in bits
+    blob = torch.load(ENTRY_DIR / "a" / f"ckpt_{ENTRY_STEPS}" / STATE_FILE,
+                      map_location="cpu", weights_only=True)
+    unequal = [k for k, p in state.params.items()
+               if not torch.equal(blob["params"][k], p.detach().cpu())]
+    for part in ("mu", "nu"):
+        tree = getattr(state.opt_state, part)
+        if sorted(tree) != sorted(blob["opt_state"][part]):
+            fail(f"entry (a): checkpoint {part} keys differ")
+        unequal += [f"{part}.{k}" for k, v in tree.items()
+                    if not torch.equal(blob["opt_state"][part][k], v.cpu())]
+    if unequal or blob["opt_state"]["count"] != ENTRY_STEPS \
+            or blob["step"] != ENTRY_STEPS:
+        fail(f"entry (a): ckpt_{ENTRY_STEPS} differs from the saved state: "
+             f"{unequal[:5]}, count {blob['opt_state']['count']}")
+    if len(state.opt_state.mu) != len(state.params):
+        fail("entry (a): a parameter is frozen (none should be)")
+    print(f"  entry (a): {len(state.params)} params, mu and nu and count "
+          f"{ENTRY_STEPS} reload from ckpt_{ENTRY_STEPS} equal in bits; "
+          f"peak {peak:.2f} GiB; {wall_a:.1f} s for the run", flush=True)
+    del state, blob
+    torch.cuda.empty_cache()
+
+    mstate, ms = inmemory_steps("in-memory (between a and b)", step, mstate,
+                                mb)
+    mem_ms += ms
+
+    # (b) a fresh run resumed from ckpt_2 to step 4
+    state, reached, rows_b, _, lines_b, crc_b = entry_run(
+        "entry (b)", cfg, ENTRY_DIR / "b", dev,
+        resume_from=str(ENTRY_DIR / "a" / "ckpt_2"), max_steps=ENTRY_STEPS)
+    if not any("at step 2" in str(line) for line in lines_b) \
+            or [s for s, _, _ in rows_b] != [3, 4] \
+            or state.opt_state.count != ENTRY_STEPS:
+        fail(f"entry (b): the resumed run did not start at step 2 with "
+             f"Adam's count 2: rows {[s for s, _, _ in rows_b]}, log "
+             f"{lines_b[:2]}")
+    if crc_b != crc_a[2:]:
+        fail(f"entry (b): resumed batches {crc_b} != run (a)'s steps 3-4 "
+             f"{crc_a[2:]}")
+    apart = [rb["loss"] - ra["loss"]
+             for (_, rb, _), (_, ra, _) in zip(rows_b, rows_a[2:])]
+    print("  entry (b): resumed at step 2 (Adam's count 2) on run (a)'s "
+          f"batches of steps 3-4; loss (b) - (a): {apart}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    mstate, ms = inmemory_steps("in-memory (after b)", step, mstate, mb)
+    mem_ms += ms
+    # the same steps with the entry's data work beside them, a batch a
+    # step drawn and dropped: in a thread (the entry's Prefetcher, which
+    # shares the GIL with the launch loop), then in a process of its own
+    # (which shares only the host's cores and memory)
+    import multiprocessing
+    from codd_torch.apis.train import build_dataset_from_cfg
+    from codd_torch.data.loader import Prefetcher, batch_iterator
+    loader = Prefetcher(batch_iterator(build_dataset_from_cfg(
+        cfg["data"]["train"], train=True), TRAIN_B))
+    next(loader)  # the first batch's wait is not a step's
+    next(loader)
+    mstate, thread_ms = inmemory_steps(
+        "in-memory beside the entry's prefetch thread", step, mstate,
+        mb + mb[:1], beside=lambda: next(loader))
+    loader.close()
+    ctx = multiprocessing.get_context("spawn")
+    ready, go, stop = ctx.Event(), ctx.Semaphore(0), ctx.Event()
+    proc = ctx.Process(target=_load_paced, daemon=True,
+                       args=(cfg["data"]["train"], ready, go, stop))
+    proc.start()
+    if not ready.wait(timeout=300):
+        proc.kill()
+        fail("entry: the loading process did not start")
+    mstate, process_ms = inmemory_steps(
+        "in-memory beside a loading process", step, mstate, mb + mb[:1],
+        beside=go.release)
+    stop.set()
+    proc.join(timeout=60)
+    if proc.is_alive():
+        proc.kill()
+    mstate, ms = inmemory_steps("in-memory (last)", step, mstate, mb)
+    mem_ms += ms
+    del mstate, model, step, mb
+    torch.cuda.empty_cache()
+
+    # (c) the CLI, one step, in a subprocess
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "codd_torch.tools.train", str(TRAINING_CONFIG),
+         "--work-dir", str(ENTRY_DIR / "cli"), "--max-steps", "1",
+         "--options", *paths, "evaluation.interval=0"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    out = [line for line in proc.stdout.splitlines() if "step 1/1" in line]
+    print(f"  entry (c): python -m codd_torch.tools.train --max-steps 1: exit "
+          f"{proc.returncode} in {cli_s:.1f} s; {out}", flush=True)
+    if proc.returncode != 0 or not out or "loss=nan" in out[0]:
+        fail(f"entry (c): the CLI failed (exit {proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+
+    entry_ms = [r["step_ms"] for _, r, _ in rows_a[1:] + rows_b]
+    wait_ms = [r["data_wait_ms"] for _, r, _ in rows_a + rows_b]
+    print(f"  entry: median host ms a step {float(np.median(entry_ms)):.1f} "
+          f"(steps 2-4 of a, 3-4 of b, data included) against "
+          f"{float(np.median(mem_ms[1:])):.1f} in memory, "
+          f"{float(np.median(thread_ms)):.1f} beside the prefetch thread, "
+          f"{float(np.median(process_ms)):.1f} beside a loading process; "
+          f"data wait ms "
+          f"{['%.1f' % w for w in wait_ms]}; peak {peak:.2f} GiB; "
+          f"validation {vrow['val/ms']:.1f} ms; {smi_name_power()}",
+          flush=True)
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    return {k: sum(l[k] for _, _, l in rows_a + vals + rows_b)
+            for k in rows_a[0][2]}
 
 
 def bench_phase():
@@ -2270,17 +2711,18 @@ def _category(kernel: str, hand) -> str:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,eval,plain,train,bench",
+    ap.add_argument("--phases",
+                    default="kernels,main,eval,plain,train,entry,bench",
                     help="comma list of kernels, main, eval, plain, train, "
-                         "bench, profile (profile writes chiprun_out/"
+                         "entry, bench, profile (profile writes chiprun_out/"
                          "profile_step*.txt, the bf16 model's too, and "
                          "streams both configurations in turns)")
     ap.add_argument("--steps", type=int, default=3,
                     help="step calls of the main path after first_step")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    unknown = phases - {"kernels", "main", "eval", "plain", "train", "bench",
-                        "profile"}
+    unknown = phases - {"kernels", "main", "eval", "plain", "train", "entry",
+                        "bench", "profile"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
 
@@ -2343,6 +2785,13 @@ def main():
         train_launches = train_phase(dev, Path(__file__).resolve().parent
                                      / "chiprun_out" if "profile" in phases
                                      else None)
+    entry_launches = {}
+    if "entry" in phases:
+        print(f"[entry] python -m codd_torch.tools.train's path: "
+              f"configs/training_config.py on {ENTRY_SEQS}x{ENTRY_FRAMES} "
+              f"PNG frames of {ENTRY_H}x{ENTRY_W}, {ENTRY_STEPS} steps with "
+              "validation, a resume, one CLI step", flush=True)
+        entry_launches = entry_phase(dev)
     bf16_launches = {}
     if "bench" in phases:
         print("[bench] tools/bench.py at 384x1280: f32, bf16, bf16 batch 2",
@@ -2370,12 +2819,14 @@ def main():
             streams_in_turns(dev, model, eval_model)
     # each path was driven with the counts at 0; a kernel's launches are
     # the default path's plus the evaluation path's plus the training
-    # steps' (the backward launches in training only)
+    # steps' plus the training entry's (the backward launches in training
+    # only)
     for r in rows:
         r["route"] = "cuda"
         r["launches"] = (launches.get(r["name"], 0)
                          + eval_launches.get(r["name"], 0)
-                         + train_launches.get(r["name"], 0))
+                         + train_launches.get(r["name"], 0)
+                         + entry_launches.get(r["name"], 0))
         needs = ({"train"} if r["name"].endswith("_backward")
                  else {"main", "eval"})
         if r["launches"] == 0 and needs <= phases:

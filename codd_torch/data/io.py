@@ -1,13 +1,17 @@
 """Format codecs for the supported datasets (host-side, numpy; the port's
 own copy of ``codd_tpu/data/io.py``).
 
-KITTI's 16-bit PNGs go through ``read_png``, a decoder in numpy and the
-standard library's ``zlib``: imageio's PIL backend decodes a 16-bit RGB
-PNG (KITTI flow) to 8 bits.  It covers what ``codd_tpu``'s native decoder
-covers (non-interlaced; 8 or 16 bits; gray, gray+alpha, RGB, RGBA; the
-five filter types).  Other PNGs are read through ``imageio``, imported
-inside the reader: a machine that only streams tensors through the model
-need not have it.
+Every PNG goes through the port's native decoder
+(``codd_torch/data/native.py``): Python's ``zlib`` inflates, a small C++
+library built by g++ on first use reconstructs the filtered rows.  It
+covers non-interlaced PNGs of 8 or 16 bits, gray, gray+alpha, RGB and
+RGBA, with the five filter types, and raises on the rest; 16-bit samples
+keep all their bits (KITTI's flow and disparity).  ``read_png`` is the
+same decoder in numpy, its plain version: Average and Paeth rows run byte
+by byte in Python there, so it is slow on large files and nothing on a
+data path calls it.  Files that are not PNGs go through ``imageio``,
+imported inside ``imread``.  ``write_png`` encodes with ``zlib`` alone,
+its rows cycling through the filter types.
 
 Formats:
   * PFM (SceneFlow/FlyingThings3D disparities)
@@ -31,35 +35,28 @@ import numpy as np
 _FLO_MAGIC = 202021.25
 
 __all__ = [
-    "imread", "read_png", "read_pfm", "write_pfm", "read_flo", "write_flo",
+    "imread", "read_png", "write_png", "png_rows", "png_samples",
+    "read_pfm", "write_pfm", "read_flo", "write_flo",
     "read_sintel_disparity", "read_sintel_segmentation",
     "read_kitti_disparity", "read_kitti_flow", "read_tartanair_npy",
 ]
 
 
 def imread(path) -> np.ndarray:
-    """PNG (or any imageio format) -> array of raw samples.  A PNG whose
-    IHDR says 16-bit colour (RGB or RGBA) goes through ``read_png``:
-    imageio drops its low bytes.  The rest goes through imageio, which
-    reads them right and faster (``read_png`` runs Average and Paeth rows
-    byte by byte)."""
-    if _is_png_16bit_colour(path):
-        return read_png(path)
+    """Image file -> array of raw samples: (H, W) for gray, else (H, W,
+    C), uint8 or uint16.  A PNG goes through the native decoder
+    (``native.decode``), whatever its depth and channels, with no
+    fallback; another format through imageio."""
+    if _is_png(path):
+        from .native import decode
+        return decode(path)
     import imageio.v2 as imageio
     return np.asarray(imageio.imread(path))
 
 
-def _is_png_16bit_colour(path) -> bool:
-    """The signature, then IHDR's bit depth 16 and a colour type with the
-    colour bit (2 RGB, 6 RGBA)."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(26)
-    except (OSError, TypeError):
-        return False
-    return (len(head) == 26 and head[:8] == _PNG_SIGNATURE
-            and head[12:16] == b"IHDR" and head[24] == 16
-            and head[25] in (2, 6))
+def _is_png(path) -> bool:
+    with open(path, "rb") as f:
+        return f.read(8) == _PNG_SIGNATURE
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -86,10 +83,12 @@ def _unfilter_sequential(kind, raw, up, bpp):
     return cur
 
 
-def read_png(path: str) -> np.ndarray:
-    """PNG -> (H, W) for gray, else (H, W, C) raw samples, uint8 or uint16
-    (16-bit samples are big-endian in the file).  Raises ``ValueError`` on
-    what it does not cover: palette, interlaced, 1/2/4-bit."""
+def png_rows(path: str):
+    """Parse a PNG's chunks and inflate its image data: returns
+    ``(rows, height, width, depth, channels)``, ``rows`` the filtered rows
+    as a (height, 1 + stride) uint8 array, a row's filter type first.
+    Raises ``ValueError`` on what the decoders do not cover: palette,
+    interlaced, 1/2/4-bit."""
     with open(path, "rb") as f:
         buf = f.read()
     if buf[:8] != _PNG_SIGNATURE:
@@ -112,12 +111,31 @@ def read_png(path: str) -> np.ndarray:
         raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, "
                          f"color type {color}, interlace {interlace})")
     channels = _PNG_CHANNELS[color]
-    bpp = channels * depth // 8                    # bytes a pixel
-    stride = width * bpp
+    stride = width * channels * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < height * (stride + 1):
         raise ValueError(f"{path}: truncated PNG data")
     rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
+    return rows, height, width, depth, channels
+
+
+def png_samples(px: np.ndarray, height: int, width: int, depth: int,
+                channels: int) -> np.ndarray:
+    """Reconstructed (height, stride) bytes -> the image's samples (16-bit
+    samples are big-endian in the file)."""
+    if depth == 16:
+        px = px.view(">u2").astype(np.uint16)
+    img = px.reshape(height, width, channels)
+    return img[..., 0] if channels == 1 else img
+
+
+def read_png(path: str) -> np.ndarray:
+    """PNG -> (H, W) for gray, else (H, W, C) raw samples, uint8 or uint16:
+    the plain version of ``native.decode``, in numpy (see the module
+    docstring)."""
+    rows, height, width, depth, channels = png_rows(path)
+    stride = rows.shape[1] - 1
+    bpp = channels * depth // 8                    # bytes a pixel
     px = np.empty((height, stride), np.uint8)
     up = np.zeros(stride, np.uint8)
     for y in range(height):
@@ -135,10 +153,47 @@ def read_png(path: str) -> np.ndarray:
         else:
             raise ValueError(f"{path}: bad PNG filter type {kind} in row {y}")
         up = px[y]
-    if depth == 16:
-        px = px.view(">u2").astype(np.uint16)
-    img = px.reshape(height, width, channels)
-    return img[..., 0] if channels == 1 else img
+    return png_samples(px, height, width, depth, channels)
+
+
+def write_png(path: str, img: np.ndarray, filters=(0, 1, 2, 3, 4)) -> None:
+    """(H, W) or (H, W, C) uint8 / uint16 samples (C = 1-4) -> a PNG whose
+    rows take the filter types ``filters`` in turn, as an adaptive
+    encoder's output mixes them; deflated by ``zlib``."""
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    depth = 16 if img.dtype == np.uint16 else 8
+    px = np.ascontiguousarray(img, ">u2" if depth == 16 else np.uint8
+                              ).view(np.uint8).reshape(h, -1).astype(np.int32)
+    bpp = c * depth // 8
+    lead = np.zeros(bpp, np.int32)
+    rows = []
+    for y in range(h):
+        kind = filters[y % len(filters)]
+        x, up = px[y], (px[y - 1] if y else np.zeros_like(px[0]))
+        a = np.concatenate([lead, x[:-bpp]])
+        ul = np.concatenate([lead, up[:-bpp]])
+        if kind == 4:
+            pa, pb = np.abs(up - ul), np.abs(a - ul)
+            pc = np.abs(a + up - 2 * ul)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, up, ul))
+        else:
+            pred = (0 * x, a, up, (a + up) >> 1)[kind]
+        rows.append(bytes([kind])
+                    + ((x - pred) & 255).astype(np.uint8).tobytes())
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+                + chunk(b"IEND", b""))
 
 
 def read_pfm(path: str) -> Tuple[np.ndarray, float]:
@@ -207,12 +262,12 @@ def read_sintel_segmentation(path: str) -> np.ndarray:
 
 def read_kitti_disparity(path: str) -> np.ndarray:
     """16-bit PNG; disparity = value / 256 (0 = invalid)."""
-    return read_png(path).squeeze().astype(np.float32) / 256.0
+    return imread(path).squeeze().astype(np.float32) / 256.0
 
 
 def read_kitti_flow(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """16-bit RGB PNG -> (flow (H,W,2), valid (H,W))."""
-    img = read_png(path).astype(np.float32)
+    img = imread(path).astype(np.float32)
     flow = (img[..., :2] - 2 ** 15) / 64.0
     valid = img[..., 2]
     return flow, valid

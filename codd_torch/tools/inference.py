@@ -12,7 +12,8 @@ as ``inference.py --bf16`` does (flax promotes its bf16 parameters
 against the f32 frames; ``tools/bench.py --bf16`` casts the frames too).
 The model runs on the CUDA card unless ``--device cpu`` is given, and the
 command fails without a card otherwise.  CHECKPOINT is a ``torch.save``d
-``state_dict`` (omit it for seeded random weights).
+``state_dict`` or a training checkpoint's ``ckpt_<step>`` directory (omit
+it for seeded random weights).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Run CODD inference (PyTorch)")
     p.add_argument("config")
     p.add_argument("checkpoint", nargs="?", default=None,
-                   help="torch state_dict file (omit for random weights)")
+                   help="torch state_dict file or ckpt_<step> directory "
+                        "(omit for random weights)")
     p.add_argument("--eval", nargs="?", const="default", default=None,
                    choices=["default", "disp_only", "motion_only"],
                    help="compute metric tables; the optional mode selects "
@@ -55,7 +57,7 @@ def main(argv=None) -> int:
     from ..data.datasets import StereoVideoDataset, build_test_dataset
     from ..data.pipelines import build_test_pipeline
     from ..models.builder import build_estimator
-    from ..utils.checkpoint import load_checkpoint
+    from ..train.checkpoint import restore_params
     from ..utils.precision import round_floats
 
     cfg = load_config(args.config, args.options)
@@ -65,7 +67,7 @@ def main(argv=None) -> int:
         print(f"error: {e} (or run with --device cpu)", file=sys.stderr)
         return 1
     if args.checkpoint:
-        load_checkpoint(model, args.checkpoint)
+        restore_params(args.checkpoint, model)
     if args.bf16:
         round_floats(model, torch.bfloat16)
 

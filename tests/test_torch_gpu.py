@@ -1,8 +1,9 @@
 """The six CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors, and a small streaming run whose launch
 counts show that every step went through them; the backward of kernels 1,
-4, 5 and 6, the forward-only kernels' raises under autograd, and a
-training step of the stereo, the fusion, the motion and the joint stage.
+4, 5 and 6, the forward-only kernels' raises under autograd, a training
+step of the stereo, the fusion, the motion and the joint stage, and one
+step of the training entry from PNG frames (the native decoder beside).
 Marked ``gpu``; each test skips itself when there is no CUDA card
 (chip_smoke.py runs the same checks at the full 384x1280 shapes).  Torch only, so that it also runs
 where JAX is not installed:
@@ -897,3 +898,76 @@ def test_training_step_on_the_card(dev, stage):
     for k, p in params.items():
         if k.split(".")[0] in frozen:
             assert torch.equal(p.detach(), before[k]), k
+
+
+def test_native_png_decoder_beside_the_card(dev, tmp_path):
+    """The PNG codec builds with this machine's g++ and decodes rows of
+    every filter type as read_png does."""
+    import numpy as np
+    from codd_torch.data import io as dio
+    from codd_torch.data import native
+    img = np.random.default_rng(0).integers(0, 256, (23, 31, 3)
+                                            ).astype(np.uint8)
+    p = str(tmp_path / "x.png")
+    dio.write_png(p, img)
+    assert np.array_equal(native.decode(p), img)
+    assert np.array_equal(dio.imread(p), dio.read_png(p))
+
+
+def test_train_estimator_step_on_the_card(dev, tmp_path):
+    """One step of the training entry, PNG frames through the training
+    pipeline (crop, photometric jitter) at 64x128, B=1, T=2, with the full
+    joint model (max_disp 32, 2 GN iterations, nothing frozen): the full
+    joint stage's launches, a finite loss, a checkpoint."""
+    import json
+
+    import numpy as np
+    from codd_torch.apis.train import train_estimator
+    from codd_torch.data.io import write_pfm, write_png
+    rng = np.random.default_rng(1)
+    lines = []
+    for i in range(3):
+        for side in ("left", "right"):
+            (tmp_path / side).mkdir(exist_ok=True)
+            write_png(str(tmp_path / side / f"{i:04d}.png"),
+                       rng.integers(0, 256, (72, 136, 3)).astype(np.uint8))
+        kinds = (("disp", (72, 136)), ("flow", (72, 136, 3)),
+                 ("disp_change", (72, 136)))
+        for kind, shape in kinds:
+            (tmp_path / kind).mkdir(exist_ok=True)
+            write_pfm(str(tmp_path / kind / f"{i:04d}.pfm"),
+                      rng.uniform(1, 20, shape).astype(np.float32))
+        lines.append(" ".join([f"{side}/{i:04d}.png"
+                               for side in ("left", "right")]
+                              + [f"{k}/{i:04d}.pfm" for k, _ in kinds]))
+    (tmp_path / "split.txt").write_text("\n".join(lines) + "\n")
+    cfg = {
+        "model": {"stereo": {"initialization": {"max_disp": 32},
+                             "loss": {"max_disp": 32}},
+                  "motion": {"type": "Motion", "iters": 2,
+                             "loss": {"loss_weight": 0.5}},
+                  "fusion": {"type": "Fusion",
+                             "loss": {"max_disp": 32}}},
+        "data": {"train": {"preset": "scene_flow",
+                           "split": str(tmp_path / "split.txt"),
+                           "data_root": str(tmp_path), "num_frames": 2,
+                           "batch_size": 1, "intrinsics": [100, 100, 68, 36],
+                           "augment": {"crop_size": (64, 128),
+                                       "photometric": True, "asym": True}}},
+        "schedule": {"kind": "constant", "base_lr": 1e-4, "total_steps": 1},
+        "runtime": {"log_interval": 1, "seed": 0},
+        "checkpoint": {"interval": 1}}
+    kernels.reset_counts()
+    state, step = train_estimator(cfg, str(tmp_path / "work"), device="cuda",
+                                  log=lambda *a: None)
+    torch.cuda.synchronize()
+    assert step == 1 and state.opt_state.count == 1
+    rows = (tmp_path / "work" / "metrics.jsonl").read_text().splitlines()
+    assert len(rows) == 1 and np.isfinite(json.loads(rows[0])["loss"])
+    assert kernels.counts() == {
+        "tile_warp_cost": 18, "tile_warp_cost_backward": 18,
+        "corr_lookup": 0, "gn_fused_solve": 0, "splat_composite": 2,
+        "gn_window_aggregate": 4, "corr_patch_lookup": 4,
+        "gn_window_aggregate_backward": 2, "corr_patch_lookup_backward": 2,
+        "splat_composite_backward": 2, "corr_patch_lookup_coords_backward": 2}
+    assert (tmp_path / "work" / "ckpt_1" / "state.pt").exists()

@@ -29,7 +29,10 @@ def _port_files():
     assert {"apis/evaluation.py", "apis/inference.py", "data/datasets.py",
             "data/io.py", "tools/inference.py", "utils/checkpoint.py",
             "models/motion/others.py", "models/fusion/others.py",
-            "ops/metrics.py", "utils/masks.py"} <= names, names
+            "ops/metrics.py", "utils/masks.py", "apis/train.py",
+            "data/loader.py", "data/native.py", "data/pipelines.py",
+            "data/transforms.py", "train/checkpoint.py", "utils/logging.py",
+            "tools/train.py"} <= names, names
     return files + [ROOT / "chip_smoke.py"]
 
 
