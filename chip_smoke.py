@@ -118,13 +118,10 @@ Phases, in order:
      the val split padded to 576x960; (b) a fresh run resumed from ckpt_2
      to step 4; (c) the CLI for one step in a subprocess; between them,
      the train phase's full joint step on in-memory batches of the same
-     shape, alone, then with the entry's data work beside it (a batch
-     drawn and dropped a step) in the entry's prefetch thread and in a
-     process of its own: the data's host work without its use.  Per
-     step: loss, grad_norm, host ms (data included) split into the ms
-     spent waiting on the prefetcher, ``to_device`` and the step, and
-     launches; the peak memory, the validation's metric table, ms and
-     launches.  Fails on a non-finite
+     shape.  Per step: loss, grad_norm, host ms (data included) and the
+     ms spent waiting on the prefetcher, as ``train_estimator`` writes
+     them into metrics.jsonl, and launches; the peak memory, the
+     validation's metric table, ms and launches.  Fails on a non-finite
      loss, a step whose launches are not the full joint stage's, a
      validation whose launches are not the default configuration's per
      frame (phase 4), a checkpoint that does not reload to the saved
@@ -136,6 +133,11 @@ Phases, in order:
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
      and its JSON line; the launches a call must be the main path's.
+  loader (not in the default phases; with entry): the in-memory step
+     with the entry's data work beside it, a batch drawn and dropped a
+     step, in the entry's prefetch thread and in a process of its own
+     (which must draw a batch a step and exit 0): the data's host work
+     without its use.
   profile (not in the default phases): one step of each configuration,
      and of the default one in bf16, under torch.profiler, split by
      category into chiprun_out/profile_step*.txt; both configurations
@@ -2311,18 +2313,21 @@ def validation_launches(n_seqs: int, T: int):
                 splat_composite=2 * (T - 1) * n_seqs)
 
 
-def _load_paced(train_dcfg, ready, go, stop):
+def _load_paced(train_dcfg, n, ready, go, drawn):
     """In a process of its own: draw the entry's training batches, one
-    each time ``go`` is released, and drop them."""
+    each time ``go`` is released, ``n`` in all, and drop them; ``drawn``
+    counts them."""
     from codd_torch.apis.train import build_dataset_from_cfg
     from codd_torch.data.loader import batch_iterator
     it = batch_iterator(build_dataset_from_cfg(train_dcfg, train=True),
                         TRAIN_B)
     next(it)
     ready.set()
-    while not stop.is_set():
-        if go.acquire(timeout=0.1):
-            next(it)
+    for _ in range(n):
+        go.acquire()
+        next(it)
+        with drawn.get_lock():
+            drawn.value += 1
 
 
 def inmemory_steps(label, step, state, batches, beside=None):
@@ -2349,18 +2354,18 @@ def inmemory_steps(label, step, state, batches, beside=None):
 
 
 def entry_run(label, cfg, work: Path, dev, **kw):
-    """``train_estimator`` on the card; per step its loss, grad_norm, host
-    ms (data included), data wait and launches, and the validation rows
-    with theirs.  Returns (state, step, step rows, validation rows, log
-    lines, crc32 of each batch's left images)."""
+    """``train_estimator`` on the card as a user runs it; per step the
+    loss, grad_norm, host ms (data included) and data wait of its own
+    ``metrics.jsonl`` rows, and the launches since the row before, and the
+    validation rows with theirs.  Returns (state, step, step rows,
+    validation rows, log lines, crc32 of the left images of each batch
+    drawn, the init batch first: taken in the prefetch thread)."""
     import zlib
 
-    import torch
     from codd_torch.apis import train as tapi
     from codd_torch.ops import kernels
 
     steps, vals, lines, crcs = [], [], [], []
-    split_ms = {"to_device": [], "step": []}
 
     class Rows(tapi.MetricLogger):
         """Each row of metrics.jsonl with the launches since the last."""
@@ -2372,42 +2377,25 @@ def entry_run(label, cfg, work: Path, dev, **kw):
             (vals if "val/ms" in row else steps).append((step, row,
                                                          launches))
 
-    # the step's parts on the host clock, each up to a synchronize: the
-    # move to the card and make_train_step's step
-    real, real_make, real_log = (tapi.to_device, tapi.make_train_step,
-                                 tapi.MetricLogger)
+    real_iter, real_log = tapi.batch_iterator, tapi.MetricLogger
 
-    def timed(part, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        split_ms[part].append(1e3 * (time.perf_counter() - t0))
-        return out
+    def batch_iterator(*args, **kwargs):
+        for batch in real_iter(*args, **kwargs):
+            crcs.append(zlib.crc32(np.ascontiguousarray(batch["l_img"]).data))
+            yield batch
 
-    def to_device(batch, device):
-        crcs.append(zlib.crc32(np.ascontiguousarray(batch["l_img"]).data))
-        return timed("to_device", real, batch, device)
-
-    def make_train_step(*args, **kwargs):
-        fn = real_make(*args, **kwargs)
-        return lambda state, batch: timed("step", fn, state, batch)
-
-    tapi.to_device, tapi.make_train_step, tapi.MetricLogger = (
-        to_device, make_train_step, Rows)
+    tapi.batch_iterator, tapi.MetricLogger = batch_iterator, Rows
     try:
         kernels.reset_counts()
         state, step = tapi.train_estimator(cfg, str(work), device=dev,
                                            log=lines.append, **kw)
     finally:
-        tapi.to_device, tapi.make_train_step, tapi.MetricLogger = (
-            real, real_make, real_log)
+        tapi.batch_iterator, tapi.MetricLogger = real_iter, real_log
     want = full_joint_step_launches()
-    for (s, row, launches), move, fn in zip(steps, split_ms["to_device"],
-                                            split_ms["step"]):
+    for s, row, launches in steps:
         print(f"  {label} step {s}: loss {row['loss']:.6f}  grad_norm "
               f"{row['grad_norm']:.6f}  {row['step_ms']:.1f} ms (host, data "
-              f"included: data wait {row['data_wait_ms']:.1f}, to_device "
-              f"{move:.1f}, the step {fn:.1f})  launches "
+              f"included; data wait {row['data_wait_ms']:.1f})  launches "
               f"{ {k: v for k, v in launches.items() if v} }", flush=True)
         if not np.isfinite(row["loss"]):
             fail(f"{label}: non-finite loss at step {s}")
@@ -2417,9 +2405,56 @@ def entry_run(label, cfg, work: Path, dev, **kw):
     return state, step, steps, vals, lines, crcs
 
 
-def entry_phase(dev):
-    """The training entry on the card (module docstring, phase entry).
-    Returns the launches of runs (a) and (b), summed by kernel."""
+def loader_beside(cfg, step, mstate, mb):
+    """The in-memory full joint step with the entry's data work beside it,
+    a batch a step drawn and dropped: in the entry's ``Prefetcher`` thread
+    (which shares the GIL with the launch loop), then in a process of its
+    own (which shares only the host's cores and memory).  Fails unless
+    the process drew a batch a step and exited 0.  Returns the state and
+    the host ms a step of each."""
+    import multiprocessing
+
+    from codd_torch.apis.train import build_dataset_from_cfg
+    from codd_torch.data.loader import Prefetcher, batch_iterator
+    batches = mb + mb[:1]
+    loader = Prefetcher(batch_iterator(build_dataset_from_cfg(
+        cfg["data"]["train"], train=True), TRAIN_B))
+    next(loader)  # the first batch's wait is not a step's
+    next(loader)
+    mstate, thread_ms = inmemory_steps(
+        "in-memory beside the entry's prefetch thread", step, mstate,
+        batches, beside=lambda: next(loader))
+    loader.close()
+    ctx = multiprocessing.get_context("spawn")
+    ready, go, drawn = ctx.Event(), ctx.Semaphore(0), ctx.Value("i", 0)
+    proc = ctx.Process(target=_load_paced, daemon=True,
+                       args=(cfg["data"]["train"], len(batches), ready, go,
+                             drawn))
+    proc.start()
+    try:
+        t0 = time.perf_counter()
+        while not ready.wait(timeout=1):
+            if not proc.is_alive() or time.perf_counter() - t0 > 300:
+                fail(f"loader: the loading process did not start (exit "
+                     f"{proc.exitcode})")
+        mstate, process_ms = inmemory_steps(
+            "in-memory beside a loading process", step, mstate, batches,
+            beside=go.release)
+        proc.join(timeout=120)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if proc.exitcode != 0 or drawn.value != len(batches):
+        fail(f"loader: the loading process exited {proc.exitcode} having "
+             f"drawn {drawn.value} of {len(batches)} batches")
+    return mstate, thread_ms, process_ms
+
+
+def entry_phase(dev, loader=False):
+    """The training entry on the card (module docstring, phase entry; with
+    ``loader``, phase loader too).  Returns the launches of runs (a) and
+    (b), summed by kernel."""
     import shutil
 
     import torch
@@ -2514,9 +2549,9 @@ def entry_phase(dev):
         fail(f"entry (b): the resumed run did not start at step 2 with "
              f"Adam's count 2: rows {[s for s, _, _ in rows_b]}, log "
              f"{lines_b[:2]}")
-    if crc_b != crc_a[2:]:
-        fail(f"entry (b): resumed batches {crc_b} != run (a)'s steps 3-4 "
-             f"{crc_a[2:]}")
+    if crc_b[:2] != crc_a[3:5]:
+        fail(f"entry (b): resumed batches {crc_b[:2]} != run (a)'s steps "
+             f"3-4 {crc_a[3:5]}")
     apart = [rb["loss"] - ra["loss"]
              for (_, rb, _), (_, ra, _) in zip(rows_b, rows_a[2:])]
     print("  entry (b): resumed at step 2 (Adam's count 2) on run (a)'s "
@@ -2526,36 +2561,8 @@ def entry_phase(dev):
 
     mstate, ms = inmemory_steps("in-memory (after b)", step, mstate, mb)
     mem_ms += ms
-    # the same steps with the entry's data work beside them, a batch a
-    # step drawn and dropped: in a thread (the entry's Prefetcher, which
-    # shares the GIL with the launch loop), then in a process of its own
-    # (which shares only the host's cores and memory)
-    import multiprocessing
-    from codd_torch.apis.train import build_dataset_from_cfg
-    from codd_torch.data.loader import Prefetcher, batch_iterator
-    loader = Prefetcher(batch_iterator(build_dataset_from_cfg(
-        cfg["data"]["train"], train=True), TRAIN_B))
-    next(loader)  # the first batch's wait is not a step's
-    next(loader)
-    mstate, thread_ms = inmemory_steps(
-        "in-memory beside the entry's prefetch thread", step, mstate,
-        mb + mb[:1], beside=lambda: next(loader))
-    loader.close()
-    ctx = multiprocessing.get_context("spawn")
-    ready, go, stop = ctx.Event(), ctx.Semaphore(0), ctx.Event()
-    proc = ctx.Process(target=_load_paced, daemon=True,
-                       args=(cfg["data"]["train"], ready, go, stop))
-    proc.start()
-    if not ready.wait(timeout=300):
-        proc.kill()
-        fail("entry: the loading process did not start")
-    mstate, process_ms = inmemory_steps(
-        "in-memory beside a loading process", step, mstate, mb + mb[:1],
-        beside=go.release)
-    stop.set()
-    proc.join(timeout=60)
-    if proc.is_alive():
-        proc.kill()
+    if loader:
+        mstate, thread_ms, process_ms = loader_beside(cfg, step, mstate, mb)
     mstate, ms = inmemory_steps("in-memory (last)", step, mstate, mb)
     mem_ms += ms
     del mstate, model, step, mb
@@ -2577,15 +2584,16 @@ def entry_phase(dev):
         fail(f"entry (c): the CLI failed (exit {proc.returncode}):\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
 
-    entry_ms = [r["step_ms"] for _, r, _ in rows_a[1:] + rows_b]
+    # each run's first step waits for its first batch
+    entry_ms = [r["step_ms"] for _, r, _ in rows_a[1:] + rows_b[1:]]
     wait_ms = [r["data_wait_ms"] for _, r, _ in rows_a + rows_b]
+    beside = (f", {float(np.median(thread_ms)):.1f} beside the prefetch "
+              f"thread, {float(np.median(process_ms)):.1f} beside a loading "
+              f"process" if loader else "")
     print(f"  entry: median host ms a step {float(np.median(entry_ms)):.1f} "
-          f"(steps 2-4 of a, 3-4 of b, data included) against "
-          f"{float(np.median(mem_ms[1:])):.1f} in memory, "
-          f"{float(np.median(thread_ms)):.1f} beside the prefetch thread, "
-          f"{float(np.median(process_ms)):.1f} beside a loading process; "
-          f"data wait ms "
-          f"{['%.1f' % w for w in wait_ms]}; peak {peak:.2f} GiB; "
+          f"(steps 2-4 of a, 4 of b, data included) against "
+          f"{float(np.median(mem_ms[1:])):.1f} in memory{beside}; data wait "
+          f"ms {['%.1f' % w for w in wait_ms]}; peak {peak:.2f} GiB; "
           f"validation {vrow['val/ms']:.1f} ms; {smi_name_power()}",
           flush=True)
     shutil.rmtree(ENTRY_DIR, ignore_errors=True)
@@ -2716,15 +2724,19 @@ def main():
                     help="comma list of kernels, main, eval, plain, train, "
                          "entry, bench, profile (profile writes chiprun_out/"
                          "profile_step*.txt, the bf16 model's too, and "
-                         "streams both configurations in turns)")
+                         "streams both configurations in turns), loader "
+                         "(with entry: the in-memory step beside the "
+                         "loader's thread and beside a loading process)")
     ap.add_argument("--steps", type=int, default=3,
                     help="step calls of the main path after first_step")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "main", "eval", "plain", "train", "entry",
-                        "bench", "profile"}
+                        "bench", "profile", "loader"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
+    if "loader" in phases and "entry" not in phases:
+        fail("the loader phase needs the entry phase")
 
     try:
         import torch
@@ -2791,7 +2803,7 @@ def main():
               f"configs/training_config.py on {ENTRY_SEQS}x{ENTRY_FRAMES} "
               f"PNG frames of {ENTRY_H}x{ENTRY_W}, {ENTRY_STEPS} steps with "
               "validation, a resume, one CLI step", flush=True)
-        entry_launches = entry_phase(dev)
+        entry_launches = entry_phase(dev, "loader" in phases)
     bf16_launches = {}
     if "bench" in phases:
         print("[bench] tools/bench.py at 384x1280: f32, bf16, bf16 batch 2",

@@ -79,7 +79,7 @@ def build_dataset_from_cfg(dcfg: Dict[str, Any], train: bool, seed: int = 0):
 
 def _with_rng_state(it, pipeline):
     """Each batch with the pipeline's generator state right after it was
-    drawn (runs in the prefetch thread, under its lock)."""
+    drawn (runs in the prefetch thread)."""
     for batch in it:
         yield batch, pipeline_rng_state(pipeline)
 

@@ -156,10 +156,12 @@ def read_png(path: str) -> np.ndarray:
     return png_samples(px, height, width, depth, channels)
 
 
-def write_png(path: str, img: np.ndarray, filters=(0, 1, 2, 3, 4)) -> None:
+def write_png(path: str, img: np.ndarray, filters=(0, 1, 2, 3, 4),
+              idat_chunks: int = 1) -> None:
     """(H, W) or (H, W, C) uint8 / uint16 samples (C = 1-4) -> a PNG whose
     rows take the filter types ``filters`` in turn, as an adaptive
-    encoder's output mixes them; deflated by ``zlib``."""
+    encoder's output mixes them; deflated by ``zlib`` and split into
+    ``idat_chunks`` IDAT chunks, as encoders may split it."""
     h, w = img.shape[:2]
     c = 1 if img.ndim == 2 else img.shape[2]
     depth = 16 if img.dtype == np.uint16 else 8
@@ -188,11 +190,14 @@ def write_png(path: str, img: np.ndarray, filters=(0, 1, 2, 3, 4)) -> None:
                 + struct.pack(">I", zlib.crc32(tag + data)))
 
     color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    raw = zlib.compress(b"".join(rows))
+    cuts = np.linspace(0, len(raw), idat_chunks + 1).astype(int)
     with open(path, "wb") as f:
         f.write(_PNG_SIGNATURE
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color,
                                              0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+                + b"".join(chunk(b"IDAT", raw[a:b])
+                           for a, b in zip(cuts[:-1], cuts[1:]))
                 + chunk(b"IEND", b""))
 
 

@@ -74,22 +74,21 @@ def batch_iterator(
         epoch += 1
 
 
-class Prefetcher:
-    """Background-thread prefetch queue around any iterator; an error of
-    the iterator is raised in the consumer.  ``close()`` stops the
-    threads."""
+PREFETCH_DEPTH = 2
 
-    def __init__(self, it: Iterator, depth: int = 2, num_threads: int = 1):
+
+class Prefetcher:
+    """One background thread drawing ``it`` in order into a queue of
+    ``PREFETCH_DEPTH`` items; an error of the iterator is raised in the
+    consumer.  ``close()`` stops the thread."""
+
+    def __init__(self, it: Iterator):
         self._it = it
-        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
         self._done = object()
         self._stop = threading.Event()
-        self._threads = []
-        self._lock = threading.Lock()
-        for _ in range(num_threads):
-            t = threading.Thread(target=self._worker, daemon=True)
-            t.start()
-            self._threads.append(t)
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
 
     def _put(self, item) -> None:
         while not self._stop.is_set():
@@ -102,8 +101,7 @@ class Prefetcher:
     def _worker(self):
         while not self._stop.is_set():
             try:
-                with self._lock:
-                    item = next(self._it)
+                item = next(self._it)
             except StopIteration:
                 self._put(self._done)
                 return
@@ -125,8 +123,7 @@ class Prefetcher:
 
     def close(self) -> None:
         self._stop.set()
-        for t in self._threads:
-            t.join()
+        self._thread.join()
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

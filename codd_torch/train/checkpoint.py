@@ -18,8 +18,9 @@ trained parameters only (``train/optim.py``).  Two flows, as in
   * ``--resume-from``: ``restore_checkpoint``, params + optimizer + step
     (and the data stream's position, which ``codd_tpu`` does not keep);
   * ``--load-from``: ``restore_params``, weights only; the optimizer state
-    on disk is ignored.  It also takes a plain ``state_dict`` file
-    (``utils/checkpoint.py``).
+    on disk is ignored.  Given a file, not a ``ckpt_<step>`` directory,
+    it loads a plain ``state_dict`` (inference weights) through
+    ``utils/checkpoint.py:load_checkpoint``.
 
 Files load with ``weights_only=True``.  A missing or an extra key raises.
 """
@@ -32,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..utils.checkpoint import load_checkpoint
 from .optim import AdamState
 from .trainer import TrainState
 
@@ -82,11 +84,14 @@ def _same_keys(what: str, got, want) -> None:
 
 def restore_params(path: str, model: torch.nn.Module) -> None:
     """Weights only, into ``model`` in place (``--load-from``): a training
-    checkpoint's params, or a plain ``state_dict`` file."""
+    checkpoint's ``ckpt_<step>`` directory, or a plain ``state_dict``
+    file through ``load_checkpoint``."""
+    if not os.path.isdir(path):
+        load_checkpoint(model, path)
+        return
     blob = _load(path)
-    sd = blob["params"] if "opt_state" in blob else blob
-    _same_keys("params", sd, model.state_dict())
-    model.load_state_dict(sd, strict=True)
+    _same_keys("params", blob["params"], model.state_dict())
+    model.load_state_dict(blob["params"], strict=True)
 
 
 def restore_checkpoint(path: str, model: torch.nn.Module, state: TrainState

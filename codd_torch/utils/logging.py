@@ -36,16 +36,14 @@ class MetricLogger:
     """Appends scalar dicts to metrics.jsonl and (if importable) streams
     them to TensorBoard under ``work_dir/tb``."""
 
-    def __init__(self, work_dir: str, use_tensorboard: bool = True):
+    def __init__(self, work_dir: str):
         os.makedirs(work_dir, exist_ok=True)
         self._jsonl = open(os.path.join(work_dir, "metrics.jsonl"), "a")
-        self._tb = None
-        if use_tensorboard:
-            try:
-                from torch.utils.tensorboard import SummaryWriter
-                self._tb = SummaryWriter(os.path.join(work_dir, "tb"))
-            except Exception:
-                self._tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self._tb = SummaryWriter(os.path.join(work_dir, "tb"))
+        except Exception:
+            self._tb = None
 
     def log(self, step: int, metrics: Dict[str, Any]):
         row = {"step": int(step), "time": time.time()}

@@ -86,49 +86,6 @@ def test_pfm_and_flo_roundtrip(tmp_path):
         tio.read_pfm(str(tmp_path / "bad.pfm"))
 
 
-def _paeth(a, b, c):
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-
-
-def _write_png(path, img, filters=(0, 1, 2, 3, 4)):
-    """A PNG written by hand (``zlib`` + ``struct``), row y filtered with
-    ``filters[y % len(filters)]``: PIL writes no 16-bit RGB."""
-    import struct
-    import zlib
-    h, w = img.shape[:2]
-    c = 1 if img.ndim == 2 else img.shape[2]
-    depth = 16 if img.dtype == np.uint16 else 8
-    bpp = c * depth // 8
-    px = np.ascontiguousarray(img.astype(">u2" if depth == 16 else "u1")
-                              ).view(np.uint8).reshape(h, w * bpp
-                                                       ).astype(np.int64)
-    out = b""
-    for y in range(h):
-        x = px[y]
-        up = px[y - 1] if y else np.zeros_like(x)
-        a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
-        c_ = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
-        kind = filters[y % len(filters)]
-        pred = (0, a, up, (a + up) // 2, _paeth(a, up, c_))[kind]
-        out += bytes([kind]) + ((x - pred) % 256).astype(np.uint8).tobytes()
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data)))
-
-    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
-                                           0, 0, 0)))
-        raw = zlib.compress(out)  # two IDAT chunks, as encoders may split
-        f.write(chunk(b"IDAT", raw[:len(raw) // 2]))
-        f.write(chunk(b"IDAT", raw[len(raw) // 2:]))
-        f.write(chunk(b"IEND", b""))
-
-
 @pytest.mark.parametrize("kind", ["flow16", "gray16", "rgb8", "ga16",
                                   "rgba8"])
 def test_png_decoder_every_filter(tmp_path, kind):
@@ -146,7 +103,7 @@ def test_png_decoder_every_filter(tmp_path, kind):
     img[2] = img[1]                         # runs that Sub / Up / Paeth see
     img[:, 4] = img[:, 3]
     path = str(tmp_path / f"{kind}.png")
-    _write_png(path, img)
+    tio.write_png(path, img, idat_chunks=2)
     got = tio.read_png(path)
     assert got.dtype == dtype and got.shape == img.shape
     np.testing.assert_array_equal(got, img)
@@ -197,7 +154,7 @@ def test_png_codecs_match(tmp_path):
         tio.read_kitti_disparity(str(tmp_path / "d.png")),
         d16.astype(np.float32) / 256.0)
     f16 = (rng.rand(6, 8, 3) * 60000).astype(np.uint16)
-    _write_png(str(tmp_path / "f.png"), f16)
+    tio.write_png(str(tmp_path / "f.png"), f16, idat_chunks=2)
     flow, valid = tio.read_kitti_flow(str(tmp_path / "f.png"))
     rflow, rvalid = jio.read_kitti_flow(str(tmp_path / "f.png"))
     np.testing.assert_array_equal(
@@ -228,7 +185,7 @@ def test_16bit_colour_png_image_matches(tmp_path, channels):
     img = (rng.rand(6, 9, channels) * 65535).astype(np.uint16)
     img[0, 0] = 0x0102  # a low byte imageio would lose
     path = str(tmp_path / "img16.png")
-    _write_png(path, img)
+    tio.write_png(path, img, idat_chunks=2)
     got = tds._load_image(path)
     np.testing.assert_array_equal(got, jds._load_image(path))
     np.testing.assert_array_equal(got, img[..., :3].astype(np.float32))

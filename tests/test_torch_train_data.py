@@ -182,7 +182,7 @@ def test_batch_iterator_raises_without_a_batch():
 
 
 def test_prefetcher_order_and_loader_error():
-    assert list(loader.Prefetcher(iter(range(7)), depth=2)) == list(range(7))
+    assert list(loader.Prefetcher(iter(range(7)))) == list(range(7))
 
     def broken():
         yield 1
@@ -192,10 +192,10 @@ def test_prefetcher_order_and_loader_error():
     assert next(it) == 1
     with pytest.raises(OSError, match="missing frame"):
         next(it)
-    stuck = loader.Prefetcher(iter(range(100)), depth=1)
+    stuck = loader.Prefetcher(iter(range(100)))
     assert next(stuck) == 0
     stuck.close()  # the worker, blocked on the full queue, stops
-    assert not any(t.is_alive() for t in stuck._threads)
+    assert not stuck._thread.is_alive()
 
 
 def test_to_device_on_the_cpu():

@@ -294,15 +294,15 @@ def test_checkpoint_key_mismatch_raises(port_run, tmp_path):
                       weights_only=True)
     model = build_estimator(port_run["cfg"]["model"], device="cpu",
                             seed=None)
-    extra = dict(blob, params=dict(blob["params"], stray=torch.zeros(1)))
-    torch.save(extra, tmp_path / "extra.pt")
-    with pytest.raises(KeyError, match="stray"):
-        tckpt.restore_params(str(tmp_path / "extra.pt"), model)
     params = dict(blob["params"])
     params.pop(sorted(params)[0])
-    torch.save(dict(blob, params=params), tmp_path / "missing.pt")
-    with pytest.raises(KeyError, match="missing"):
-        tckpt.restore_params(str(tmp_path / "missing.pt"), model)
+    for name, bad, match in (
+            ("extra", dict(blob["params"], stray=torch.zeros(1)), "stray"),
+            ("missing", params, "missing")):
+        (tmp_path / name).mkdir()
+        torch.save(dict(blob, params=bad), tmp_path / name / tckpt.STATE_FILE)
+        with pytest.raises(KeyError, match=match):
+            tckpt.restore_params(str(tmp_path / name), model)
 
 
 def test_bf16_compute_raises_before_a_step(env, tmp_path):
