@@ -103,7 +103,19 @@ Phases, in order:
      on one joint step's own 8 calls or the coordinate gradient on one
      full joint step's own 16, joint gradients beyond 1e-3 of those with
      these two swapped for their plain versions, a stereo gradient in the
-     joint stage, or none in the full joint stage.
+     joint stage, or none in the full joint stage.  Then the stereo and
+     the full joint stage again under bf16 compute
+     (``make_train_step(bf16_compute=True)``: f32 masters, bf16 copies in
+     the step), 5 steps each, after one batch's gradient checks; these
+     fail also on kernel 1 or 1b taking anything but bf16 or another
+     kernel other dtypes than in its f32 stage, 1b off its plain bf16
+     version on the step's own 18 calls, a gradient beyond
+     ``BF16_GRAD_BOUND`` of its norm (counted as at least
+     ``BF16_NORM_FLOOR`` of the largest) from the one with 1b's plain
+     bf16 backward alone (both with 6b's plain backward and deterministic
+     cuDNN and ATen: 6b's atomics are their run-to-run order), launches a
+     step other than the f32 stage's, or a master parameter or Adam
+     moment that is not f32.
   entry: the training entry, ``python -m codd_torch.tools.train``'s path,
      in this process: a SceneFlow-shaped synthetic dataset (3 sequences x
      4 frames of 540x960, the train phase's panning plane with its ground
@@ -116,7 +128,8 @@ Phases, in order:
      crops, photometric asym, B=4, T=2, Adam 4e-4 MultiGamma, clip 1.0);
      (a) ``train_estimator(max_steps=4)``, with validation at step 4 on
      the val split padded to 576x960; (b) a fresh run resumed from ckpt_2
-     to step 4; (c) the CLI for one step in a subprocess; between them,
+     to step 4; (c) the CLI for one step in a subprocess; (d) 2 steps
+     with ``runtime.bf16_compute=True``, no validation; between them,
      the train phase's full joint step on in-memory batches of the same
      shape.  Per step: loss, grad_norm, host ms (data included) and the
      ms spent waiting on the prefetcher, as ``train_estimator`` writes
@@ -127,8 +140,10 @@ Phases, in order:
      frame (phase 4), a checkpoint that does not reload to the saved
      state in bits, a resumed run that does not start at step 2 with
      Adam's count 2 on run (a)'s batches, a frozen parameter (the config
-     freezes none), a native decode off read_png's bytes, or a CLI run
-     that exits non-zero.
+     freezes none), a bf16 run (d) without codd_tpu's bf16 log line or
+     whose ckpt_2 does not hold the f32 masters and moments in bits, a
+     native decode off read_png's bytes, or a CLI run that exits
+     non-zero.
   bench: ``codd_torch/tools/bench.py`` in this process at 384x1280, a few
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
@@ -559,19 +574,107 @@ def tile_warp_backward_check(hyp3, fl, fr, gout):
           + ", ".join(f"{k}: {v:.4f} ms" for k, v in by_group.items())
           + f" (the wrapper takes "
           f"{tile_warp.backward_channel_group(fl.shape[2], C)})")
-    return dict(
+    # read hyp3, fea_l, fea_r, g once; write dhyp3, dfea_l, dfea_r once
+    nbytes = 4 * (2 * hyp3.numel() + 4 * npx * C + gout.numel())
+    # per pixel, channel and offset: lerp, sign, dfea_l, two taps and
+    # dlocal (~12); per pixel the plane (~10)
+    flops = npx * (36 * C + 10)
+    row = dict(
         name="tile_warp_cost_backward", source="codd_torch/csrc/tile_warp.cu",
         replaces="codd_tpu/models/stereo/hitnet.py:260", max_abs_err=err,
         ms=cuda_ms(lambda: tile_warp.tile_warp_cost_backward(
             gout, hyp3, fl, fr)),
         plain_ms=cuda_ms(lambda: tile_warp.tile_warp_cost_backward_plain(
             gout, hyp3, fl, fr)),
-        ms_smooth=ms_smooth,
-        # read hyp3, fea_l, fea_r, g once; write dhyp3, dfea_l, dfea_r once
-        bytes=4 * (2 * hyp3.numel() + 4 * npx * C + gout.numel()),
-        # per pixel, channel and offset: lerp, sign, dfea_l, two taps and
-        # dlocal (~12); per pixel the plane (~10)
-        flops=npx * (36 * C + 10), library_ms=None)
+        ms_smooth=ms_smooth, bytes=nbytes, flops=flops, library_ms=None)
+    row.update(tile_warp_backward_bf16(hyp3, smooth, fl, fr, gout, nbytes,
+                                       flops))
+    return row
+
+
+def tile_warp_backward_bf16_compare(label, args, quiet=False):
+    """The bf16 backward kernel against its plain version on ``args`` (g,
+    hyp3, fea_l, fea_r in bf16): dhyp3 and dfea_l equal in bits (the same
+    bf16 steps in the same order); dfea_r within one bf16 ulp of the plain
+    value plus n 2^-24 of its sum of |terms| (both sum a column's n tap
+    cotangents in f32, in other orders, and round once); all three equal
+    in bits on two launches.  Returns (max |err|, the share of dfea_r off
+    the plain version's bits)."""
+    import torch
+    from codd_torch.ops import tile_warp
+    got = tile_warp.tile_warp_cost_backward(*args)
+    again = tile_warp.tile_warp_cost_backward(*args)
+    ref = tile_warp.tile_warp_cost_backward_plain(*args)
+    terms, n = tile_warp.tile_warp_cost_backward_terms(args[0], args[1],
+                                                      args[3])
+    torch.cuda.synchronize()
+    if any(a.dtype != torch.bfloat16 for a in got):
+        fail(f"tile_warp_cost_backward bf16 {label}: dtypes "
+             f"{[a.dtype for a in got]}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"tile_warp_cost_backward bf16 {label}: two launches differ")
+    for n_, a, b in zip(("dhyp3", "dfea_l"), got[:2], ref[:2]):
+        if not torch.equal(a, b):
+            fail(f"tile_warp_cost_backward bf16 {label}: {n_} is not the "
+                 "plain backward's bits")
+    diff = (got[2].float() - ref[2].float()).abs()
+    allow = 2.0 ** -7 * ref[2].float().abs() + n * 2.0 ** -24 * terms
+    if not torch.isfinite(got[2]).all() or bool((diff > allow).any()):
+        fail(f"tile_warp_cost_backward bf16 {label}: dfea_r beyond one bf16 "
+             "ulp of its plain version")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    off = float((diff > 0).float().mean())
+    if not quiet:
+        print(f"  tile_warp_cost_backward bf16 {label}: dhyp3, dfea_l equal "
+              f"in bits; dfea_r max |err| {float(diff.max()):.3e} (bound one "
+              f"bf16 ulp + n 2^-24 of its sum of |terms|), off the plain "
+              f"bits {off:.2e}; equal in bits on two launches", flush=True)
+    return err, off
+
+
+def tile_warp_backward_bf16(hyp3, smooth, fl, fr, gout, nbytes, flops):
+    """Kernel 1's backward in bf16 (the VJP of the exact form) on phase 3's
+    inputs rounded to bf16, the random and the smooth field at 384x1280,
+    and at the training call (4 x 384x768, C=16, seeded on its own, the
+    random field): against its plain bf16 version, timed, with the bound of
+    half the f32 row's bytes."""
+    import torch
+    from codd_torch.ops import tile_warp
+    bf = lambda *ts: [t.to(torch.bfloat16) for t in ts]  # noqa: E731
+    g = torch.Generator().manual_seed(3)
+    B4, h, w, C = 4, 384, 768, fl.shape[-1]
+    dev = fl.device
+    train = bf(torch.randn(B4, h // 4, w // 4, 48, generator=g).to(dev),
+               torch.stack([torch.rand(B4, h // 4, w // 4, generator=g) * 192,
+                            torch.rand(B4, h // 4, w // 4, generator=g) * 2
+                            - 1,
+                            torch.rand(B4, h // 4, w // 4, generator=g) * 2
+                            - 1], -1).to(dev),
+               torch.randn(B4, h, w, C, generator=g).to(dev),
+               torch.randn(B4, h, w, C, generator=g).to(dev))
+    cases = {"random": bf(gout, hyp3, fl, fr),
+             "smooth": bf(gout, smooth, fl, fr), "training call": train}
+    errs, offs = zip(*(tile_warp_backward_bf16_compare(k, a)
+                       for k, a in cases.items()))
+    out = dict(max_abs_err_bf16=max(errs), unequal_share_bf16=max(offs))
+    for key, k in (("ms_bf16", "random"), ("ms_bf16_smooth", "smooth"),
+                   ("ms_bf16_train", "training call")):
+        out[key] = cuda_ms(lambda: tile_warp.tile_warp_cost_backward(
+            *cases[k]))
+    out["plain_ms_bf16"] = cuda_ms(
+        lambda: tile_warp.tile_warp_cost_backward_plain(*cases["random"]))
+    out["bound_ms_bf16"], _ = bound_ms(nbytes / 2, flops)
+    t = train
+    out["bound_ms_bf16_train"], _ = bound_ms(
+        2 * (2 * t[1].numel() + 4 * t[2].numel() + t[0].numel()),
+        t[2].numel() // C * (36 * C + 10))
+    print(f"  tile_warp_cost_backward bf16: {out['ms_bf16']:.4f} ms random "
+          f"field, {out['ms_bf16_smooth']:.4f} smooth (bound "
+          f"{out['bound_ms_bf16']:.4f}), {out['ms_bf16_train']:.4f} at the "
+          f"training call (bound {out['bound_ms_bf16_train']:.4f}); plain "
+          f"{out['plain_ms_bf16']:.4f} ms", flush=True)
+    return out
 
 
 def gn_backward_compare(label, got, ref, terms, ae):
@@ -1895,31 +1998,35 @@ def _cut_outputs(x, path, cut):
     return x
 
 
-def stage_grads(model, loss_cfg, batch, cotangents=None):
+def stage_grads(model, loss_cfg, batch, cotangents=None, bf16=False):
     """Loss and every parameter's gradient of one batch, no update, and the
     loss's cotangents at the model's outputs as (output name, tensor).
     With ``cotangents`` (an earlier run's), the backward starts from those
-    at the outputs instead of from this run's loss."""
+    at the outputs instead of from this run's loss.  The forward is the
+    step's own (``trainer.training_forward``), under bf16 compute with
+    ``bf16``."""
     import torch
     from codd_torch.losses.assembly import codd_train_loss
+    from codd_torch.train.trainer import training_forward
     model.zero_grad(set_to_none=True)
-    outs = model(batch["l_img"], batch["r_img"], batch["intrinsics"],
-                 train=True)
-    cuts = []
+    with training_forward(model, bf16) as forward:
+        outs, _ = forward(batch)
+        cuts = []
 
-    def cut(path, t):
-        if not t.requires_grad:
-            return t
-        cuts.append((path, t, t.detach().requires_grad_()))
-        return cuts[-1][2]
+        def cut(path, t):
+            if not t.requires_grad:
+                return t
+            cuts.append((path, t, t.detach().requires_grad_()))
+            return cuts[-1][2]
 
-    loss, _ = codd_train_loss(loss_cfg, _cut_outputs(outs, "", cut), batch)
-    cots = torch.autograd.grad(loss, [c for _, _, c in cuts],
-                               allow_unused=True)
-    cots = [(p, torch.zeros_like(c) if g is None else g)
-            for (p, _, c), g in zip(cuts, cots)]
-    torch.autograd.backward([t for _, t, _ in cuts],
-                            [g for _, g in cotangents or cots])
+        loss, _ = codd_train_loss(loss_cfg, _cut_outputs(outs, "", cut),
+                                  batch)
+        cots = torch.autograd.grad(loss, [c for _, _, c in cuts],
+                                   allow_unused=True)
+        cots = [(p, torch.zeros_like(c) if g is None else g)
+                for (p, _, c), g in zip(cuts, cots)]
+        torch.autograd.backward([t for _, t, _ in cuts],
+                                [g for _, g in cotangents or cots])
     grads = {k: p.grad.detach().clone()
              for k, p in model.named_parameters() if p.grad is not None}
     model.zero_grad(set_to_none=True)
@@ -2021,6 +2128,100 @@ def stereo_grad_checks(model, lc, batch):
              "1's plain forward and backward")
 
 
+@contextlib.contextmanager
+def wrapper_dtypes():
+    """The dtypes of the floating tensors that reach each kernel's wrapper
+    on the card (``kernels.check_cuda``, which every wrapper calls before
+    its launch): yields {kernel: set of dtype tuples}."""
+    from codd_torch.ops import kernels
+    real, seen = kernels.check_cuda, {}
+
+    def keep(name, *tensors, dtypes=None):
+        seen.setdefault(name, set()).add(tuple(
+            str(t.dtype).replace("torch.", "") for t in tensors
+            if t.is_floating_point()))
+        return real(name, *tensors, dtypes=dtypes)
+
+    kernels.check_cuda = keep
+    try:
+        yield seen
+    finally:
+        kernels.check_cuda = real
+
+
+# gradients with the kernels against those with kernel 1's plain bf16
+# backward alone, in bf16 compute: a bound on each tensor's |diff| / |norm|,
+# stated before the first run (PERF.md, PR 14), with each norm counted as
+# at least BF16_NORM_FLOOR of the largest.  The f32 gates' floor is 1e-5;
+# in bf16 the gradients that vanish by invariance (fnet's biases in front
+# of instance norms) are rounding noise of up to 3.0e-5 of the largest
+# norm (1.9e-9 in f32)
+BF16_GRAD_BOUND = 2e-2
+BF16_NORM_FLOOR = 1e-3
+
+
+def bf16_grad_checks(label, model, lc, batch, f32_dtypes):
+    """One batch of a stage under bf16 compute, gradients only, no update.
+    Gated: kernel 1 and its backward take bf16 on every call, every other
+    kernel the dtypes it takes in the f32 stage (``f32_dtypes``: kernels 4,
+    5 and 6 and their backward keep their f32 forms); 1b on each of the
+    step's own calls against its plain bf16 backward (phase 3's bounds);
+    each gradient with the kernels against the one with 1b's plain bf16
+    backward alone, within ``BF16_GRAD_BOUND`` of its norm, a norm counted
+    as at least ``BF16_NORM_FLOOR`` of the largest, both runs with 6b's
+    plain backward and deterministic cuDNN and ATen; printed beside the
+    run-to-run difference of every kernel's own bf16 gradients."""
+    import torch
+    from codd_torch.ops import tile_warp as tw
+    with backward_inputs() as kept, wrapper_dtypes() as seen:
+        lk, gk, _ = stage_grads(model, lc, batch, bf16=True)
+    print(f"  {label}, one batch: the dtypes reaching each kernel's wrapper: "
+          f"{ {k: sorted(v) for k, v in sorted(seen.items())} }", flush=True)
+    for name, sigs in seen.items():
+        if name.startswith("tile_warp"):
+            if any(set(sig) != {"bfloat16"} for sig in sigs):
+                fail(f"{label}: {name} took {sorted(sigs)}, not bf16")
+        elif sigs != f32_dtypes.get(name):
+            fail(f"{label}: {name} took {sorted(sigs)}; in the f32 stage "
+                 f"{sorted(f32_dtypes.get(name, ()))}")
+    if len(kept) != 18:
+        fail(f"{label}: kernel 1's backward ran {len(kept)} times, not 18")
+    worst = 0.0
+    for i, args in enumerate(kept):
+        with torch.no_grad():
+            _, off = tile_warp_backward_bf16_compare(f"{label} call {i}",
+                                                     args, quiet=True)
+        worst = max(worst, off)
+    # the gate's two runs: 6b's atomics across blocks are the one
+    # run-to-run order left once cuDNN and ATen are deterministic, and in
+    # bf16 they move fnet's gradients by ~5e-2 of their norm (call 14), so
+    # both runs take 6b's plain backward
+    from codd_torch.ops import corr
+    with motion_backwards(None, corr.corr_patch_lookup_backward_plain), \
+            deterministic():
+        lg, gg, _ = stage_grads(model, lc, batch, bf16=True)
+        with tile_warp_halves("kernel", "plain"):
+            lp, gp, _ = stage_grads(model, lc, batch, bf16=True)
+    lk2, gk2, _ = stage_grads(model, lc, batch, bf16=True)
+    err, where = grads_apart(gg, gp, BF16_NORM_FLOOR, show=3)
+    noise, _ = grads_apart(gk2, gk, BF16_NORM_FLOOR)
+    top = max(float(g.norm()) for g in gp.values())
+    below = sum(float(g.norm()) < BF16_NORM_FLOOR * top for g in gp.values())
+    print(f"  {label}, one batch, 6b plain and cuDNN and ATen deterministic "
+          f"(loss {lg:.6f}; with 1b's plain bf16 backward {lp:.6f}): worst "
+          f"gradient |diff| / |norm| against 1b's plain bf16 backward "
+          f"{err:.2e} at {where} (bound {BF16_GRAD_BOUND:g}; {len(gp)} "
+          f"tensors, {below} with a norm below the floor of "
+          f"{BF16_NORM_FLOOR:g} of the largest); every kernel, run twice "
+          f"(loss {lk:.6f}, {lk2:.6f}): apart by up to {noise:.2e} (traced); "
+          f"dfea_r off the plain bits on at most {worst:.2e} of a call's "
+          f"elements", flush=True)
+    if set(gp) != set(gk) or set(gg) != set(gk) or err > BF16_GRAD_BOUND:
+        fail(f"{label}: the gradients with kernel 1's bf16 backward "
+             f"disagree with those of its plain bf16 backward: {err:.2e} "
+             f"at {where}")
+
+
 def motion_step_launches():
     """The motion stage's launches a step: frozen stereo 9 tile warps a
     frame; 16 GN iterations, each checkpointed, so kernels 5 and 6 run
@@ -2044,18 +2245,20 @@ def full_joint_step_launches():
 
 
 def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
-                profile_to=None):
+                profile_to=None, bf16=False):
     """``len(batches)`` training steps, each timed by CUDA events; the
     counts are set to 0 just before and read just after.  Fails on a
-    non-finite loss or a frozen parameter that moved.  With
-    ``profile_to``, one more step under torch.profiler afterwards."""
+    non-finite loss or a frozen parameter that moved; with ``bf16``
+    (``make_train_step(bf16_compute=True)``), also on a master parameter
+    or an Adam moment that is not f32.  With ``profile_to``, one more step
+    under torch.profiler afterwards."""
     import torch
     from codd_torch.ops import kernels
     from codd_torch.train import trainer
     params = dict(model.named_parameters())
     kept = {k: p.detach().clone() for k, p in params.items()
             if k.split(".")[0] in frozen}
-    step = trainer.make_train_step(model, opt, loss_cfg)
+    step = trainer.make_train_step(model, opt, loss_cfg, bf16_compute=bf16)
     state = trainer.create_train_state(model, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2080,6 +2283,11 @@ def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
     moved = [k for k, v in kept.items() if not torch.equal(params[k], v)]
     if moved:
         fail(f"{label}: frozen parameters moved: {moved[:5]}")
+    not32 = [k for tree in (state.params, state.opt_state.mu,
+                            state.opt_state.nu)
+             for k, v in tree.items() if v.dtype != torch.float32]
+    if not32:
+        fail(f"{label}: masters or Adam moments not f32: {not32[:5]}")
     print(f"  {label}: {len(batches)} steps at B={TRAIN_B}, T={TRAIN_T}, "
           f"{TRAIN_H}x{TRAIN_W}: ms a step {['%.1f' % t for t in ms]}, "
           f"median of steps 1-{len(ms) - 1} "
@@ -2109,7 +2317,8 @@ def train_phase(dev, profile_dir=None):
     batches = train_batches(TRAIN_STEPS, dev)
     cfg = model_cfg("stereo.py")
     model, lc = build_model("stereo.py"), build_loss_config(cfg)
-    stereo_grad_checks(model, lc, batches[0])
+    with wrapper_dtypes() as stereo_dtypes:
+        stereo_grad_checks(model, lc, batches[0])
     opt = optim.make_optimizer(optim.multi_gamma_schedule(
         4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
     stereo = train_stage("stereo stage", model, opt, lc, batches,
@@ -2179,8 +2388,9 @@ def train_phase(dev, profile_dir=None):
     # them)
     cfg = model_cfg("codd.py")
     model, lc = build_model("codd.py"), build_loss_config(cfg)
-    joint_grad_checks("full joint stage", model, lc, mb[0],
-                      stereo_frozen=False)
+    with wrapper_dtypes() as full_dtypes:
+        joint_grad_checks("full joint stage", model, lc, mb[0],
+                          stereo_frozen=False)
     opt = optim.make_optimizer(optim.multi_gamma_schedule(
         4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
     full = train_stage("full joint stage", model, opt, lc, mb,
@@ -2190,8 +2400,36 @@ def train_phase(dev, profile_dir=None):
         fail(f"full joint stage: launches {full} != {want}")
     del model, opt
     torch.cuda.empty_cache()
+
+    # bf16 compute (runtime.bf16_compute, codd_tpu's mixed precision: f32
+    # masters, bf16 copies in the step): the stereo stage, then the full
+    # joint stage, each with the launches of its f32 stage
+    cfg = model_cfg("stereo.py")
+    model, lc = build_model("stereo.py"), build_loss_config(cfg)
+    bf16_grad_checks("stereo bf16 stage", model, lc, batches[0],
+                     stereo_dtypes)
+    opt = optim.make_optimizer(optim.multi_gamma_schedule(
+        4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
+    stereo16 = train_stage("stereo bf16 stage", model, opt, lc, batches,
+                           profile_to=prof("stereo_bf16"), bf16=True)
+    if stereo16 != stereo:
+        fail(f"stereo bf16 stage: launches {stereo16} != the f32 stage's "
+             f"{stereo}")
+    del model, opt
+    torch.cuda.empty_cache()
+    cfg = model_cfg("codd.py")
+    model, lc = build_model("codd.py"), build_loss_config(cfg)
+    bf16_grad_checks("full joint bf16 stage", model, lc, mb[0], full_dtypes)
+    opt = optim.make_optimizer(optim.multi_gamma_schedule(
+        4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
+    full16 = train_stage("full joint bf16 stage", model, opt, lc, mb,
+                         profile_to=prof("joint_full_bf16"), bf16=True)
+    if full16 != want:
+        fail(f"full joint bf16 stage: launches {full16} != {want}")
+    del model, opt
+    torch.cuda.empty_cache()
     return {k: stereo[k] + fusion[k] + motion[k] + joint[k] + full[k]
-            for k in stereo}
+            + stereo16[k] + full16[k] for k in stereo}
 
 
 # ---------------------------------------------------------------------------
@@ -2568,6 +2806,36 @@ def entry_phase(dev, loader=False):
     del mstate, model, step, mb
     torch.cuda.empty_cache()
 
+    # (d) runtime.bf16_compute: 2 steps, a checkpoint at 2, no validation
+    from codd_torch.config import load_config
+    bcfg = load_config(str(TRAINING_CONFIG), paths + [
+        "checkpoint.interval=2", "evaluation.interval=0",
+        "runtime.log_interval=1", "runtime.bf16_compute=True"])
+    state, reached, rows_d, _, lines_d, _ = entry_run(
+        "entry (d) bf16", bcfg, ENTRY_DIR / "d", dev, max_steps=2)
+    if "bf16 compute enabled (f32 master params)" not in lines_d \
+            or reached != 2 or [s for s, _, _ in rows_d] != [1, 2]:
+        fail(f"entry (d): bf16 line, step {reached} or rows "
+             f"{[s for s, _, _ in rows_d]} missing; log {lines_d[:3]}")
+    blob = torch.load(ENTRY_DIR / "d" / "ckpt_2" / STATE_FILE,
+                      map_location="cpu", weights_only=True)
+    trees = [(state.params, blob["params"])] + [
+        (getattr(state.opt_state, part), blob["opt_state"][part])
+        for part in ("mu", "nu")]
+    bad = [k for mine, saved in trees for k, v in mine.items()
+           if v.dtype != torch.float32 or saved[k].dtype != torch.float32
+           or not torch.equal(saved[k], v.detach().cpu())]
+    bad += [k for k, v in blob["params"].items()
+            if v.is_floating_point() and v.dtype != torch.float32]
+    if bad:
+        fail(f"entry (d): ckpt_2 does not hold the f32 masters and moments "
+             f"in bits: {bad[:5]}")
+    print(f"  entry (d): bf16 compute logged, rows 1-2 written, ckpt_2 "
+          f"holds the {len(state.params)} f32 masters and f32 moments, equal "
+          "in bits", flush=True)
+    del state, blob
+    torch.cuda.empty_cache()
+
     # (c) the CLI, one step, in a subprocess
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2597,7 +2865,7 @@ def entry_phase(dev, loader=False):
           f"validation {vrow['val/ms']:.1f} ms; {smi_name_power()}",
           flush=True)
     shutil.rmtree(ENTRY_DIR, ignore_errors=True)
-    return {k: sum(l[k] for _, _, l in rows_a + vals + rows_b)
+    return {k: sum(l[k] for _, _, l in rows_a + vals + rows_b + rows_d)
             for k in rows_a[0][2]}
 
 
@@ -2851,8 +3119,10 @@ def main():
             "max_abs_err_bf16_exact", "unequal_share_bf16_exact",
             "ms_bf16_exact", "plain_ms_bf16_exact", "max_abs_err_bf16_pallas",
             "unequal_share_bf16_pallas", "ms_bf16_pallas",
-            "plain_ms_bf16_pallas", "bound_ms_bf16", "ms_smooth",
-            "ms_scattered", "one_chunk_share", "global_adds")
+            "plain_ms_bf16_pallas", "bound_ms_bf16", "ms_bf16",
+            "plain_ms_bf16", "max_abs_err_bf16", "unequal_share_bf16",
+            "ms_bf16_smooth", "ms_bf16_train", "bound_ms_bf16_train",
+            "ms_smooth", "ms_scattered", "one_chunk_share", "global_adds")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

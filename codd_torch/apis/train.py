@@ -24,6 +24,10 @@ Where it differs from ``codd_tpu``:
 * the step's logs stay on the device until a log line reads them; a log
   line also has the host ms a step (data included) and the ms a step
   spent waiting on the prefetcher, over the steps since the last line.
+
+``runtime.bf16_compute`` trains in bf16 on f32 masters, as ``codd_tpu``
+does (``train/trainer.py``); validation runs the f32 model, and
+checkpoints hold the f32 masters.
 """
 
 from __future__ import annotations
@@ -124,11 +128,13 @@ def train_estimator(
                          params=dict(model.named_parameters()),
                          frozen_prefixes=frozen)
     # microbatch gradient accumulation (schedule.accum_steps); bf16
-    # training raises here, before any data is drawn
+    # compute on the f32 masters (runtime.bf16_compute)
     accum = int(sched_cfg.get("accum_steps", 1))
-    step_fn = make_train_step(
-        model, opt, loss_cfg, accum_steps=accum,
-        bf16_compute=bool(runtime.get("bf16_compute", False)))
+    bf16 = bool(runtime.get("bf16_compute", False))
+    step_fn = make_train_step(model, opt, loss_cfg, accum_steps=accum,
+                              bf16_compute=bf16)
+    if bf16:
+        log("bf16 compute enabled (f32 master params)")
     state = create_train_state(model, opt)
 
     data_state = None

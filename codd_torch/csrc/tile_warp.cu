@@ -22,10 +22,10 @@
 //   2  bf16 in, bf16 out, "pallas": form 0's f32 body on the widened
 //      inputs (bf16 -> f32 is exact), only the output rounded.
 //
-// Backward (tile_warp_cost_backward_launch, f32 only): the VJP of
+// Backward (tile_warp_cost_backward_launch, forms 0 and 1): the VJP of
 // tile_warping given g = dL/dcost (B, ht, wt, 48).  Per pixel, tap pair
-// (m, m+1) of offset k and s = sign(fea_l - warped) (0 at 0, as the
-// derivative of |x|):
+// (m, m+1) of offset k and s = +1 where fea_l - warped >= 0, -1 elsewhere
+// (JAX's derivative of |x|, select(x >= 0, g, -g)):
 //   dfea_l          += g_k s                     (the pixel's own: stored)
 //   dfea_r[x0-1+m]  -= g_k s (1 - f)             (in-image taps only: a
 //   dfea_r[x0+m]    -= g_k s f                    scatter along the row)
@@ -86,6 +86,36 @@ __device__ __forceinline__ float l1_f32(float l, float a, float b, float g,
   return fabsf(l - __fadd_rn(__fmul_rn(a, g), __fmul_rn(b, f)));
 }
 
+// Form 1's plane of pixel x on row i of its tile: tile_warping's steps in
+// bf16.  The plane offsets are jnp.linspace(-1.5, 1.5, 4, dtype=bf16) =
+// {-1.5, -0.49609375, 0.5, 1.5}; the x grid is a bf16 arange.  The 4-column
+// block starts at clip(x0 - 1 + 3, 0, W + 2) in the 3-column zero-padded
+// row, both sums and the bound W + 2 rounded to bf16, and the gather clamps
+// the start to W + 2 (col0 = start - 3 is the first tap's column); tap m
+// reads the image where x0 - 1 + m lies in [0, W - 1], computed exactly
+// (XLA keeps that sum in f32), and its column does too.
+__device__ __forceinline__ void plane_exact(float d, float sx, float sy,
+                                            int x, int i, int W, float& x0,
+                                            float& f, int& col0,
+                                            bool (&ok)[4]) {
+  const float cs[4] = {-1.5f, -0.49609375f, 0.5f, 1.5f};
+  const float local_d = rb(__fadd_rn(
+      rb(__fadd_rn(d, rb(__fmul_rn(cs[x & 3], sx)))),
+      rb(__fmul_rn(cs[i], sy))));
+  const float p = rb(__fsub_rn(rb((float)x), local_d));
+  x0 = floorf(p);
+  f = rb(__fsub_rn(p, x0));
+  const float s = fminf(
+      fmaxf(rb(__fadd_rn(rb(__fsub_rn(x0, 1.0f)), 3.0f)), 0.0f),
+      rb((float)(W + 2)));
+  col0 = min((int)s, W + 2) - 3;
+  for (int m = 0; m < 4; ++m) {
+    const float xm = x0 - 1.0f + (float)m;
+    const int col = col0 + m;
+    ok[m] = xm >= 0.0f && xm <= (float)(W - 1) && col >= 0 && col < W;
+  }
+}
+
 template <int FORM, typename T>
 __global__ void tile_warp_cost_kernel(const T* __restrict__ hyp3,
                                       const T* __restrict__ fea_l,
@@ -108,26 +138,8 @@ __global__ void tile_warp_cost_kernel(const T* __restrict__ hyp3,
   int col0 = 0;
   bool ok[4];
   if (FORM == 1) {
-    // jnp.linspace(-1.5, 1.5, 4, dtype=bf16) = {-1.5, -0.49609375, 0.5, 1.5}
-    const float cs[4] = {-1.5f, -0.49609375f, 0.5f, 1.5f};
-    float local_d = rb(__fadd_rn(rb(__fadd_rn(d, rb(__fmul_rn(cs[j], sx)))),
-                                 rb(__fmul_rn(cs[i], sy))));
-    float p = rb(__fsub_rn(rb((float)x), local_d));
-    x0 = floorf(p);
-    f = rb(__fsub_rn(p, x0));
+    plane_exact(d, sx, sy, x, i, W, x0, f, col0, ok);
     g = rb(__fsub_rn(1.0f, f));
-    // tile_warping: the 4-column block starts at clip(x0 - 1 + 3, 0, W + 2)
-    // in the 3-column zero-padded row, both sums and the bound W + 2
-    // rounded to bf16; the taps are masked by x0 - 1 + m in [0, W - 1],
-    // computed exactly (XLA keeps that sum in f32)
-    float s = fminf(fmaxf(rb(__fadd_rn(rb(__fsub_rn(x0, 1.0f)), 3.0f)), 0.0f),
-                    rb((float)(W + 2)));
-    col0 = (int)s - 3;
-    for (int m = 0; m < 4; ++m) {
-      float xm = x0 - 1.0f + (float)m;
-      int col = col0 + m;
-      ok[m] = xm >= 0.0f && xm <= (float)(W - 1) && col >= 0 && col < W;
-    }
   } else {
     // to_plane: (d + cx * dx) + cy * dy with c = -1.5, -0.5, 0.5, 1.5
     float cx = (float)j - 1.5f, cy = (float)i - 1.5f;
@@ -226,38 +238,136 @@ int launch(const void* hyp3, const void* fea_l, const void* fea_r, void* out,
   return (int)cudaGetLastError();
 }
 
-__device__ __forceinline__ float sign_of(float v) {
-  return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-}
-
 constexpr int kBwdMaxThreads = 512;
 
 // Shared memory of a row block, in bytes: by sort slot, a pixel's (g_-1,
 // g_0, g_+1, f) (16 W); by pixel, its bin and rank, then its slot (4 W);
-// the bins' starts (4 (W + 4)); dL/d local_d a pixel (4 W); by slot, the
-// signs of l - warped of the channel group a pass takes (cg W).
-__host__ __device__ __forceinline__ size_t bwd_smem_bytes(int W, int cg) {
-  return (size_t)(28 + cg) * W + 16;
+// the bins' starts (4 (W + 4)); dL/d local_d a pixel (4 W); form 1 only,
+// a pixel's six channel sums of df so far, three bf16 pairs (12 W); by
+// slot, the signs of l - warped of the channel group a pass takes (cg W).
+__host__ __device__ __forceinline__ size_t bwd_smem_bytes(int W, int cg,
+                                                          int form) {
+  return (size_t)(28 + (form == 1 ? 12 : 0) + cg) * W + 16;
 }
 
-// A pixel's plane as the forward computes it (round-to-nearest intrinsics,
-// so that floor() and the signs agree): the lerp fraction f and x0.
-__device__ __forceinline__ void bwd_plane(const float* hp, int x, float cy,
-                                          float& f, float& x0) {
-  // to_plane's offsets: a along x (multiplies dx), b along y (dy)
-  const float cx = (float)(x & 3) - 1.5f;
-  const float d = __ldg(hp), sx = __ldg(hp + 1), sy = __ldg(hp + 2);
-  const float local_d =
-      __fadd_rn(__fadd_rn(d, __fmul_rn(cx, sx)), __fmul_rn(cy, sy));
-  const float p = __fsub_rn((float)x, local_d);
-  x0 = floorf(p);
-  f = __fsub_rn(p, x0);
+// A pixel's plane as the forward of FORM computes it (so that floor(), the
+// masks and the signs agree): the lerp fraction f, the first tap's column
+// col0 and the taps' mask, bit m for tap m.  Form 0 reads tap m at column
+// col0 + m wherever it is masked in.
+template <int FORM, typename T>
+__device__ __forceinline__ void bwd_plane(const T* hp, int x, int i, int W,
+                                          float& f, int& col0,
+                                          unsigned& okbits) {
+  const float d = load1(hp), sx = load1(hp + 1), sy = load1(hp + 2);
+  float x0;
+  bool ok[4];
+  if (FORM == 1) {
+    plane_exact(d, sx, sy, x, i, W, x0, f, col0, ok);
+  } else {
+    // to_plane's offsets: a along x (multiplies dx), b along y (dy)
+    const float cx = (float)(x & 3) - 1.5f, cy = (float)i - 1.5f;
+    const float local_d =
+        __fadd_rn(__fadd_rn(d, __fmul_rn(cx, sx)), __fmul_rn(cy, sy));
+    const float p = __fsub_rn((float)x, local_d);
+    x0 = floorf(p);
+    f = __fsub_rn(p, x0);
+    for (int m = 0; m < 4; ++m) {
+      const float xm = x0 - 1.0f + (float)m;
+      ok[m] = (xm >= 0.0f) && (xm <= (float)(W - 1));
+    }
+    // the first tap's column where some tap is in the image
+    col0 = (ok[0] || ok[1] || ok[2] || ok[3]) ? (int)x0 - 1 : 0;
+  }
+  okbits = 0;
+  for (int m = 0; m < 4; ++m) okbits |= (ok[m] ? 1u : 0u) << m;
 }
 
-// 2 bits of a packed sign (1: nonzero, 2: negative) applied to v: s * v
+// 2 bits of a packed sign (1: set, 2: negative) applied to v: s * v
 __device__ __forceinline__ float signed_by(unsigned bits, float v) {
   return (bits & 1u) ? __uint_as_float(__float_as_uint(v) ^ ((bits & 2u) << 30))
                      : 0.f;
+}
+
+// four channels of a pixel as floats (bf16 widens exactly)
+template <typename T>
+__device__ __forceinline__ void load_ch4(const T* p, float (&v)[4]) {
+  const float4 t = load4(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void store_ch4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+// each value rounded once to bf16
+__device__ __forceinline__ void store_ch4(__nv_bfloat16* p,
+                                          const float (&v)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ unsigned bits_of(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bf162_of(unsigned u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// Form 1, four channels of one pixel, two channels an instruction in
+// bf16x2 (each step the f32 step rounded once, as in the forward): the
+// lerps and the signs of l - warped (packed into the returned word, byte
+// kk, bits 2q and 2q + 1 for channel q); dfea_l = (e_+1 + e_0) + e_-1
+// stored; and for each offset kk the channel sums of -e tap_j (lane 0) and
+// -e tap_j+1 (lane 1) in acc[kk], each product rounded and each add, in
+// channel order.  g2[kk]: (g_kk, g_kk) as bf16x2 bits.
+__device__ __forceinline__ unsigned channels_exact(
+    const __nv_bfloat16* fl, const __nv_bfloat16* row, int col0, int C,
+    unsigned okbits, __nv_bfloat162 gf2, __nv_bfloat162 f2,
+    const unsigned (&g2)[3], __nv_bfloat162 (&acc)[3],
+    __nv_bfloat16* dfl) {
+  __nv_bfloat162 l[2], t[4][2];
+  load_pairs(fl, l);
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+  for (int m = 0; m < 4; ++m) {
+    if ((okbits >> m) & 1u) {
+      load_pairs(row + (long long)(col0 + m) * C, t[m]);
+    } else {
+      t[m][0] = zero;
+      t[m][1] = zero;
+    }
+  }
+  unsigned word = 0;
+  uint2 dl;
+  for (int h = 0; h < 2; ++h) {
+    __nv_bfloat162 e[3];
+    // k = -1, 0, +1 lerps the tap pairs starting at 2, 1, 0; |x|'s
+    // cotangent is +g for x >= 0, -g elsewhere (JAX's select)
+    for (int kk = 0; kk < 3; ++kk) {
+      const int m = 2 - kk;
+      const __nv_bfloat162 w = __hadd2_rn(__hmul2_rn(t[m][h], gf2),
+                                          __hmul2_rn(t[m + 1][h], f2));
+      const float2 d = __bfloat1622float2(__hsub2_rn(l[h], w));
+      const bool n0 = !(d.x >= 0.f), n1 = !(d.y >= 0.f);
+      const unsigned eb =
+          g2[kk] ^ (n0 ? 0x8000u : 0u) ^ (n1 ? 0x80000000u : 0u);
+      e[kk] = bf162_of(eb);
+      word |= (n0 ? 3u : 1u) << (8 * kk + 4 * h);
+      word |= (n1 ? 3u : 1u) << (8 * kk + 4 * h + 2);
+      const __nv_bfloat162 ne = bf162_of(eb ^ 0x80008000u);  // -e
+      acc[kk] = __hadd2_rn(acc[kk], __hmul2_rn(
+          __low2bfloat162(ne), __lows2bfloat162(t[m][h], t[m + 1][h])));
+      acc[kk] = __hadd2_rn(acc[kk], __hmul2_rn(
+          __high2bfloat162(ne), __highs2bfloat162(t[m][h], t[m + 1][h])));
+    }
+    const unsigned v = bits_of(__hadd2_rn(__hadd2_rn(e[2], e[1]), e[0]));
+    if (h == 0) dl.x = v; else dl.y = v;
+  }
+  *reinterpret_cast<uint2*>(dfl) = dl;
+  return word;
 }
 
 // One block per image row (b, y), a cluster of 4 blocks per tile row.
@@ -265,9 +375,10 @@ __device__ __forceinline__ float signed_by(unsigned bits, float v) {
 // row of dfea_r and gathers it instead of scattering (a float add into
 // shared memory is a compare-and-swap loop on this card, ATOMS.CAST.SPIN,
 // and 64 a pixel of them set the time):
-//   0. the row's pixels sorted by the bin of their first tap, x0 + 2 for
-//      x0 in [-2, W] (a counting sort: ranks by integer shared atomics,
-//      native, and a scan); a pixel's data lives at its slot;
+//   0. the row's pixels sorted by the bin of their first tap, col0 + 3 in
+//      [0, W + 2] (a counting sort: ranks by integer shared atomics,
+//      native, and a scan); a pixel's data lives at its slot; a pixel with
+//      no tap in the image takes no slot;
 //   1. per channel group of cg channels, each pixel stores its dfea_l,
 //      keeps dlocal (dloc) and packs the sign of l - warped, 2 bits a
 //      channel and offset, at its slot (with its g and f in the first);
@@ -276,12 +387,25 @@ __device__ __forceinline__ float signed_by(unsigned bits, float v) {
 //      and stores the group's channels once, 16 bytes a lane.
 // The cluster's rank 0 reads the four rows' dloc through distributed
 // shared memory and writes each tile's three sums once, in a fixed order.
+//
+// FORM 1 (bf16 in and out, the "exact" form's VJP) keeps that structure
+// and takes each step in the dtypes jax.vjp(tile_warping) gives it: the
+// plane, the lerps and the signs of the forward's form 1; dfea_l the two
+// bf16 adds (e_+1 + e_0) + e_-1; a tap's cotangent its one or two lerp
+// cotangents, each rounded, added in bf16 (the pixel's ok mask rides in
+// the low bits of f, a bf16 value); dfea_r each column's tap cotangents
+// summed in f32 and rounded once; df six channel sums rounded after every
+// add (kept across channel groups in shared memory), combined in the
+// transpose's order; the tile sums of to_plane's transpose rounded after
+// every add.  The sums' order is fixed, so every output but dfea_r is the
+// plain version's bits (ops/tile_warp.py:_backward_exact).
+template <int FORM, typename T>
 __global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kBwdMaxThreads, 2)
 tile_warp_cost_backward_kernel(
-    const float* __restrict__ hyp3, const float* __restrict__ fea_l,
-    const float* __restrict__ fea_r, const float* __restrict__ g,
-    float* __restrict__ dhyp3, float* __restrict__ dfea_l,
-    float* __restrict__ dfea_r, int H, int W, int C, int cg) {
+    const T* __restrict__ hyp3, const T* __restrict__ fea_l,
+    const T* __restrict__ fea_r, const T* __restrict__ g,
+    T* __restrict__ dhyp3, T* __restrict__ dfea_l, T* __restrict__ dfea_r,
+    int H, int W, int C, int cg) {
   extern __shared__ float4 smem4[];
   __shared__ int warp_sum[kBwdMaxThreads / 32];
   cooperative_groups::cluster_group cluster =
@@ -290,25 +414,29 @@ tile_warp_cost_backward_kernel(
   int* slot = reinterpret_cast<int*>(gfv + W);         // [W] by pixel
   int* start = slot + W;                               // [W + 4]
   float* dloc = reinterpret_cast<float*>(start + W + 4);     // [W]
-  unsigned* signs = reinterpret_cast<unsigned*>(dloc + W);   // [cg/4][W]
+  // form 1: by pixel, the three (pa, pb) pairs of its channel sums so far
+  unsigned* part = reinterpret_cast<unsigned*>(dloc + W);    // [3][W]
+  unsigned* signs = part + (FORM == 1 ? 3 * W : 0);          // [cg/4][W]
   const int wt = W / 4, nb = W + 3, nk = cg / 4;
   const int by = blockIdx.x;             // b * H + y
   const int y = by % H, i = y & 3;
   const long long bt = by / 4;           // b * ht + ty
-  const float cy = (float)i - 1.5f;
-  const float* row = fea_r + (long long)by * W * C;
-  float* drow = dfea_r + (long long)by * W * C;
+  const T* row = fea_r + (long long)by * W * C;
+  T* drow = dfea_r + (long long)by * W * C;
   const int nt = blockDim.x, tid = threadIdx.x;
 
   // 0. the counting sort
   for (int k = tid; k <= nb; k += nt) start[k] = 0;
   __syncthreads();
   for (int x = tid; x < W; x += nt) {
-    float f, x0;
-    bwd_plane(hyp3 + (bt * wt + (x >> 2)) * 3, x, cy, f, x0);
+    float f;
+    int col0;
+    unsigned okbits;
+    bwd_plane<FORM>(hyp3 + (bt * wt + (x >> 2)) * 3, x, i, W, f, col0,
+                    okbits);
     int code = -1;  // no tap in the image (also a NaN plane)
-    if (x0 >= -2.0f && x0 <= (float)W) {
-      const int bin = (int)x0 + 2;
+    if (okbits) {
+      const int bin = col0 + 3;
       code = bin << 16 | atomicAdd(start + bin, 1);
     }
     slot[x] = code;
@@ -346,54 +474,94 @@ tile_warp_cost_backward_kernel(
     // 1. (the first pass reads slot[x] as its own thread wrote it)
     for (int x = tid; x < W; x += nt) {
       const long long tile = bt * wt + (x >> 2);
-      float f, x0;
-      bwd_plane(hyp3 + tile * 3, x, cy, f, x0);
-      const float gf = __fsub_rn(1.0f, f);
-      bool ok[4];
-      int col[4];
-      for (int m = 0; m < 4; ++m) {
-        const float xm = x0 - 1.0f + (float)m;
-        ok[m] = (xm >= 0.0f) && (xm <= (float)(W - 1));
-        col[m] = ok[m] ? (int)xm : 0;
-      }
+      float f;
+      int col0;
+      unsigned okbits;
+      bwd_plane<FORM>(hyp3 + tile * 3, x, i, W, f, col0, okbits);
+      const float gf = FORM == 1 ? rb(__fsub_rn(1.0f, f))
+                                 : __fsub_rn(1.0f, f);
       const long long pix = (long long)by * W + x;
-      const float* fl = fea_l + pix * C;
-      float* dfl = dfea_l + pix * C;
-      const float* gp = g + tile * 48 + i * 4 + (x & 3);
-      const float gk[3] = {__ldg(gp), __ldg(gp + 16), __ldg(gp + 32)};
+      const T* fl = fea_l + pix * C;
+      T* dfl = dfea_l + pix * C;
+      const T* gp = g + tile * 48 + i * 4 + (x & 3);
+      const float gk[3] = {load1(gp), load1(gp + 16), load1(gp + 32)};
       const int s = slot[x];
-      if (c0 == 0 && s >= 0) gfv[s] = make_float4(gk[0], gk[1], gk[2], f);
-      float dlocal = 0.f;  // dL/d local_d of this pixel
+      if (c0 == 0 && s >= 0) {
+        // form 1: the taps' mask in the 16 low bits of f, which are 0
+        const float fk = FORM == 1
+            ? __uint_as_float(__float_as_uint(f) | okbits) : f;
+        gfv[s] = make_float4(gk[0], gk[1], gk[2], fk);
+      }
+      // dL/d local_d of this pixel (form 0); form 1: per offset kk the
+      // channel sums of the cotangents of (1 - f) and f so far, a bf16 pair
+      float dlocal = 0.f;
+      __nv_bfloat162 acc[3];
+      unsigned g2[3];
+      if (FORM == 1) {
+        for (int kk = 0; kk < 3; ++kk) {
+          acc[kk] = c0 > 0 ? bf162_of(part[kk * W + x])
+                           : __float2bfloat162_rn(0.f);
+          g2[kk] = bits_of(__float2bfloat162_rn(gk[kk]));
+        }
+      }
       for (int c = c0; c < c0 + cg; c += 4) {
-        const float4 l4 = load4(fl + c);
-        const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
-        float tv[4][4];  // [tap][channel]
-        for (int m = 0; m < 4; ++m) {
-          const float4 t = ok[m] ? load4(row + (long long)col[m] * C + c)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-          tv[m][0] = t.x; tv[m][1] = t.y; tv[m][2] = t.z; tv[m][3] = t.w;
-        }
-        float dl[4] = {0.f, 0.f, 0.f, 0.f};
         unsigned word = 0;  // byte kk, bits 2q, 2q + 1: sign of channel q
-        for (int q = 0; q < 4; ++q) {
-          // k = -1, 0, +1 lerps the tap pairs starting at 2, 1, 0
-          for (int kk = 0; kk < 3; ++kk) {
-            const int m = 2 - kk;
-            const float a = tv[m][q], bb = tv[m + 1][q];
-            const float w = __fadd_rn(__fmul_rn(a, gf), __fmul_rn(bb, f));
-            const float sg = sign_of(__fsub_rn(lv[q], w));
-            const float e = gk[kk] * sg;
-            dl[q] += e;
-            dlocal += e * (bb - a);
-            word |= (sg != 0.f ? 1u : 0u) << (8 * kk + 2 * q);
-            word |= (sg < 0.f ? 2u : 0u) << (8 * kk + 2 * q);
+        if constexpr (FORM == 1) {
+          word = channels_exact(fl + c, row + c, col0, C, okbits,
+                                __float2bfloat162_rn(gf),
+                                __float2bfloat162_rn(f), g2, acc, dfl + c);
+        } else {
+          float lv[4];
+          load_ch4(fl + c, lv);
+          float tv[4][4];  // [tap][channel]
+          for (int m = 0; m < 4; ++m) {
+            if ((okbits >> m) & 1u) {
+              load_ch4(row + (long long)(col0 + m) * C + c, tv[m]);
+            } else {
+              tv[m][0] = tv[m][1] = tv[m][2] = tv[m][3] = 0.f;
+            }
           }
+          float dl[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int q = 0; q < 4; ++q) {
+            // k = -1, 0, +1 lerps the tap pairs starting at 2, 1, 0; |x|'s
+            // cotangent is +g for x >= 0, -g elsewhere (JAX's select)
+            for (int kk = 0; kk < 3; ++kk) {
+              const int m = 2 - kk;
+              const float a = tv[m][q], bb = tv[m + 1][q];
+              const float v = __fsub_rn(lv[q], __fadd_rn(__fmul_rn(a, gf),
+                                                         __fmul_rn(bb, f)));
+              const bool neg = !(v >= 0.f);
+              const float e = neg ? -gk[kk] : gk[kk];
+              word |= (neg ? 3u : 1u) << (8 * kk + 2 * q);
+              dl[q] += e;
+              dlocal += e * (bb - a);
+            }
+          }
+          store_ch4(dfl + c, dl);
         }
-        *reinterpret_cast<float4*>(dfl + c) =
-            make_float4(dl[0], dl[1], dl[2], dl[3]);
         if (s >= 0) signs[((c - c0) >> 2) * W + s] = word;
       }
-      dloc[x] = c0 == 0 ? dlocal : dloc[x] + dlocal;
+      if (FORM == 1) {
+        if (c0 + cg < C) {
+          for (int kk = 0; kk < 3; ++kk) part[kk * W + x] = bits_of(acc[kk]);
+        } else {
+          // df in the transpose's order, then dlocal_d = -df
+          float pa[3], pb[3];
+          for (int kk = 0; kk < 3; ++kk) {
+            const float2 v = __bfloat1622float2(acc[kk]);
+            pa[kk] = v.x;
+            pb[kk] = v.y;
+          }
+          float v = rb(__fsub_rn(pb[2], pa[2]));
+          v = rb(__fadd_rn(v, pb[1]));
+          v = rb(__fsub_rn(v, pa[1]));
+          v = rb(__fadd_rn(v, pb[0]));
+          v = rb(__fsub_rn(v, pa[0]));
+          dloc[x] = -v;
+        }
+      } else {
+        dloc[x] = c0 == 0 ? dlocal : dloc[x] + dlocal;
+      }
     }
     __syncthreads();
     // 2. each (column c, 4 channels): tap m of the slots of bin c + 3 - m
@@ -408,20 +576,48 @@ tile_warp_cost_backward_kernel(
         for (int e = start[c + 3 - m]; e < start[c + 4 - m]; ++e) {
           const float4 gv = gfv[e];
           const float gk4[4] = {gv.x, gv.y, gv.z, 0.f};
-          const float f = gv.w, gf = __fsub_rn(1.0f, f);
+          float f = gv.w;
+          if (FORM == 1) {
+            const unsigned u = __float_as_uint(f);
+            if (!((u >> m) & 1u)) continue;  // tap m masked out
+            f = __uint_as_float(u & 0xffff0000u);
+          }
+          const float gf = FORM == 1 ? rb(__fsub_rn(1.0f, f))
+                                     : __fsub_rn(1.0f, f);
           const float A = ka >= 0 ? gk4[ka >= 0 ? ka : 3] * gf : 0.f;
           const float Bv = kb <= 2 ? gk4[kb <= 2 ? kb : 3] * f : 0.f;
           const unsigned word = sk[e];
-          for (int q = 0; q < 4; ++q) {
-            float v = 0.f;
-            if (ka >= 0) v -= signed_by(word >> (8 * ka + 2 * q), A);
-            if (kb <= 2) v -= signed_by(word >> (8 * kb + 2 * q), Bv);
-            acc[q] += v;
+          if constexpr (FORM == 1) {
+            // each cotangent -(s g)(1 - f) or -(s g) f rounded once; an
+            // inner tap adds its two in bf16, two channels an instruction
+            const unsigned a2 = bits_of(__float2bfloat162_rn(A));
+            const unsigned b2 = bits_of(__float2bfloat162_rn(Bv));
+            for (int q = 0; q < 4; q += 2) {
+              // -(s X): X's sign flipped where s > 0, per lane
+              const unsigned wa = ka >= 0 ? word >> (8 * ka + 2 * q) : 0u;
+              const unsigned wb = kb <= 2 ? word >> (8 * kb + 2 * q) : 0u;
+              const unsigned va = a2 ^ ((wa & 2u) ? 0u : 0x8000u)
+                                     ^ ((wa & 8u) ? 0u : 0x80000000u);
+              const unsigned vb = b2 ^ ((wb & 2u) ? 0u : 0x8000u)
+                                     ^ ((wb & 8u) ? 0u : 0x80000000u);
+              const float2 v = __bfloat1622float2(
+                  ka < 0 ? bf162_of(vb)
+                         : kb > 2 ? bf162_of(va)
+                                  : __hadd2_rn(bf162_of(va), bf162_of(vb)));
+              acc[q] += v.x;
+              acc[q + 1] += v.y;
+            }
+          } else {
+            for (int q = 0; q < 4; ++q) {
+              float v = 0.f;
+              if (ka >= 0) v -= signed_by(word >> (8 * ka + 2 * q), A);
+              if (kb <= 2) v -= signed_by(word >> (8 * kb + 2 * q), Bv);
+              acc[q] += v;
+            }
           }
         }
       }
-      *reinterpret_cast<float4*>(drow + (long long)c * C + c0 + 4 * k) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
+      store_ch4(drow + (long long)c * C + c0 + 4 * k, acc);
     }
     __syncthreads();
   }
@@ -432,24 +628,62 @@ tile_warp_cost_backward_kernel(
   if (cluster.block_rank() == 0) {
     for (int tx = tid; tx < wt; tx += nt) {
       float sd = 0.f, sxx = 0.f, syy = 0.f;
-      for (int r = 0; r < 4; ++r) {
-        const float* dl = cluster.map_shared_rank(dloc, r) + tx * 4;
-        const float ry = (float)r - 1.5f;
+      if (FORM == 1) {
+        // to_plane's transpose in bf16: r by tile column a (a sum over the
+        // rows), q by row b; d = sum_a r, dx = sum_a c_a r, dy = sum_b c_b q
+        const float cs[4] = {-1.5f, -0.49609375f, 0.5f, 1.5f};
+        float r[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int rr = 0; rr < 4; ++rr) {
+          const float* dl = cluster.map_shared_rank(dloc, rr) + tx * 4;
+          for (int jj = 0; jj < 4; ++jj) {
+            r[jj] = rb(__fadd_rn(r[jj], dl[jj]));
+            q[rr] = rb(__fadd_rn(q[rr], dl[jj]));
+          }
+        }
         for (int jj = 0; jj < 4; ++jj) {
-          const float v = dl[jj];
-          sd += v;
-          sxx += ((float)jj - 1.5f) * v;
-          syy += ry * v;
+          sd = rb(__fadd_rn(sd, r[jj]));
+          sxx = rb(__fadd_rn(sxx, rb(__fmul_rn(cs[jj], r[jj]))));
+          syy = rb(__fadd_rn(syy, rb(__fmul_rn(cs[jj], q[jj]))));
+        }
+      } else {
+        for (int rr = 0; rr < 4; ++rr) {
+          const float* dl = cluster.map_shared_rank(dloc, rr) + tx * 4;
+          const float ry = (float)rr - 1.5f;
+          for (int jj = 0; jj < 4; ++jj) {
+            const float v = dl[jj];
+            sd += v;
+            sxx += ((float)jj - 1.5f) * v;
+            syy += ry * v;
+          }
         }
       }
-      float* out = dhyp3 + (bt * wt + tx) * 3;
-      out[0] = sd;
-      out[1] = sxx;
-      out[2] = syy;
+      T* out = dhyp3 + (bt * wt + tx) * 3;
+      store1(out, sd);
+      store1(out + 1, sxx);
+      store1(out + 2, syy);
     }
   }
   // no block leaves while rank 0 may still read its dloc
   cluster.sync();
+}
+
+template <int FORM, typename T>
+int launch_backward(const void* hyp3, const void* fea_l, const void* fea_r,
+                    const void* g, void* dhyp3, void* dfea_l, void* dfea_r,
+                    int B, int H, int W, int C, int cg, cudaStream_t stream) {
+  const size_t bytes = bwd_smem_bytes(W, cg, FORM);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_warp_cost_backward_kernel<FORM, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  // threads: the fewest passes over the row of at most kBwdMaxThreads
+  const int passes = (W + kBwdMaxThreads - 1) / kBwdMaxThreads;
+  const int threads = ((W + passes - 1) / passes + 31) / 32 * 32;
+  tile_warp_cost_backward_kernel<FORM, T><<<(unsigned)(B * H), threads,
+                                            bytes, stream>>>(
+      (const T*)hyp3, (const T*)fea_l, (const T*)fea_r, (const T*)g,
+      (T*)dhyp3, (T*)dfea_l, (T*)dfea_r, H, W, C, cg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -470,28 +704,26 @@ extern "C" int tile_warp_cost_launch(const void* hyp3, const void* fea_l,
   }
 }
 
-// The f32 backward; every output is written in full.  cg: the channels of a
-// pass of the row block, a multiple of 4 that divides C (the shared memory
-// grows with W x cg; ops/tile_warp.py:backward_channel_group chooses it).
+// The backward, every output written in full; form: 0 f32, 1 bf16 "exact"
+// (the "pallas" form has no backward).  cg: the channels of a pass of the
+// row block, a multiple of 4 that divides C (the shared memory grows with
+// W x cg; ops/tile_warp.py:backward_channel_group chooses it).
 extern "C" int tile_warp_cost_backward_launch(
     const void* hyp3, const void* fea_l, const void* fea_r, const void* g,
     void* dhyp3, void* dfea_l, void* dfea_r, int B, int H, int W, int C,
-    int cg, void* stream) {
+    int cg, int form, void* stream) {
   if (cg < 4 || cg % 4 || C % cg || H % 4 || W % 4 || W >= 1 << 15)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H == 0) return 0;
-  const size_t bytes = bwd_smem_bytes(W, cg);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_warp_cost_backward_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  // threads: the fewest passes over the row of at most kBwdMaxThreads
-  const int passes = (W + kBwdMaxThreads - 1) / kBwdMaxThreads;
-  const int threads = ((W + passes - 1) / passes + 31) / 32 * 32;
-  tile_warp_cost_backward_kernel<<<(unsigned)(B * H), threads, bytes,
-                                   (cudaStream_t)stream>>>(
-      (const float*)hyp3, (const float*)fea_l, (const float*)fea_r,
-      (const float*)g, (float*)dhyp3, (float*)dfea_l, (float*)dfea_r, H, W,
-      C, cg);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case 0:
+      return launch_backward<0, float>(hyp3, fea_l, fea_r, g, dhyp3, dfea_l,
+                                       dfea_r, B, H, W, C, cg, s);
+    case 1:
+      return launch_backward<1, __nv_bfloat16>(hyp3, fea_l, fea_r, g, dhyp3,
+                                               dfea_l, dfea_r, B, H, W, C,
+                                               cg, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -15,6 +15,7 @@ from torch import nn
 from ...ops.gn import grad_clip
 from ...ops.upsample import interpolate_nearest, unfold3x3
 from ...ops.warp import disp_warp
+from ...utils.precision import absolute
 from ..layers import Conv, mish
 
 __all__ = ["Fusion"]
@@ -83,7 +84,7 @@ class Fusion(nn.Module):
             for pred, acc in ((pw, cvs_warp), (pc, cvs_pred)):
                 warped, _ = disp_warp(fea_r, pred[..., 0] / s + k,
                                       padding_mode="zeros")
-                acc.append(torch.sum(torch.abs(fea_l - warped), -1,
+                acc.append(torch.sum(absolute(fea_l - warped), -1,
                                      keepdim=True) / norm)
         return torch.cat(cvs_pred, -1), torch.cat(cvs_warp, -1)
 
@@ -96,8 +97,8 @@ class Fusion(nn.Module):
         feat_self = torch.cat(
             [_px2patch_corr(feat_curr, feat_curr, self_corr=True),
              _px2patch_corr(feat_warp, feat_warp, self_corr=True)], -1)
-        disp_cross = torch.abs(_px2patch_corr(pred_curr, pred_warp))
-        disp_self = torch.abs(torch.cat(
+        disp_cross = absolute(_px2patch_corr(pred_curr, pred_warp))
+        disp_self = absolute(torch.cat(
             [_px2patch_corr(pred_curr, pred_curr, self_corr=True),
              _px2patch_corr(pred_warp, pred_warp, self_corr=True)], -1))
         corr_feat = torch.cat([feat_cross, feat_self, cost_curr, cost_warp],

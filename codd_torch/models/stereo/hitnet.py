@@ -22,6 +22,7 @@ from torch import nn
 
 from ...ops.tile_warp import VARIANT_FORMS, tile_warp_cost
 from ...ops.upsample import hyp_upsample, pixel_unshuffle
+from ...utils.precision import absolute
 from ..layers import Conv, ConvTranspose, SharedStrideConv, lrelu
 
 __all__ = ["HITUNet", "calc_init_cost", "TileInitialization",
@@ -103,7 +104,7 @@ def calc_init_cost(feat_l, feat_r_full, max_disp: int, rows: int = 0):
     out = []
     for y in range(0, ht, rows):
         diff = feat_l[:, y:y + rows, :, :, None] - win[:, y:y + rows]
-        out.append(diff.abs().sum(3))
+        out.append(absolute(diff).sum(3))
     return torch.cat(out, 1)
 
 
@@ -179,7 +180,7 @@ class _CVEncoder(nn.Module):
 
 
 def _fea_mag(fea_l):
-    return pixel_unshuffle(torch.sum(torch.abs(fea_l), -1, keepdim=True), 4)
+    return pixel_unshuffle(torch.sum(absolute(fea_l), -1, keepdim=True), 4)
 
 
 def _relu_d(h):

@@ -416,16 +416,19 @@ def _route(impl: str, radius: int, w: int, bf16_scores: bool = False,
     shape, and whether the scores are rounded to bf16: only where
     ``codd_tpu`` would not run its dense form.  With ``grad`` (autograd
     needs the sums' gradient) ``auto`` is ``window`` and what has no
-    backward raises."""
+    backward raises: kernel 3, and bf16 scores where they apply (where
+    ``codd_tpu`` runs its dense form, it trains with f32 scores, and so
+    does the port)."""
     if impl not in GN_IMPLS:
         raise ValueError(f"bad GN impl {impl!r}; one of {GN_IMPLS}")
-    if grad and (impl == "fused" or bf16_scores):
+    bf16 = bool(bf16_scores) and resolve_impl(impl, radius, w) != "dense"
+    if grad and (impl == "fused" or bf16):
         raise NotImplementedError(
             f"gn_step: gn_impl={impl!r}, gn_bf16_scores={bool(bf16_scores)} "
-            "has no backward (kernel 3 returns the solved update; codd_tpu "
-            "trains with f32 scores and no VJP of gn_fused_solve); train "
-            "with gn_impl auto, windowed or pallas_window and f32 scores")
-    bf16 = bool(bf16_scores) and resolve_impl(impl, radius, w) != "dense"
+            f"at a width of {w} has no backward (kernel 3 returns the solved "
+            "update; codd_tpu has no VJP of gn_fused_solve, and trains bf16 "
+            "scores only on its windowed form); train with gn_impl auto, "
+            "windowed or pallas_window and f32 scores")
     route = _ROUTES[impl]
     if grad and route == "fused":
         route = "window"

@@ -43,7 +43,7 @@ KERNELS = {
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "tile_warp_cost_backward": ("tile_warp.cu",
                                 "tile_warp_cost_backward_launch",
-                                [_P] * 7 + [_I] * 5 + [_P]),
+                                [_P] * 7 + [_I] * 6 + [_P]),
     "corr_lookup": ("corr_lookup.cu", "corr_lookup_launch",
                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gn_fused_solve": ("gn_fused.cu", "gn_fused_solve_launch",

@@ -42,14 +42,21 @@ Under bf16 features the function has two forms, as in ``codd_tpu``:
 Both read and write bf16 (half the bytes of the f32 form); the kernel is
 one body templated on the form.
 
-Training (f32 only): under grad mode, with an input that requires grad,
+Training: under grad mode, with an input that requires grad,
 ``tile_warp_cost`` goes through ``TileWarpCost``, a
 ``torch.autograd.Function`` whose backward is ``tile_warp_cost_backward``:
 a second kernel of ``csrc/tile_warp.cu`` for CUDA tensors, and
 ``tile_warp_cost_backward_plain`` (the same math step by step, the
 scatter to ``fea_r`` by ``index_add_``) for CPU tensors.  It computes the
-VJP of ``tile_warping``: ``floor()`` has no gradient and ``|x|``'s is
-``sign(x)``, 0 at 0, as in JAX.  bf16 training raises.
+VJP of ``tile_warping``: ``floor()`` has no gradient and ``|x|``'s
+cotangent is JAX's ``select(x >= 0, g, -g)`` (+g at 0).  In bf16 (the
+"exact" form; the "pallas" form has no VJP and raises) every step runs in
+the dtypes ``jax.vjp`` gives it: each lerp cotangent rounded, the inner
+taps' two cotangents added in bf16, each channel sum of ``df`` and the
+tile sums of ``to_plane``'s transpose rounded after every add, so dhyp3
+and dfea_l are ``jax.jit(jax.vjp(tile_warping))``'s bits.  dfea_r sums a
+column's taps in f32 and rounds once; XLA's scatter-add rounds after each
+add.
 
 The backward kernel gives each image row one block (a cluster of four per
 tile row): a pixel's taps lie on its own row, so the block owns the row of
@@ -57,7 +64,13 @@ tile row): a pixel's taps lie on its own row, so the block owns the row of
 group of ``backward_channel_group`` channels at a time, each pixel packs
 the signs of its L1 terms into shared memory and each column rebuilds and
 sums the cotangents of the taps that read it and stores them once: no
-atomics on floats, no zero fill.
+atomics on floats, no zero fill.  Its bf16 form keeps that design and
+takes each step as ``_backward_exact`` does, two channels an instruction
+in native bf16x2 arithmetic (each such step rounds once, as the f32 step
+rounded to bf16 does), with the channel sums of df kept in shared memory
+across channel groups: every output but dfea_r has the plain version's
+bits, and dfea_r sums each column's tap cotangents in f32 and rounds
+once, as the plain version does, in another order.
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ from .warp import meshgrid_xy
 
 __all__ = ["tile_warp_cost", "tile_warp_cost_plain", "TileWarpCost",
            "tile_warp_cost_backward", "tile_warp_cost_backward_plain",
+           "tile_warp_cost_backward_terms",
            "backward_channel_group", "BWD_ROW_BYTES", "FORMS",
            "VARIANT_FORMS"]
 
@@ -141,8 +155,10 @@ def _cost_f32(hyp3, fea_l, fea_r):
     return torch.cat(cvs, -1)
 
 
-def _cost_exact(hyp3, fea_l, fea_r):
-    """``tile_warping`` in the features' dtype, step by step."""
+def _taps_exact(hyp3, fea_r):
+    """``tile_warping``'s taps in the features' dtype: the lerp fraction f
+    (B,H,W,1), the taps' mask ok and their columns idx in the 3-column
+    zero-padded row (B,H,W,4), and the masked taps cols (B,H,W,4,C)."""
     B, H, W, C = fea_r.shape
     local_d = to_plane(hyp3[..., 0], hyp3[..., 1], hyp3[..., 2], size=4)
     x, _ = meshgrid_xy(H, W, fea_r.dtype, fea_r.device)
@@ -159,7 +175,12 @@ def _cost_exact(hyp3, fea_l, fea_r):
         B, H, W * 4, 1).expand(-1, -1, -1, C)).reshape(B, H, W, 4, C)
     taps = x0.float()[..., None] - 1 + ar
     ok = (taps >= 0) & (taps <= W - 1)
-    cols = cols * ok[..., None].to(fea_r.dtype)
+    return f, ok, idx, cols * ok[..., None].to(fea_r.dtype)
+
+
+def _cost_exact(hyp3, fea_l, fea_r):
+    """``tile_warping`` in the features' dtype, step by step."""
+    f, _, _, cols = _taps_exact(hyp3, fea_r)
     cvs = []
     for j in (2, 1, 0):
         warped = cols[..., j, :] * (1 - f) + cols[..., j + 1, :] * f
@@ -212,10 +233,13 @@ def _pixel_shuffle(x, factor: int):
     return x.reshape(B, h * f, w * f, C)
 
 
-def tile_warp_cost_backward_plain(g, hyp3, fea_l, fea_r):
-    """The VJP of the f32 cost at (hyp3, fea_l, fea_r) for the cotangent
-    ``g`` (B,ht,wt,48) -> (dhyp3, dfea_l, dfea_r), step by step as
-    ``csrc/tile_warp.cu``'s backward computes it."""
+def _abs_vjp(d, g):
+    """The cotangent of ``|d|`` for ``g``: JAX's ``select(d >= 0, g, -g)``,
+    so +g at 0 and -g at NaN."""
+    return torch.where(d >= 0, g, -g)
+
+
+def _backward_f32(g, hyp3, fea_l, fea_r):
     B, H, W, C = fea_r.shape
     f, ok, idx, cols = _taps_f32(hyp3, fea_r)
     gk = _pixel_shuffle(g, 4)                                   # (B,H,W,3)
@@ -224,7 +248,7 @@ def tile_warp_cost_backward_plain(g, hyp3, fea_l, fea_r):
     dlocal = torch.zeros_like(f[..., 0])
     for kk, j in enumerate((2, 1, 0)):
         warped = cols[..., j, :] * (1 - f) + cols[..., j + 1, :] * f
-        e = gk[..., kk:kk + 1] * torch.sign(fea_l - warped)
+        e = _abs_vjp(fea_l - warped, gk[..., kk:kk + 1])
         dfea_l += e
         dcols[..., j, :] -= e * (1 - f)
         dcols[..., j + 1, :] -= e * f
@@ -243,14 +267,109 @@ def tile_warp_cost_backward_plain(g, hyp3, fea_l, fea_r):
     return dhyp3, dfea_l, dfea_r.reshape(B, H, W, C)
 
 
+def _seq_sum(x, dim: int):
+    """The sum over ``dim`` rounded after each add, in index order from +0:
+    XLA's reduce of a bf16 array on the CPU."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for i in range(x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def _backward_exact(g, hyp3, fea_l, fea_r):
+    """The VJP of ``tile_warping`` in bf16, step by step in the dtypes that
+    ``jax.vjp`` gives it (each elementwise step rounded; each reduce over
+    channels, tile rows and tile columns rounded after every add, in index
+    order): dhyp3 and dfea_l are ``jax.jit(jax.vjp(tile_warping))``'s bits.
+    The gather's transpose sums the taps of a ``fea_r`` column in f32 and
+    rounds once, where XLA's scatter-add rounds after each add in pixel
+    order (``tests/test_torch_train_bf16.py`` holds the difference)."""
+    B, H, W, C = fea_r.shape
+    dt, dev = fea_r.dtype, fea_r.device
+    f, ok, idx, cols = _taps_exact(hyp3, fea_r)
+    omf = 1 - f
+    gk = _pixel_shuffle(g, 4)                                   # (B,H,W,3)
+    e = []
+    for kk, j in enumerate((2, 1, 0)):
+        warped = cols[..., j, :] * omf + cols[..., j + 1, :] * f
+        e.append(_abs_vjp(fea_l - warped, gk[..., kk:kk + 1]))
+    dfea_l = (e[2] + e[1]) + e[0]
+    # each lerp cotangent rounded; the inner taps add two of them in bf16
+    a = [-ek * omf for ek in e]
+    b = [-ek * f for ek in e]
+    dcols = torch.stack([a[2], b[2] + a[1], b[1] + a[0], b[0]], -2) \
+        * ok[..., None].to(dt)
+    # into the 3-column zero-padded row, then its slice
+    rows = (torch.arange(B * H, device=dev).reshape(B, H, 1, 1) * (W + 6)
+            + idx).reshape(-1)
+    acc = torch.zeros((B * H * (W + 6), C), dtype=torch.float32, device=dev)
+    acc.index_add_(0, rows, dcols.float().reshape(-1, C))
+    dfea_r = acc.reshape(B, H, W + 6, C)[:, :, 3:W + 3].to(dt)
+    # df: per offset the channel sums of the (1 - f) and the f cotangent,
+    # then added in the order of the transpose; dlocal_d = -df
+    pa = [_seq_sum(-e[kk] * cols[..., j, :], -1)
+          for kk, j in enumerate((2, 1, 0))]
+    pb = [_seq_sum(-e[kk] * cols[..., j + 1, :], -1)
+          for kk, j in enumerate((2, 1, 0))]
+    v = pb[2] - pa[2]
+    v = v + pb[1]
+    v = v - pa[1]
+    v = v + pb[0]
+    v = v - pa[0]
+    # to_plane's transpose: (d + a dx) + b dy over the tile's 4 x 4
+    c = plane_offsets(4, dt, dev)
+    t = (-v).reshape(B, H // 4, 4, W // 4, 4)                   # b, i, a, j
+    r = _seq_sum(t, 2)                                          # by column
+    q = _seq_sum(t, 4)                                          # by row
+    dhyp3 = torch.stack([_seq_sum(r, 3), _seq_sum(r * c, 3),
+                         _seq_sum(q * c[:, None], 2)], -1)
+    return dhyp3, dfea_l, dfea_r
+
+
+def tile_warp_cost_backward_terms(g, hyp3, fea_r):
+    """For each element of the bf16 backward's dfea_r, the sum of the |tap
+    cotangents| it adds and their count (f32): the scale of a bound on the
+    order of its adds."""
+    B, H, W, C = fea_r.shape
+    f, ok, idx, _ = _taps_exact(hyp3, fea_r)
+    gk = _pixel_shuffle(g, 4).float().abs()
+    omf = (1 - f).float()
+    f = f.float()
+    a = [gk[..., kk:kk + 1] * omf for kk in range(3)]
+    b = [gk[..., kk:kk + 1] * f for kk in range(3)]
+    t = torch.stack([a[2], b[2] + a[1], b[1] + a[0], b[0]], -2) \
+        * ok[..., None]                                         # (B,H,W,4,1)
+    rows = (torch.arange(B * H, device=fea_r.device).reshape(B, H, 1, 1)
+            * (W + 6) + idx).reshape(-1)
+    out = []
+    for v in (t, (t > 0).float()):
+        acc = torch.zeros((B * H * (W + 6), 1), device=fea_r.device)
+        acc.index_add_(0, rows, v.reshape(-1, 1))
+        out.append(acc.reshape(B, H, W + 6, 1)[:, :, 3:W + 3].expand(
+            B, H, W, C))
+    return tuple(out)
+
+
+def tile_warp_cost_backward_plain(g, hyp3, fea_l, fea_r):
+    """The VJP of the cost (``"exact"`` form) at (hyp3, fea_l, fea_r) for
+    the cotangent ``g`` (B,ht,wt,48) -> (dhyp3, dfea_l, dfea_r) in the
+    features' dtype, step by step as ``csrc/tile_warp.cu``'s backward
+    computes it."""
+    form = _resolve_form(fea_r.dtype, "exact")
+    if form == "f32":
+        return _backward_f32(g, hyp3, fea_l, fea_r)
+    return _backward_exact(g, hyp3, fea_l, fea_r)
+
+
 def tile_warp_cost_backward(g, hyp3, fea_l, fea_r):
-    """The backward kernel for CUDA tensors (f32), the plain version for
-    CPU tensors -> (dhyp3, dfea_l, dfea_r)."""
+    """The backward kernel for CUDA tensors (f32, or bf16 in the "exact"
+    form), the plain version for CPU tensors -> (dhyp3, dfea_l, dfea_r)."""
     if not fea_r.is_cuda:
         return tile_warp_cost_backward_plain(g, hyp3, fea_l, fea_r)
     B, H, W, C = fea_r.shape
+    code = FORMS[_resolve_form(fea_r.dtype, "exact")]
     kernels.check_cuda("tile_warp_cost_backward", g, hyp3, fea_l, fea_r,
-                       dtypes=(torch.float32,) * 4)
+                       dtypes=(fea_r.dtype,) * 4)
     _check_shapes("tile_warp_cost_backward", hyp3, fea_l, fea_r)
     if tuple(g.shape) != (B, H // 4, W // 4, 48):
         raise ValueError(f"tile_warp_cost_backward: g {tuple(g.shape)}")
@@ -261,18 +380,19 @@ def tile_warp_cost_backward(g, hyp3, fea_l, fea_r):
     kernels.launch("tile_warp_cost_backward", hyp3.data_ptr(),
                    fea_l.data_ptr(), fea_r.data_ptr(), g.data_ptr(),
                    dhyp3.data_ptr(), dfea_l.data_ptr(), dfea_r.data_ptr(),
-                   B, H, W, C, cg, kernels.stream_ptr(fea_r.device))
+                   B, H, W, C, cg, code, kernels.stream_ptr(fea_r.device))
     return dhyp3, dfea_l, dfea_r
 
 
 class TileWarpCost(torch.autograd.Function):
-    """The f32 cost with kernel 1's backward."""
+    """The cost (f32, or bf16 in the "exact" form) with kernel 1's
+    backward."""
 
     @staticmethod
     def forward(ctx, hyp3, fea_l, fea_r):
         ctx.save_for_backward(hyp3, fea_l, fea_r)
         if not fea_r.is_cuda:
-            return _cost_f32(hyp3, fea_l, fea_r)
+            return tile_warp_cost_plain(hyp3, fea_l, fea_r, "exact")
         return _launch_forward(hyp3, fea_l, fea_r, "exact")
 
     @staticmethod
@@ -283,13 +403,15 @@ class TileWarpCost(torch.autograd.Function):
 def tile_warp_cost(hyp3, fea_l, fea_r, form: str = "exact"):
     """The kernel for CUDA tensors (in the dtype it is given: f32, or bf16
     in ``form``), the plain version for CPU tensors; through
-    ``TileWarpCost`` when autograd needs its gradient (f32 only)."""
+    ``TileWarpCost`` when autograd needs its gradient (f32, or bf16 in the
+    "exact" form: the "pallas" form has no VJP in ``codd_tpu``)."""
     if torch.is_grad_enabled() and (hyp3.requires_grad or fea_l.requires_grad
                                     or fea_r.requires_grad):
-        if fea_r.dtype != torch.float32:
+        if _resolve_form(fea_r.dtype, form) == "pallas":
             raise NotImplementedError(
-                f"tile_warp_cost: the backward takes float32 features, got "
-                f"{fea_r.dtype} (bf16 training is not ported yet)")
+                "tile_warp_cost: the bf16 \"pallas\" form has no backward "
+                "(codd_tpu differentiates only tile_warping, the \"exact\" "
+                "form)")
         return TileWarpCost.apply(hyp3, fea_l, fea_r)
     if not fea_r.is_cuda:
         return tile_warp_cost_plain(hyp3, fea_l, fea_r, form)

@@ -9,6 +9,7 @@ import torch.nn.functional as F
 
 from . import se3
 from .grid_sample import grid_sample
+from ..utils.precision import softmax
 
 __all__ = ["plane_offsets", "unfold3x3", "cvx_upsample", "upsample_se3",
            "to_plane", "hyp_upsample", "pixel_unshuffle",
@@ -29,8 +30,11 @@ def cvx_upsample(data, mask, factor: int = 8):
     laid out (9, f, f).  Returns (B, h*f, w*f, C)."""
     B, h, w, C = data.shape
     f = factor
-    m = torch.softmax(mask.reshape(B, h, w, 9, f, f), dim=3)
-    up = torch.einsum("bhwkyx,bhwkc->bhwyxc", m, unfold3x3(data))
+    m = softmax(mask.reshape(B, h, w, 9, f, f), 3)
+    # a bf16 mask against f32 data computes in f32, as jnp.einsum promotes
+    dt = torch.promote_types(data.dtype, mask.dtype)
+    up = torch.einsum("bhwkyx,bhwkc->bhwyxc", m.to(dt),
+                      unfold3x3(data.to(dt)))
     return up.permute(0, 1, 3, 2, 4, 5).reshape(B, h * f, w * f, C)
 
 

@@ -57,21 +57,20 @@ CUTOUTS = {
                           "    __syncthreads();\n  }\n\n  // the tile's sums"),
     # the gather without decoding the signs
     "bwd_no_decode": _swap(
-        "            if (ka >= 0) v -= signed_by(word >> (8 * ka + 2 * q), A);\n"
-        "            if (kb <= 2) v -= signed_by(word >> (8 * kb + 2 * q), Bv);",
-        "            v -= A + Bv + (float)((word >> q) & 1u);"),
+        "              if (ka >= 0) v -= signed_by(word >> (8 * ka + 2 * q),"
+        " A);\n              if (kb <= 2) v -= signed_by(word >> (8 * kb + 2"
+        " * q), Bv);",
+        "              v -= A + Bv + (float)((word >> q) & 1u);"),
     # the backward's tap loads (values made from the left feature)
     "bwd_no_taps": _swap(
-        "          const float4 t = ok[m] ? load4(row + (long long)col[m] * C "
-        "+ c)\n                                 : make_float4(0.f, 0.f, 0.f, "
-        "0.f);",
-        "          const float4 t = make_float4(lv[0] * m, lv[1] - m, "
-        "(float)col[m], lv[3] * (float)ok[m]);"),
+        "            load_ch4(row + (long long)(col0 + m) * C + c, tv[m]);",
+        "            for (int q = 0; q < 4; ++q)\n"
+        "              tv[m][q] = lv[q] * (float)(m + 1) + (float)col0;"),
     # the backward's dfea_l store
     "bwd_no_dfea_l": _swap(
-        "        *reinterpret_cast<float4*>(dfl + c) =\n"
-        "            make_float4(dl[0], dl[1], dl[2], dl[3]);",
-        "        if (dl[0] == 12345.f) dfl[c] = dl[1] + dl[2] + dl[3];"),
+        "        store_ch4(dfl + c, dl);",
+        "        if (dl[0] == 12345.f)\n"
+        "          store1(dfl + c, dl[1] + dl[2] + dl[3]);"),
 }
 
 
@@ -153,7 +152,7 @@ def calls(lib, hyp3, smooth, fl, fr, gout, forward_only):
         grads = [torch.empty_like(t) for t in (hyp3, fl, fr)]
         for label, h in (("random", hyp3), ("smooth", smooth)):
             args = [t.data_ptr() for t in (h, fl, fr, gout, *grads)] + [
-                1, H, W, C, cg, stream]
+                1, H, W, C, cg, tile_warp.FORMS["f32"], stream]
             out[f"backward {label}"] = (lib.tile_warp_cost_backward_launch,
                                         args)
     return out

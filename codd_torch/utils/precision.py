@@ -18,7 +18,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["cast_floats", "round_floats", "rdiv"]
+__all__ = ["absolute", "cast_floats", "round_floats", "rdiv", "softmax"]
 
 
 def cast_floats(obj: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
@@ -60,3 +60,63 @@ def rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
     if x.dtype in (torch.float32, torch.float64):
         return c / x
     return torch.full_like(x, c) / x
+
+
+class _Abs(torch.autograd.Function):
+    """|x|, whose cotangent at x = 0 is +g."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """``torch.abs`` with ``jnp.abs``'s derivative at 0: ``jax.vjp`` gives
+    +g there and ``torch.abs``'s backward 0.  Exact zeros are common where
+    the model differentiates |x|: the holes of the warped disparity in the
+    fusion's correlations, and ties of bf16 features in the stereo's
+    initial cost."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Abs.apply(x)
+    return torch.abs(x)
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` below f32, step by step: u = exp(x - max) and
+    u / w rounded, w the sum of u in f32 rounded once (``jnp.sum``
+    upcasts).  The backward is ``jax.vjp``'s of those steps: g / w - r,
+    times u, with r the sum over ``dim`` of g w^-2 u, each step rounded
+    and the sum rounded after every add, in index order (XLA's reduce of a
+    bf16 array on the CPU; ``dim`` is short where the model calls it)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        u = torch.exp(x - x.amax(dim, keepdim=True))
+        w = u.float().sum(dim, keepdim=True).to(x.dtype)
+        ctx.save_for_backward(u, w)
+        ctx.dim = dim
+        return u / w
+
+    @staticmethod
+    def backward(ctx, g):
+        u, w = ctx.saved_tensors
+        z = g * (1 / (w * w)) * u
+        r = torch.zeros_like(w)
+        for i in range(z.shape[ctx.dim]):
+            r = r + z.narrow(ctx.dim, i, 1)
+        return (g / w + -r) * u, None
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.softmax`` in f32; below f32 ``jax.nn.softmax``'s roundings
+    (``torch.softmax`` rounds once, and in bf16 moves about half of the
+    values by an ulp from ``codd_tpu``'s)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.softmax(x, dim)
+    return _Softmax.apply(x, dim)

@@ -1,7 +1,7 @@
 """The six CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors, and a small streaming run whose launch
-counts show that every step went through them; the backward of kernels 1,
-4, 5 and 6, the forward-only kernels' raises under autograd, a training
+counts show that every step went through them; the backward of kernels 1
+(f32 and bf16), 4, 5 and 6, the forward-only kernels' raises under autograd, a training
 step of the stereo, the fusion, the motion and the joint stage, and one
 step of the training entry from PNG frames (the native decoder beside).
 Marked ``gpu``; each test skips itself when there is no CUDA card
@@ -617,23 +617,71 @@ def test_tile_warp_backward_kernel(dev, B, H, W, C, field):
 
 def test_tile_warp_autograd_launches_both_kernels(dev):
     """Under autograd tile_warp_cost launches the forward and, in
-    backward(), the backward kernel, once each; bf16 inputs that require
-    grad raise."""
+    backward(), the backward kernel, once each, in f32 and in bf16 (the
+    exact form); the bf16 "pallas" form raises.  f32: each gradient within
+    1e-5 of its largest value, 1e-5 relative, of the plain backward's;
+    bf16: the bounds of test_tile_warp_backward_kernel_bf16 (dhyp3 and
+    dfea_l in bits, dfea_r within one bf16 ulp plus n 2^-24 of its sum of
+    |terms|)."""
     hyp3, fl, fr, gout = _tile_warp_inputs(dev, 2, 16, 64, 16)
-    ins = [t.clone().requires_grad_() for t in (hyp3, fl, fr)]
-    kernels.reset_counts()
-    out = tile_warp.tile_warp_cost(*ins)
-    out.backward(gout)
-    torch.cuda.synchronize()
-    assert kernels.counts()["tile_warp_cost"] == 1
-    assert kernels.counts()["tile_warp_cost_backward"] == 1
-    ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
-    for t, b in zip(ins, ref):
-        torch.testing.assert_close(t.grad, b, atol=1e-5 * float(
-            b.abs().max()), rtol=1e-5)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [t.to(dt).clone().requires_grad_() for t in (hyp3, fl, fr)]
+        g = gout.to(dt)
+        kernels.reset_counts()
+        out = tile_warp.tile_warp_cost(*ins)
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert kernels.counts()["tile_warp_cost"] == 1
+        assert kernels.counts()["tile_warp_cost_backward"] == 1
+        plain = [t.detach() for t in ins]
+        ref = tile_warp.tile_warp_cost_backward_plain(g, *plain)
+        assert all(t.grad.dtype == dt for t in ins)
+        if dt == torch.float32:
+            for t, b in zip(ins, ref):
+                torch.testing.assert_close(t.grad, b, atol=1e-5 * float(
+                    b.abs().max()), rtol=1e-5)
+            continue
+        assert torch.equal(ins[0].grad, ref[0])
+        assert torch.equal(ins[1].grad, ref[1])
+        terms, n = tile_warp.tile_warp_cost_backward_terms(g, plain[0],
+                                                           plain[2])
+        assert ((ins[2].grad.float() - ref[2].float()).abs()
+                <= 2.0 ** -7 * ref[2].float().abs()
+                + n * 2.0 ** -24 * terms).all()
     with pytest.raises(NotImplementedError):
         tile_warp.tile_warp_cost(*[t.detach().to(torch.bfloat16)
-                                   .requires_grad_() for t in ins])
+                                   .requires_grad_() for t in ins],
+                                 form="pallas")
+
+
+@pytest.mark.parametrize("B,H,W,C,field", [
+    (4, 384, 768, 16, "random"),  # the training call
+    (1, 32, 1280, 16, "random"), (2, 8, 1280, 32, "random"),
+    (1, 8, 4096, 16, "random"), (1, 12, 64, 24, "random"),
+    (3, 4, 768, 16, "smooth"), (1, 8, 256, 16, "pile"),
+])
+def test_tile_warp_backward_kernel_bf16(dev, B, H, W, C, field):
+    """Kernel 1's backward in bf16 (the VJP of the exact form) against its
+    plain bf16 version: dhyp3 and dfea_l equal in bits (the same bf16
+    steps in the same order); dfea_r within one bf16 ulp plus n 2^-24 of
+    its sum of |terms| (f32 sums of a column's n tap cotangents in another
+    order, one rounding); a second launch gives the same bits."""
+    ins = [t.to(torch.bfloat16) for t in _tile_warp_inputs(dev, B, H, W, C,
+                                                            field)]
+    hyp3, fl, fr, gout = ins
+    got = _launched("tile_warp_cost_backward",
+                    lambda: tile_warp.tile_warp_cost_backward(gout, hyp3, fl,
+                                                              fr))
+    ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    terms, n = tile_warp.tile_warp_cost_backward_terms(gout, hyp3, fr)
+    diff = (got[2].float() - ref[2].float()).abs()
+    assert torch.isfinite(got[2]).all()
+    assert (diff <= 2.0 ** -7 * ref[2].float().abs()
+            + n * 2.0 ** -24 * terms).all()
+    again = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("h,w,radius,B", [(12, 72, 32, 2), (5, 19, 3, 1),
@@ -898,6 +946,42 @@ def test_training_step_on_the_card(dev, stage):
     for k, p in params.items():
         if k.split(".")[0] in frozen:
             assert torch.equal(p.detach(), before[k]), k
+
+
+@pytest.mark.parametrize("stage", ["stereo", "full"])
+def test_bf16_training_step_on_the_card(dev, stage):
+    """One step under bf16 compute (``make_train_step(bf16_compute=True)``)
+    at 64x128, T=2, the stereo stage and the full joint model with 2 GN
+    iterations: the launches of the f32 step; a finite loss; f32 masters
+    and Adam moments."""
+    from codd_torch.losses.assembly import LossConfig
+    from codd_torch.train import optim, trainer
+    if stage == "stereo":
+        make = lambda: CODD(max_disp=32, motion_type="none",  # noqa: E731
+                            fusion_type="none").to(dev)
+        lc = LossConfig(max_disp=32, motion=False, fusion=False)
+    else:
+        make = lambda: CODD(max_disp=32, iters=2).to(dev)  # noqa: E731
+        lc = LossConfig(max_disp=32, motion_loss_weight=0.5)
+    batch = _train_batch(dev)
+    if stage == "full":
+        batch["gt_flow"] = torch.zeros(batch["gt_disp"].shape[:-1] + (2,),
+                                       device=dev)
+        batch["gt_disp_change"] = torch.zeros_like(batch["gt_disp"])
+    counts = {}
+    for bf16 in (False, True):
+        model = make()
+        tx = optim.make_optimizer(lambda s: 1e-3, 1.0)
+        step = trainer.make_train_step(model, tx, lc, bf16_compute=bf16)
+        kernels.reset_counts()
+        state, logs = step(trainer.create_train_state(model, tx), batch)
+        torch.cuda.synchronize()
+        counts[bf16] = kernels.counts()
+        assert torch.isfinite(logs["loss"]) and logs["step_skipped"] == 0
+    assert counts[True] == counts[False]
+    assert counts[True]["tile_warp_cost_backward"] == 18
+    for tree in (state.params, state.opt_state.mu, state.opt_state.nu):
+        assert all(v.dtype == torch.float32 for v in tree.values())
 
 
 def test_native_png_decoder_beside_the_card(dev, tmp_path):

@@ -18,7 +18,7 @@ fusion stage against codd_tpu's, on the same numpy weights and batches.
   free-running, to a stated bound;
 * the optimizer against optax over three steps, the schedules, the
   freeze mask; one training step against codd_tpu's ``make_train_step``;
-  accumulation; non-finite gradients; the raises.
+  accumulation; non-finite gradients; the raises (the "pallas" variant).
 
 Weights are numpy draws over codd_tpu's parameter shapes (``eval_shape``,
 no ``model.init`` compile).  One JAX compile per module-scoped fixture.
@@ -201,11 +201,43 @@ def test_tile_warp_backward_matches_jax_vjp():
         np.testing.assert_array_equal(t.grad.numpy(), p)
 
 
+def test_tile_warp_backward_at_ties_matches_jax_vjp():
+    """Where a left feature equals its warped value, |x|'s cotangent is
+    JAX's select(x >= 0, g, -g), +g at 0: the plain backward and jax.vjp
+    (tile_warping) agree (tolerances as above) on a field of whole-pixel
+    disparities over equal rows, where every warped value ties."""
+    rng = np.random.RandomState(1)
+    b, h, w, c = 1, 8, 64, 16
+    fr = rng.randn(b, h, w, c).astype(np.float32)
+    fl = np.roll(fr, 3, axis=2)
+    hyp3 = np.zeros((b, h // 4, w // 4, 3), np.float32)
+    hyp3[..., 0] = 3.0
+    g = rng.randn(b, h // 4, w // 4, 48).astype(np.float32)
+    ref = [np.asarray(a) for a in jax.vjp(tile_warping, *map(
+        jnp.asarray, (hyp3, fl, fr)))[1](jnp.asarray(g))]
+    got = [t.numpy() for t in tile_warp.tile_warp_cost_backward_plain(
+        _t(g), *map(_t, (hyp3, fl, fr)))]
+    for name, r, p in zip(("hyp3", "fea_l", "fea_r"), ref, got):
+        assert rel(p, r) < 1e-5, name
+
+
 def test_tile_warp_backward_raises_below_f32():
+    """Below f32 the backward takes bf16 (the exact form's VJP, held to
+    jax.vjp in tests/test_torch_train_bf16.py): its gradients flow, in
+    bf16, as the plain backward gives them; float16 features raise."""
     fl = torch.randn(1, 8, 16, 4, dtype=torch.bfloat16, requires_grad=True)
     hyp3 = torch.zeros(1, 2, 4, 3, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        tile_warp.tile_warp_cost(hyp3, fl, fl.detach())
+    hyp3[..., 0] = 2.5
+    out = tile_warp.tile_warp_cost(hyp3, fl, fl.detach())
+    g = torch.randn(out.shape).to(torch.bfloat16)
+    out.backward(g)
+    want = tile_warp.tile_warp_cost_backward_plain(g, hyp3, fl.detach(),
+                                                   fl.detach())[1]
+    assert fl.grad.dtype == torch.bfloat16 and torch.equal(fl.grad, want)
+    assert fl.grad.abs().sum() > 0
+    with pytest.raises(TypeError):
+        tile_warp.tile_warp_cost(hyp3.half(), fl.detach().half()
+                                 .requires_grad_(), fl.detach().half())
     with torch.no_grad():  # inference in bf16 stays as it was
         assert tile_warp.tile_warp_cost(hyp3, fl, fl).dtype == torch.bfloat16
 
@@ -662,18 +694,17 @@ def test_non_finite_gradients_are_zeroed(stereo_stage):
 # ---------------------------------------------------------------------------
 
 def test_unported_training_raises():
+    """The "pallas" tile-warp variant has no VJP (codd_tpu differentiates
+    only tile_warping): training raises in f32 and in bf16 compute; bf16
+    compute itself trains (tests/test_torch_train_bf16.py)."""
     batch = {k: _t(v[:1]) for k, v in _batch().items()}
     args = (batch["l_img"], batch["r_img"], batch["intrinsics"])
+    pallas = _cfg("stereo.py", "model.runtime.tile_warp_variant=pallas")
     with pytest.raises(NotImplementedError):
-        build_estimator(_cfg("stereo.py",
-                             "model.runtime.tile_warp_variant=pallas"),
-                        device="cpu")(*args, train=True)
-    stereo = build_estimator(_cfg("stereo.py"), device="cpu")
+        build_estimator(pallas, device="cpu")(*args, train=True)
+    model = build_estimator(pallas, device="cpu")
+    step = trainer.make_train_step(model, optim.make_optimizer(
+        lambda s: 1e-3), build_loss_config(pallas), bf16_compute=True)
     with pytest.raises(NotImplementedError):
-        trainer.make_train_step(stereo, optim.make_optimizer(
-            lambda s: 1e-3), build_loss_config(_cfg("stereo.py")),
-            bf16_compute=True)
-    from codd_torch.utils.precision import cast_floats
-    with pytest.raises(NotImplementedError):
-        cast_floats(stereo)(*[a.to(torch.bfloat16) for a in args[:2]],
-                            args[2], train=True)
+        step(trainer.create_train_state(model, optim.make_optimizer(
+            lambda s: 1e-3)), {k: _t(v[:1]) for k, v in _batch().items()})

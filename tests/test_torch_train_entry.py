@@ -306,12 +306,36 @@ def test_checkpoint_key_mismatch_raises(port_run, tmp_path):
 
 
 def test_bf16_compute_raises_before_a_step(env, tmp_path):
+    """``runtime.bf16_compute=True`` no longer raises before a step: one
+    step on the CPU logs codd_tpu's bf16 line, writes its row and a
+    checkpoint of f32 master parameters and f32 Adam moments that reloads
+    into a fresh model in bits."""
     cfg_file, _ = env
-    cfg = load_config(cfg_file, ["runtime.bf16_compute=True"])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tapi.train_estimator(cfg, str(tmp_path / "bf16"), device="cpu",
-                             log=lambda *a: None)
-    assert not (tmp_path / "bf16" / "metrics.jsonl").exists()
+    cfg = load_config(cfg_file, ["runtime.bf16_compute=True",
+                                 "evaluation.interval=0"])
+    lines = []
+    work = tmp_path / "bf16"
+    state, step = tapi.train_estimator(cfg, str(work), device="cpu",
+                                       max_steps=1, log=lines.append)
+    assert "bf16 compute enabled (f32 master params)" in lines
+    assert step == 1 and state.opt_state.count == 1
+    row = _step_rows(work)[1]
+    assert np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])
+    assert row["step_skipped"] == 0
+    blob = torch.load(work / "ckpt_1" / tckpt.STATE_FILE, weights_only=True)
+    assert blob["params"] and all(v.dtype == torch.float32
+                                  for v in blob["params"].values())
+    for part in ("mu", "nu"):
+        assert all(v.dtype == torch.float32
+                   for v in blob["opt_state"][part].values())
+    for k, p in state.params.items():
+        assert p.dtype == torch.float32
+        assert torch.equal(blob["params"][k], p.detach()), k
+    from codd_torch.models.builder import build_estimator
+    model = build_estimator(cfg["model"], device="cpu", seed=None)
+    tckpt.restore_params(str(work / "ckpt_1"), model)
+    for k, p in model.named_parameters():
+        assert torch.equal(p.detach(), state.params[k].detach()), k
 
 
 def test_cli_trains_on_the_cpu(env, tmp_path):

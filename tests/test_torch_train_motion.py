@@ -17,7 +17,9 @@ weights and batches.
   port's ``make_train_step`` against codd_tpu's optimizer on codd_tpu's
   gradients;
 * the raises: ``gn_impl="fused"``, a volume ``corr_impl`` and
-  ``gn_bf16_scores`` (joint training, with the coordinates' gradient, is
+  ``gn_bf16_scores`` where codd_tpu scores in bf16 (its windowed form;
+  at the other widths they train as f32 scores, as in codd_tpu) (joint
+  training, with the coordinates' gradient, is
   ``tests/test_torch_train_joint.py``'s).
 
 One JAX compile of the stage (``value_and_grad``, ~65 s on an 8-core
@@ -727,8 +729,13 @@ def test_motion_train_step_matches(motion_stage):
 
 @pytest.mark.parametrize("case", ["fused", "volume", "bf16_scores"])
 def test_motion_training_raises(case):
-    batch = {k: _t(v) for k, v in _batch(b=1).items()}
-    args = (batch["l_img"], batch["r_img"], batch["intrinsics"])
+    """bf16 scores raise only where codd_tpu would score in bf16, on its
+    windowed form: at a 1/8-res width of 128 (a 64x1024 frame); at the
+    other widths they train as f32 scores (the two tests below)."""
+    width = 1024 if case == "bf16_scores" else W
+    rng = np.random.RandomState(0)
+    args = (_t(rng.rand(1, T, H, width, 3)), _t(rng.rand(1, T, H, width, 3)),
+            _t([[100.0, 100.0, width / 2, H / 2]]))
     opts = {"fused": ["model.runtime.gn_impl=fused"],
             "volume": ["model.runtime.corr_impl=volume_reduce"],
             "bf16_scores": ["model.runtime.gn_bf16_scores=True"]}
@@ -737,4 +744,41 @@ def test_motion_training_raises(case):
     with pytest.raises(NotImplementedError):
         model(*args, train=True)
     with torch.no_grad():  # the same configuration still runs in eval
-        assert model(*args)[1]["flow2d_est_induced"].shape == (1, H, W, 3)
+        assert model(*args)[1]["flow2d_est_induced"].shape == (1, H, width,
+                                                               3)
+
+
+def _gn_step_grads(field, bf16_scores):
+    Ts, ae, target, weight, depth, intr = (_t(a) for a in field)
+    ins = [x.requires_grad_() for x in (ae, target, weight)]
+    out = tgn.gn_step(Ts, ins[0], ins[1], ins[2], depth, intr,
+                      bf16_scores=bf16_scores)
+    out.backward(torch.ones_like(out))
+    return out.detach(), [x.grad for x in ins]
+
+
+def test_gn_bf16_scores_train_with_f32_scores_where_dense():
+    """A 48x96 field at 1/8 res (96 is not above 3 x 32): codd_tpu runs its
+    dense form, which keeps f32 scores whatever gn_bf16_scores says, and
+    trains.  Under autograd the port takes the f32 scores there too: the
+    update and the gradients of ae, target and weight equal in bits to
+    those with gn_bf16_scores=False."""
+    field = _gn_field(48, 96, seed=4)
+    assert tgn.resolve_impl("auto", 32, 96) == "dense"
+    out_bf, g_bf = _gn_step_grads(field, True)
+    out_f, g_f = _gn_step_grads(field, False)
+    assert torch.equal(out_bf, out_f)
+    for a, b in zip(g_bf, g_f):
+        assert torch.equal(a, b)
+
+
+def test_gn_bf16_scores_raise_where_windowed():
+    """A 1/8-res width of 128: codd_tpu scores in bf16 on its windowed form,
+    which has no VJP; the port raises under autograd and runs without it."""
+    field = _gn_field(8, 128, seed=5)
+    assert tgn.resolve_impl("auto", 32, 128) == "windowed"
+    with pytest.raises(NotImplementedError):
+        _gn_step_grads(field, True)
+    with torch.no_grad():
+        assert torch.isfinite(tgn.gn_step(*(_t(a) for a in field),
+                                          bf16_scores=True)).all()
