@@ -40,13 +40,17 @@ Phases, in order:
      share of blocks whose box is one chunk and the global atomics it
      adds into the levels' gradients (the row's ``one_chunk_share``,
      ``global_adds`` and ``ms_scattered``); the lookup's coordinate
-     gradient at the same call (kernel 6 recomputing its tap dots, four
-     levels a block) against its plain version on both fields, twice for
-     equal bits (the row's ``ms_scattered``); kernel 4's backward at the
+     gradient at the same call (a block a tile and level, each tile's tap
+     dots one tensor-core product over its window box, staged in chunks)
+     against its plain version on both fields, twice for equal
+     bits, with the share of boxes that are one chunk (the row's
+     ``ms_scattered`` and ``one_chunk_share``); kernel 4's backward at the
      joint stage's two splat calls (one image of B=4: full res 384x768,
      C=6, r=1, the row's time; quarter res 96x192, C=32, r=2, the row's
      ``ms_quarter``) on random cotangents against its plain backward,
-     twice for equal bits;
+     twice for equal bits; beside the times of these two, the parent
+     revision's forms' as ``python -m codd_torch.tools.kernel_cutouts
+     --source`` measured them (``MS_BEFORE``, printed only);
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -185,6 +189,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 in the tensor cores
 H, W = 384, 1280
+# the parent revision's times of the two backward kernels redesigned last
+# (6c on the smooth and the scattered field, 4b at full and quarter res),
+# printed beside this run's: python -m codd_torch.tools.kernel_cutouts
+# --kernel corr_coords (with --box-bytes 98304) and --kernel
+# splat_backward, --source the parent's codd_torch/csrc, in turns with the
+# new forms, mean of 4 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6)
+MS_BEFORE = {"corr_patch_lookup_coords_backward": {"smooth": 0.1564,
+                                                   "scattered": 0.3086},
+             "splat_composite_backward": {"full": 0.0826, "quarter": 0.0277}}
 # kernel 4's backward against its plain version: the plain version's
 # index_add_ adds by float atomics, which flush subnormals to zero on the
 # card, so a sum of up to K = 16 products may lose 16 x 2^-126
@@ -259,24 +272,6 @@ def _compare(name, got, ref, atol, rtol):
     if bool(bad.any()):
         fail(f"{name}: kernel disagrees with its plain version")
     return max_err
-
-
-def corr_fields(noise, h8, w8, dev):
-    """The lookups' two coordinate fields at 1/8 resolution: "scattered",
-    the grid plus ``noise`` (i.i.d. N(0, 6^2) px), and "smooth", the grid
-    plus a bilinearly upsampled (6, 20) field of +-8 px plus 0.25 px of
-    jitter, seeded on its own (coherent, as the main path's targets are)."""
-    import torch
-    g = torch.Generator().manual_seed(5)
-    ys, xs = torch.meshgrid(torch.arange(h8), torch.arange(w8), indexing="ij")
-    grid = torch.stack([xs, ys], -1)[None].float().to(dev)
-    coarse = torch.rand((1, 2, 6, 20), generator=g) * 16 - 8
-    flow = torch.nn.functional.interpolate(
-        coarse, size=(h8, w8), mode="bilinear", align_corners=False)
-    smooth = (flow.permute(0, 2, 3, 1)
-              + torch.randn((1, h8, w8, 2), generator=g) * 0.25)
-    return {"smooth": (grid + smooth.to(dev)).contiguous(),
-            "scattered": (grid + noise).contiguous()}
 
 
 def _four_levels_equal(name, fn_all, fn_one, n_levels, K=49):
@@ -464,7 +459,8 @@ def splat_check(label, X, intr, h, w, radius, feat):
     return dict(res, plain_ms=cuda_ms(lambda: splat.composite_plain(*args)))
 
 
-def splat_backward_check(label, X, intr, h, w, radius, feat, g, gz, ppp=8):
+def splat_backward_check(label, X, intr, h, w, radius, feat, g, gz, before,
+                         ppp=8):
     """Kernel 4's backward at one training call on seeded points and random
     cotangents, against ``composite_backward_plain`` on the same saved
     forward: each element within 1e-5 of its sum of |terms|
@@ -517,7 +513,8 @@ def splat_backward_check(label, X, intr, h, w, radius, feat, g, gz, ppp=8):
     plain_ms = cuda_ms(lambda: splat.composite_backward_plain(*args))
     lb, by = bound_ms(nbytes, flops)
     print(f"  splat_composite_backward ({label}): {N} points, {M} fragments "
-          f"({Mr} in runs, {ncomp} composited), C={C}: {ms:.4f} ms (bound "
+          f"({Mr} in runs, {ncomp} composited), C={C}: {ms:.4f} ms "
+          f"(ms_before {before} ms, recorded; bound "
           f"{lb:.4f} ms by {by}, {ms / lb:.1f}x), plain {plain_ms:.4f} ms; "
           f"worst |err| {worst:.3f} of its allowance (1e-5 of the sum of "
           f"|terms| + 2^-122), max |err| "
@@ -902,13 +899,18 @@ def corr_coords_backward_check(pyr, fields, g):
     import torch
     from codd_torch.ops import corr
     f1, levels = pyr["f1"], pyr["levels"]
-    ms, err = {}, {}
+    ms, err, one = {}, {}, {}
+    before = MS_BEFORE["corr_patch_lookup_coords_backward"]
     for fname, coords in fields.items():
         args = (g, f1, levels, coords)
         got = corr.corr_patch_lookup_coords_backward(*args)
         ref = corr.corr_patch_lookup_coords_backward_plain(*args)
         terms = corr.corr_patch_lookup_coords_backward_terms(*args)
         again = corr.corr_patch_lookup_coords_backward(*args)
+        plan = corr.patch_lookup_plan(coords, [tuple(l.shape[1:3])
+                                               for l in levels], 3,
+                                      coords_grad=True)
+        one[fname] = [round(float(p.float().mean()), 3) for p in plan]
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             fail("corr_patch_lookup_coords_backward: two launches differ in "
@@ -924,7 +926,10 @@ def corr_coords_backward_check(pyr, fields, g):
         ms[fname] = cuda_ms(lambda: corr.corr_patch_lookup_coords_backward(
             *args))
         print(f"  corr_patch_lookup_coords_backward ({fname}): "
-              f"{ms[fname]:.4f} ms; worst |err| {share:.3f} of its allowance "
+              f"{ms[fname]:.4f} ms (ms_before {before[fname]} ms, recorded); "
+              f"boxes of one chunk by level {one[fname]} "
+              f"({corr.PATCH_COORDS_BOX_BYTES} B); "
+              f"worst |err| {share:.3f} of its allowance "
               f"(1e-5 of the sum of |terms|), max |err| {err[fname]:.3e}, "
               f"max |ref| {float(ref.abs().max()):.3e}; equal in bits on two "
               "launches", flush=True)
@@ -939,6 +944,7 @@ def corr_coords_backward_check(pyr, fields, g):
         source="codd_torch/csrc/corr_patch.cu",
         replaces="codd_tpu/ops/corr.py:208", max_abs_err=max(err.values()),
         ms=ms["smooth"], ms_scattered=ms["scattered"],
+        one_chunk_share=one["smooth"],
         plain_ms=cuda_ms(lambda: corr.corr_patch_lookup_coords_backward_plain(
             g, f1, levels, coords)),
         bytes=float(2 * f1.numel() + 2 * sum(l.numel() for l in levels)
@@ -951,6 +957,7 @@ def kernel_checks(dev):
     import torch
     from codd_torch.ops import corr, gn, se3, splat, tile_warp
     from codd_torch.ops.projective import inv_project, project
+    from codd_torch.tools.kernel_cutouts import corr_fields
 
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -1155,13 +1162,16 @@ def kernel_checks(dev):
     hq, wq = TRAIN_H // 4, TRAIN_W // 4
     X2q = se3.act(Ts[:, 1::4, 1::4], inv_project(depth[:, 1::4, 1::4],
                                                  intr_t / 4)).reshape(-1, 3)
+    before = MS_BEFORE["splat_composite_backward"]
     bfull = splat_backward_check(
         f"full res {TRAIN_H}x{TRAIN_W}, C=6, r=1", X2, intr_t[0], TRAIN_H,
         TRAIN_W, 1.0, randn(TRAIN_H * TRAIN_W, 6),
-        randn(TRAIN_H * TRAIN_W, 6), randn(TRAIN_H * TRAIN_W))
+        randn(TRAIN_H * TRAIN_W, 6), randn(TRAIN_H * TRAIN_W),
+        before["full"])
     bquarter = splat_backward_check(
         f"quarter res {hq}x{wq}, C=32, r=2", X2q, intr_t[0] / 4, hq, wq, 2.0,
-        randn(hq * wq, 32), randn(hq * wq, 32), randn(hq * wq))
+        randn(hq * wq, 32), randn(hq * wq, 32), randn(hq * wq),
+        before["quarter"])
     rows.append(dict(
         name="splat_composite_backward",
         source="codd_torch/csrc/splat_composite.cu",
@@ -2940,7 +2950,7 @@ def profile_call(run, label: str, out_file: Path):
                 "gn_window_aggregate_backward",
             "corr_patch_lookup_backward_kernel":
                 "corr_patch_lookup_backward",
-            "corr_patch_lookup_coords_backward_kernel":
+            "corr_patch_lookup_coords_backward_":
                 "corr_patch_lookup_coords_backward"}
     mine: dict = {}
     for k, v in hand.items():

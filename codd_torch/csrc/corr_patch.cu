@@ -188,175 +188,8 @@ __device__ __forceinline__ void tap_dots(const unsigned char* base,
                   __fadd_rn(v01y[1], __fadd_rn(uy[1], wy[1])));
 }
 
-// A block's work, both kernels.  The forward (corr_patch_lookup_kernel,
-// COORDS false): grid (tiles, levels), a block one level of one tile, its
-// queries' 49 outputs.  The coordinate gradient
-// (corr_patch_lookup_coords_backward_kernel, COORDS true): grid
-// (tiles, 1), a block every level of one tile in turn; the
-// same dots, then for each query sum_o g[o] d out[o] / d (fx, fy) over the
-// window, the bilinear weights' derivatives (floor() has none):
-//   d out / d fx = (1 - fy)(d01 - d00) + fy (d11 - d10)
-//   d out / d fy = (1 - fx)(d10 - d00) + fx (d11 - d01)
-// in output order a lane, joined by a fixed xor-shuffle tree, and
-// dcoords[q] = sum over levels, in order, of scale * that: two floats a
-// query, no atomics, the same bits on every launch.  A masked query
-// (vq = 0) has zero dots and so zero gradient, as in codd_tpu.
-template <int R, bool COORDS>
-__device__ __forceinline__ void lookup_tile(
-    const unsigned char* __restrict__ f1, const CorrLevels& lv,
-    const float* __restrict__ coords, float* __restrict__ out,
-    const float* __restrict__ g, int h, int w, int tiles_x, int tiles_per_b,
-    int out_c, int offset, int box_bytes) {
-  constexpr int T = 2 * R + 2, R1 = 2 * R + 1, K = R1 * R1;
-  extern __shared__ __align__(128) unsigned char box[];
-  __shared__ __align__(16) float f1s[K6_WARPS][PC];
-  __shared__ float sdots[K6_WARPS][MAXT * MAXT];
-  __shared__ CorrWindow qwin[TILE_H * TILE_W];
-  __shared__ int qn[TILE_H * TILE_W];  // query index n, or -1 off the grid
-  __shared__ int plan[4];              // box x0, y0, row stride; staged
-  __shared__ float2 qgrad[TILE_H * TILE_W];  // COORDS: d coords a query
-  __shared__ __align__(8) unsigned long long bar;
-
-  const int b = blockIdx.x / tiles_per_b, tile = blockIdx.x % tiles_per_b;
-  const int qy0 = (tile / tiles_x) * TILE_H, qx0 = (tile % tiles_x) * TILE_W;
-  const long long N = (long long)h * w;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lvl0 = COORDS ? 0 : blockIdx.y, lvl1 = COORDS ? lv.n : lvl0 + 1;
-  if (threadIdx.x == 0) {
-    mbar_init(smem_u32(&bar), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if (COORDS && warp == 0) qgrad[lane] = make_float2(0.f, 0.f);
-  unsigned phase = 0;  // the staged levels so far: the barrier's phase
-
-  for (int lvl = lvl0; lvl < lvl1; ++lvl) {
-    const int Hp = lv.Hp[lvl], Wp = lv.Wp[lvl];
-    const unsigned char* level = (const unsigned char*)lv.ptr[lvl];
-    if (warp == 0) {  // plan: each lane one query of the tile
-      const int qy = qy0 + lane / TILE_W, qx = qx0 + lane % TILE_W;
-      const bool in = qy < h && qx < w;
-      const long long n = (long long)qy * w + qx;
-      CorrWindow win = {0, 0, 0.f, 0.f, false};
-      if (in) {
-        const long long q = b * N + n;
-        win = corr_window<R>(coords[q * 2], coords[q * 2 + 1], lv.scale[lvl],
-                             Hp, Wp);
-      }
-      qwin[lane] = win;
-      qn[lane] = in ? (int)n : -1;
-      const bool use = in && win.vq;  // only these read taps
-      const int x_lo =
-          __reduce_min_sync(0xffffffffu, use ? win.sx : 0x7fffffff);
-      const int y_lo =
-          __reduce_min_sync(0xffffffffu, use ? win.sy : 0x7fffffff);
-      const int x_hi = __reduce_max_sync(0xffffffffu, use ? win.sx : -1);
-      const int y_hi = __reduce_max_sync(0xffffffffu, use ? win.sy : -1);
-      // no query reads taps: nothing to stage and nothing to read
-      const bool any = x_hi >= 0;
-      const int bw = any ? x_hi - x_lo + T : 0, bh = any ? y_hi - y_lo + T : 0;
-      const long long stride = (long long)bw * PIX_BYTES + 16;
-      const bool staged = any && stride * bh <= box_bytes;
-      if (lane == 0) {
-        plan[0] = x_lo;
-        plan[1] = y_lo;
-        plan[2] = (int)stride;
-        plan[3] = staged;
-        if (staged) mbar_expect(smem_u32(&bar), (unsigned)(bw * bh * PIX_BYTES));
-      }
-      __syncwarp();
-      if (staged) {
-        for (int row = lane; row < bh; row += 32)
-          bulk_copy(box + row * stride,
-                    level + (((long long)b * Hp + y_lo + row) * Wp + x_lo) *
-                                PIX_BYTES,
-                    (unsigned)(bw * PIX_BYTES), smem_u32(&bar));
-      }
-    }
-    __syncthreads();
-    const bool staged = plan[3] != 0;
-    if (staged) mbar_wait(smem_u32(&bar), phase++ & 1);
-
-    float* a = f1s[warp];
-    float* dots = sdots[warp];
-    // a query's f1 row is loaded while the one before it computes
-    auto f1_row = [&](int i) {
-      return qn[i] >= 0
-                 ? __ldg((const uint2*)(f1 + (b * N + qn[i]) * (PC * 2)) + lane)
-                 : make_uint2(0u, 0u);
-    };
-    uint2 v = f1_row(warp);
-    for (int i = warp; i < TILE_H * TILE_W; i += K6_WARPS) {
-      const uint2 next = i + K6_WARPS < TILE_H * TILE_W ? f1_row(i + K6_WARPS)
-                                                        : make_uint2(0u, 0u);
-      const int n = qn[i];
-      if (n >= 0) {  // the whole warp
-        const CorrWindow win = qwin[i];
-        const long long q = b * N + n;
-        if (win.vq) {
-          *(float4*)(a + 4 * lane) = make_float4(bf16_lo(v.x), bf16_hi(v.x),
-                                                 bf16_lo(v.y), bf16_hi(v.y));
-          __syncwarp();
-          if (staged) {
-            const long long stride = plan[2];
-            tap_dots<R, true>(box + (win.sy - plan[1]) * stride +
-                                  (win.sx - plan[0]) * PIX_BYTES,
-                              stride, a, dots, lane);
-          } else {
-            const long long stride = (long long)Wp * PIX_BYTES;
-            tap_dots<R, false>(
-                level + (((long long)b * Hp + win.sy) * Wp + win.sx) * PIX_BYTES,
-                stride, a, dots, lane);
-          }
-        } else {
-          // the whole window lies outside the level: every tap is masked
-          for (int tap = lane; tap < T * T; tap += 32) dots[tap] = 0.f;
-        }
-        __syncwarp();
-        const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
-        if (!COORDS) {
-          float* op = out + offset + lvl * K + q * out_c;
-          for (int o = lane; o < K; o += 32) {
-            const int yy = o / R1, xx = o - yy * R1;
-            const float* d = dots + yy * T + xx;
-            op[o] = corr_bilinear(gx, win.fx, gy, win.fy, d[0], d[1], d[T],
-                                  d[T + 1]);
-          }
-        } else {
-          const float* gp = g + offset + lvl * K + q * out_c;
-          float px = 0.f, py = 0.f;
-          for (int o = lane; o < K; o += 32) {
-            const int yy = o / R1, xx = o - yy * R1;
-            const float* d = dots + yy * T + xx;
-            const float dfx =
-                __fadd_rn(__fmul_rn(gy, __fsub_rn(d[1], d[0])),
-                          __fmul_rn(win.fy, __fsub_rn(d[T + 1], d[T])));
-            const float dfy =
-                __fadd_rn(__fmul_rn(gx, __fsub_rn(d[T], d[0])),
-                          __fmul_rn(win.fx, __fsub_rn(d[T + 1], d[1])));
-            px = fmaf(gp[o], dfx, px);
-            py = fmaf(gp[o], dfy, py);
-          }
-#pragma unroll
-          for (int m = 16; m > 0; m >>= 1) {
-            px = __fadd_rn(px, __shfl_xor_sync(0xffffffffu, px, m));
-            py = __fadd_rn(py, __shfl_xor_sync(0xffffffffu, py, m));
-          }
-          if (lane == 0) {
-            const float sc = lv.scale[lvl];
-            qgrad[i].x = fmaf(sc, px, qgrad[i].x);
-            qgrad[i].y = fmaf(sc, py, qgrad[i].y);
-          }
-        }
-        __syncwarp();  // dots and a are the next query's
-      }
-      v = next;
-    }
-    if (COORDS) __syncthreads();  // the box and the plan: the next level's
-  }
-  if (COORDS && warp == 0 && qn[lane] >= 0)
-    ((float2*)out)[b * N + qn[lane]] = qgrad[lane];
-}
-
+// The forward: grid (tiles, levels), a block one level of one tile, its
+// queries' 49 outputs.
 template <int R>
 __global__ void __launch_bounds__(32 * K6_WARPS, 2)
 corr_patch_lookup_kernel(const unsigned char* __restrict__ f1,
@@ -365,42 +198,134 @@ corr_patch_lookup_kernel(const unsigned char* __restrict__ f1,
                          float* __restrict__ out, int h, int w, int tiles_x,
                          int tiles_per_b, int out_c, int offset,
                          int box_bytes) {
-  lookup_tile<R, false>(f1, lv, coords, out, nullptr, h, w, tiles_x,
-                        tiles_per_b, out_c, offset, box_bytes);
+  constexpr int T = 2 * R + 2, R1 = 2 * R + 1, K = R1 * R1;
+  extern __shared__ __align__(128) unsigned char box[];
+  __shared__ __align__(16) float f1s[K6_WARPS][PC];
+  __shared__ float sdots[K6_WARPS][MAXT * MAXT];
+  __shared__ CorrWindow qwin[TILE_H * TILE_W];
+  __shared__ int qn[TILE_H * TILE_W];  // query index n, or -1 off the grid
+  __shared__ int plan[4];              // box x0, y0, row stride; staged
+  __shared__ __align__(8) unsigned long long bar;
+
+  const int b = blockIdx.x / tiles_per_b, tile = blockIdx.x % tiles_per_b;
+  const int qy0 = (tile / tiles_x) * TILE_H, qx0 = (tile % tiles_x) * TILE_W;
+  const long long N = (long long)h * w;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lvl = blockIdx.y;
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&bar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int Hp = lv.Hp[lvl], Wp = lv.Wp[lvl];
+  const unsigned char* level = (const unsigned char*)lv.ptr[lvl];
+  if (warp == 0) {  // plan: each lane one query of the tile
+    const int qy = qy0 + lane / TILE_W, qx = qx0 + lane % TILE_W;
+    const bool in = qy < h && qx < w;
+    const long long n = (long long)qy * w + qx;
+    CorrWindow win = {0, 0, 0.f, 0.f, false};
+    if (in) {
+      const long long q = b * N + n;
+      win = corr_window<R>(coords[q * 2], coords[q * 2 + 1], lv.scale[lvl],
+                           Hp, Wp);
+    }
+    qwin[lane] = win;
+    qn[lane] = in ? (int)n : -1;
+    const bool use = in && win.vq;  // only these read taps
+    const int x_lo =
+        __reduce_min_sync(0xffffffffu, use ? win.sx : 0x7fffffff);
+    const int y_lo =
+        __reduce_min_sync(0xffffffffu, use ? win.sy : 0x7fffffff);
+    const int x_hi = __reduce_max_sync(0xffffffffu, use ? win.sx : -1);
+    const int y_hi = __reduce_max_sync(0xffffffffu, use ? win.sy : -1);
+    // no query reads taps: nothing to stage and nothing to read
+    const bool any = x_hi >= 0;
+    const int bw = any ? x_hi - x_lo + T : 0, bh = any ? y_hi - y_lo + T : 0;
+    const long long stride = (long long)bw * PIX_BYTES + 16;
+    const bool staged = any && stride * bh <= box_bytes;
+    if (lane == 0) {
+      plan[0] = x_lo;
+      plan[1] = y_lo;
+      plan[2] = (int)stride;
+      plan[3] = staged;
+      if (staged) mbar_expect(smem_u32(&bar), (unsigned)(bw * bh * PIX_BYTES));
+    }
+    __syncwarp();
+    if (staged) {
+      for (int row = lane; row < bh; row += 32)
+        bulk_copy(box + row * stride,
+                  level + (((long long)b * Hp + y_lo + row) * Wp + x_lo) *
+                              PIX_BYTES,
+                  (unsigned)(bw * PIX_BYTES), smem_u32(&bar));
+    }
+  }
+  __syncthreads();
+  const bool staged = plan[3] != 0;
+  if (staged) mbar_wait(smem_u32(&bar), 0);
+
+  float* a = f1s[warp];
+  float* dots = sdots[warp];
+  // a query's f1 row is loaded while the one before it computes
+  auto f1_row = [&](int i) {
+    return qn[i] >= 0
+               ? __ldg((const uint2*)(f1 + (b * N + qn[i]) * (PC * 2)) + lane)
+               : make_uint2(0u, 0u);
+  };
+  uint2 v = f1_row(warp);
+  for (int i = warp; i < TILE_H * TILE_W; i += K6_WARPS) {
+    const uint2 next = i + K6_WARPS < TILE_H * TILE_W ? f1_row(i + K6_WARPS)
+                                                      : make_uint2(0u, 0u);
+    const int n = qn[i];
+    if (n >= 0) {  // the whole warp
+      const CorrWindow win = qwin[i];
+      const long long q = b * N + n;
+      if (win.vq) {
+        *(float4*)(a + 4 * lane) = make_float4(bf16_lo(v.x), bf16_hi(v.x),
+                                               bf16_lo(v.y), bf16_hi(v.y));
+        __syncwarp();
+        if (staged) {
+          const long long stride = plan[2];
+          tap_dots<R, true>(box + (win.sy - plan[1]) * stride +
+                                (win.sx - plan[0]) * PIX_BYTES,
+                            stride, a, dots, lane);
+        } else {
+          const long long stride = (long long)Wp * PIX_BYTES;
+          tap_dots<R, false>(
+              level + (((long long)b * Hp + win.sy) * Wp + win.sx) * PIX_BYTES,
+              stride, a, dots, lane);
+        }
+      } else {
+        // the whole window lies outside the level: every tap is masked
+        for (int tap = lane; tap < T * T; tap += 32) dots[tap] = 0.f;
+      }
+      __syncwarp();
+      const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
+      float* op = out + offset + lvl * K + q * out_c;
+      for (int o = lane; o < K; o += 32) {
+        const int yy = o / R1, xx = o - yy * R1;
+        const float* d = dots + yy * T + xx;
+        op[o] = corr_bilinear(gx, win.fx, gy, win.fy, d[0], d[1], d[T],
+                              d[T + 1]);
+      }
+      __syncwarp();  // dots and a are the next query's
+    }
+    v = next;
+  }
 }
 
 template <int R>
-__global__ void __launch_bounds__(32 * K6_WARPS, 2)
-corr_patch_lookup_coords_backward_kernel(
-    const unsigned char* __restrict__ f1, const __grid_constant__ CorrLevels lv,
-    const float* __restrict__ coords, float* __restrict__ dcoords,
-    const float* __restrict__ g, int h, int w, int tiles_x, int tiles_per_b,
-    int gc, int box_bytes) {
-  lookup_tile<R, true>(f1, lv, coords, dcoords, g, h, w, tiles_x,
-                       tiles_per_b, gc, 0, box_bytes);
-}
-
-template <int R, bool COORDS>
 static int launch(const void* f1, const CorrLevels& lv, const void* coords,
-                  void* out, const void* g, int B, int h, int w, int out_c,
-                  int offset, int box_bytes, cudaStream_t s) {
-  const void* fn = COORDS ? (const void*)corr_patch_lookup_coords_backward_kernel<R>
-                          : (const void*)corr_patch_lookup_kernel<R>;
+                  void* out, int B, int h, int w, int out_c, int offset,
+                  int box_bytes, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, box_bytes);
+      corr_patch_lookup_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      box_bytes);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (w + TILE_W - 1) / TILE_W;
   const int tiles_per_b = tiles_x * ((h + TILE_H - 1) / TILE_H);
-  dim3 grid((unsigned)(B * tiles_per_b), COORDS ? 1u : (unsigned)lv.n);
-  if (COORDS)
-    corr_patch_lookup_coords_backward_kernel<R>
-        <<<grid, 32 * K6_WARPS, box_bytes, s>>>(
-            (const unsigned char*)f1, lv, (const float*)coords, (float*)out,
-            (const float*)g, h, w, tiles_x, tiles_per_b, out_c, box_bytes);
-  else
-    corr_patch_lookup_kernel<R><<<grid, 32 * K6_WARPS, box_bytes, s>>>(
-        (const unsigned char*)f1, lv, (const float*)coords, (float*)out, h, w,
-        tiles_x, tiles_per_b, out_c, offset, box_bytes);
+  dim3 grid((unsigned)(B * tiles_per_b), (unsigned)lv.n);
+  corr_patch_lookup_kernel<R><<<grid, 32 * K6_WARPS, box_bytes, s>>>(
+      (const unsigned char*)f1, lv, (const float*)coords, (float*)out, h, w,
+      tiles_x, tiles_per_b, out_c, offset, box_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -725,6 +650,280 @@ static int launch_backward(const void* f1, const CorrLevels& lv,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the coordinates' gradient
+// ---------------------------------------------------------------------------
+//
+// For each query, sum_o g[o] d out[o] / d (fx, fy) over its window, the
+// bilinear weights' derivatives (floor() has none):
+//   d out / d fx = (1 - fy)(d01 - d00) + fy (d11 - d10)
+//   d out / d fy = (1 - fx)(d10 - d00) + fx (d11 - d01)
+// from the forward's masked tap dots d, and dcoords[q] = sum over levels,
+// in order, of scale * that: two floats a query.  A masked query (vq = 0)
+// has zero dots and so zero gradient, as in codd_tpu.
+//
+// A block takes one level of the forward's 4 x 8 tile (grid (tiles, L)).
+// Every tap dot of the tile is one product on the tensor cores, S = F1
+// box^T (the tile's 32 queries x the pixels of the box of their windows,
+// k = 128 channels), mma.sync m16n8k16 on bf16 operands (exact products)
+// with f32 sums; each group of four k-steps starts from 0 and joins the
+// running sum by an IEEE add (the tensor cores truncate where they
+// accumulate).  The box is staged in chunks of at most pmax pixels (the
+// wrapper's budget; bands of whole box rows, or runs of one row of a
+// wider box), by cp.async, 16 bytes a thread, each pixel's sixteen 16-byte
+// chunks swizzled by its low three bits; the tile's f1 rows come with the
+// first chunk, the same way.  Every box is staged: reading the taps of a
+// large one from global memory, a warp a query, as the forward does, took
+// 82 % of the time on the scattered field (PERF.md).  A warp takes one
+// m-tile of 16 queries and every fourth n-tile of 8 pixels, its operands
+// by ldmatrix (the swizzle puts the 8 rows of each 8 x 8 matrix in 8 bank
+// groups), and writes each (query, pixel) that lies in the query's window
+// to its tap in shared memory, where the f1 rows were.  A tap's value is
+// its own column of one mma, whatever the chunk: the same bits at any
+// budget.  The epilogue gives each query 8 lanes, each lane outputs o = l,
+// l + 8, ... in order by fmaf, joined by a fixed xor-shuffle tree (4, 2,
+// 1).  Each block writes its 32 queries' level gradients to scratch, and a
+// second kernel, a thread a query, sums the L levels in order (as
+// corr.py:_coords_backward does): no atomics, the same bits on every
+// launch.  (The L levels of a tile as one thread block cluster, rank 0
+// summing them through distributed shared memory, kept the cluster's
+// blocks resident until the level-0 block, the largest box, was done:
+// 0.090 against 0.058 ms, PERF.md.)
+#define KC_THREADS 256  // 8 warps: two m-tiles of 16 queries, four n-tile phases
+
+// byte offset of 16-byte chunk j of staged row (pixel or query) p
+__device__ __forceinline__ int swz(int p, int j) {
+  return p * PIX_BYTES + ((j ^ (p & 7)) << 4);
+}
+
+// four 8 x 8 b16 matrices, lane l giving the address of row l & 7 of
+// matrix l >> 3
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int R>
+__global__ void __launch_bounds__(KC_THREADS, 3)
+corr_patch_lookup_coords_backward_kernel(
+    const unsigned char* __restrict__ f1, const __grid_constant__ CorrLevels lv,
+    const float* __restrict__ coords, const float* __restrict__ g, int h,
+    int w, int tiles_x, int tiles_per_b, int gc, int pmax,
+    float2* __restrict__ part) {
+  constexpr int T = 2 * R + 2, R1 = 2 * R + 1, K = R1 * R1;
+  extern __shared__ __align__(128) unsigned char box[];  // [pmax][PIX_BYTES]
+  // each query's t x t tap dots; before them, the tile's f1 rows (bf16)
+  __shared__ __align__(128) float taps[TILE_H * TILE_W][MAXT * MAXT];
+  __shared__ CorrWindow qwin[TILE_H * TILE_W];
+  __shared__ int qn[TILE_H * TILE_W];  // query index n, or -1 off the grid
+  __shared__ int plan[4];              // box x0, y0, width (0: none), height
+
+  const int b = blockIdx.x / tiles_per_b, tile = blockIdx.x % tiles_per_b;
+  const int qy0 = (tile / tiles_x) * TILE_H, qx0 = (tile % tiles_x) * TILE_W;
+  const long long N = (long long)h * w;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lvl = blockIdx.y;
+  const int Hp = lv.Hp[lvl], Wp = lv.Wp[lvl];
+  const unsigned char* level = (const unsigned char*)lv.ptr[lvl];
+  if (warp == 0) {  // plan: each lane one query of the tile
+    const int qy = qy0 + lane / TILE_W, qx = qx0 + lane % TILE_W;
+    const bool in = qy < h && qx < w;
+    const long long n = (long long)qy * w + qx;
+    CorrWindow win = {0, 0, 0.f, 0.f, false};
+    if (in)
+      win = corr_window<R>(coords[(b * N + n) * 2], coords[(b * N + n) * 2 + 1],
+                           lv.scale[lvl], Hp, Wp);
+    win.vq = win.vq && in;  // only these read taps
+    qwin[lane] = win;
+    qn[lane] = in ? (int)n : -1;
+    const int x_lo = __reduce_min_sync(0xffffffffu, win.vq ? win.sx : 0x7fffffff);
+    const int y_lo = __reduce_min_sync(0xffffffffu, win.vq ? win.sy : 0x7fffffff);
+    const int x_hi = __reduce_max_sync(0xffffffffu, win.vq ? win.sx : -1);
+    const int y_hi = __reduce_max_sync(0xffffffffu, win.vq ? win.sy : -1);
+    if (lane == 0) {
+      const bool any = x_hi >= 0;
+      plan[0] = x_lo;
+      plan[1] = y_lo;
+      plan[2] = any ? x_hi - x_lo + T : 0;
+      plan[3] = any ? y_hi - y_lo + T : 0;
+    }
+  }
+  __syncthreads();
+  const int x_lo = plan[0], y_lo = plan[1], bw = plan[2], bh = plan[3];
+  unsigned char* ftile = reinterpret_cast<unsigned char*>(taps);
+
+  // CUTOUT dots {
+  const int mt = warp & 1, gq = lane >> 2, c = lane & 3;
+  unsigned a[8][4];  // the m-tile's f1 over the 8 k-steps of 16 channels
+  int wy[2], wx[2];  // this lane's accumulator rows, queries 16 mt + gq, + 8
+  bool use[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const CorrWindow win = qwin[16 * mt + gq + 8 * i];
+    use[i] = win.vq;
+    wy[i] = win.sy - y_lo;
+    wx[i] = win.sx - x_lo;
+  }
+  // chunks: bands of whole rows, or runs of pmax pixels of one row
+  const int cw = bw <= pmax ? bw : pmax, rows = bw <= pmax ? pmax / bw : 1;
+  bool first = true;
+  for (int cy = 0; cy < bh; cy += rows) {
+    for (int cx = 0; cx < bw; cx += cw) {
+      const int nr = min(rows, bh - cy), nc = min(cw, bw - cx), P = nr * nc;
+      // CUTOUT stage {
+      if (!first) __syncthreads();  // the last chunk is read
+      {  // pixel p = e / 16 at (py, px) of the chunk, stepped without a
+         // division: e advances by KC_THREADS, p by KC_THREADS / 16
+        const int j = tid & 15;
+        int p = tid >> 4, py = p / nc, px = p - py * nc;
+        for (; p < P; p += KC_THREADS / 16) {
+          cp_async16(box + swz(p, j),
+                     level + (((long long)b * Hp + y_lo + cy + py) * Wp + x_lo +
+                              cx + px) * PIX_BYTES + 16 * j);
+          for (px += KC_THREADS / 16; px >= nc; px -= nc) ++py;
+        }
+      }
+      if (first)
+        for (int e = tid; e < TILE_H * TILE_W * 16; e += KC_THREADS) {
+          const int q = e >> 4, j = e & 15;
+          if (qn[q] >= 0)
+            cp_async16(ftile + swz(q, j),
+                       f1 + (b * N + qn[q]) * PIX_BYTES + 16 * j);
+          else
+            *reinterpret_cast<uint4*>(ftile + swz(q, j)) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+      cp_async_wait_all();
+      __syncthreads();
+      // CUTOUT stage }
+      if (first) {
+        const int row = 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+          ldsm_x4(a[ks], smem_u32(ftile + swz(row, 2 * ks + (lane >> 4))));
+        __syncthreads();  // every warp holds its f1 before taps overwrite it
+        first = false;
+      }
+      int sy = (8 * (warp >> 1) + 2 * c) / nc;  // pixel p0 + 2c at (sy, sx)
+      int sx = 8 * (warp >> 1) + 2 * c - sy * nc;
+      for (int p0 = 8 * (warp >> 1); p0 < P; p0 += 8 * (KC_THREADS / 64)) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kg = 0; kg < 2; ++kg) {
+          float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < 4; kk += 2) {
+            const int ks = 4 * kg + kk;
+            unsigned bb[4];  // k-steps ks and ks + 1: chunks 2 ks .. 2 ks + 3
+            ldsm_x4(bb, smem_u32(box + swz(p0 + (lane & 7), 2 * ks + (lane >> 3))));
+            mma_bf16(s4, a[ks], bb[0], bb[1]);
+            mma_bf16(s4, a[ks + 1], bb[2], bb[3]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], s4[e]);
+        }
+        // d[e]: query 16 mt + gq + 8 (e >> 1), chunk pixel p0 + 2c + (e & 1)
+        const int p = p0 + 2 * c, py = sy, px = sx;
+        const int by[2] = {cy + py, cy + py + (px + 1 == nc)};
+        const int bx[2] = {cx + px, px + 1 == nc ? cx : cx + px + 1};
+        for (sx += 8 * (KC_THREADS / 64); sx >= nc; sx -= nc) ++sy;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, k = e & 1;
+          const int ty = by[k] - wy[i], tx = bx[k] - wx[i];
+          if (use[i] && p + k < P && (unsigned)ty < (unsigned)T &&
+              (unsigned)tx < (unsigned)T)
+            taps[16 * mt + gq + 8 * i][ty * T + tx] = d[e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // CUTOUT dots }
+
+  {  // the epilogue: 8 lanes a query
+    const int q = tid >> 3, l = tid & 7;
+    const CorrWindow win = qwin[q];
+    const float* dots = taps[q];
+    float px = 0.f, py = 0.f;
+    if (win.vq) {
+    // CUTOUT epilogue {
+      const float gx = __fsub_rn(1.0f, win.fx), gy = __fsub_rn(1.0f, win.fy);
+      const float* gp = g + (b * N + qn[q]) * (long long)gc + lvl * K;
+      for (int o = l; o < K; o += 8) {
+        const int yy = o / R1, xx = o - yy * R1;
+        const float* d = dots + yy * T + xx;
+        const float dfx = __fadd_rn(__fmul_rn(gy, __fsub_rn(d[1], d[0])),
+                                    __fmul_rn(win.fy, __fsub_rn(d[T + 1], d[T])));
+        const float dfy = __fadd_rn(__fmul_rn(gx, __fsub_rn(d[T], d[0])),
+                                    __fmul_rn(win.fx, __fsub_rn(d[T + 1], d[1])));
+        px = fmaf(__ldg(gp + o), dfx, px);
+        py = fmaf(__ldg(gp + o), dfy, py);
+      }
+    // CUTOUT epilogue }
+    }
+#pragma unroll
+    for (int m = 4; m > 0; m >>= 1) {  // lanes of one query (uniform in 8)
+      px = __fadd_rn(px, __shfl_xor_sync(0xffffffffu, px, m));
+      py = __fadd_rn(py, __shfl_xor_sync(0xffffffffu, py, m));
+    }
+    if (l == 0 && qn[q] >= 0)
+      part[(long long)lvl * (gridDim.x / tiles_per_b) * N + b * N + qn[q]] =
+          make_float2(px, py);
+  }
+}
+
+// dcoords[q] = sum over levels, in order, of scale * part[level][q]
+__global__ void __launch_bounds__(256)
+corr_patch_lookup_coords_backward_sum(const float2* __restrict__ part,
+                                      const __grid_constant__ CorrLevels lv,
+                                      float2* __restrict__ dcoords,
+                                      long long BN) {
+  const long long q = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (q >= BN) return;
+  float2 acc = make_float2(0.f, 0.f);
+  for (int r = 0; r < lv.n; ++r) {
+    const float2 pr = part[r * BN + q];
+    acc.x = fmaf(lv.scale[r], pr.x, acc.x);
+    acc.y = fmaf(lv.scale[r], pr.y, acc.y);
+  }
+  dcoords[q] = acc;
+}
+
+template <int R>
+static int launch_coords(const void* f1, const CorrLevels& lv,
+                         const void* coords, void* dcoords, void* part,
+                         const void* g, int B, int h, int w, int pmax,
+                         cudaStream_t s) {
+  const int bytes = pmax * PIX_BYTES;
+  auto fn = corr_patch_lookup_coords_backward_kernel<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (w + TILE_W - 1) / TILE_W;
+  const int tiles_per_b = tiles_x * ((h + TILE_H - 1) / TILE_H);
+  fn<<<dim3((unsigned)(B * tiles_per_b), (unsigned)lv.n), KC_THREADS, bytes,
+       s>>>((const unsigned char*)f1, lv, (const float*)coords,
+            (const float*)g, h, w, tiles_x, tiles_per_b,
+            lv.n * (2 * R + 1) * (2 * R + 1), pmax, (float2*)part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long BN = (long long)B * h * w;
+  corr_patch_lookup_coords_backward_sum<<<(unsigned)((BN + 255) / 256), 256,
+                                          0, s>>>((const float2*)part, lv,
+                                                  (float2*)dcoords, BN);
+  return (int)cudaGetLastError();
+}
+
 // The backward: g (B, h, w, L * (2r+1)^2) f32 cotangents of one launch's
 // output (offset 0); df1 (B, h*w, 128) bf16, written in full; grads: L
 // device pointers, f32 (B, Hp, Wp, 128) zeroed buffers the kernel adds into.
@@ -785,19 +984,23 @@ extern "C" int corr_patch_lookup_launch(const void* f1,
   if ((long long)B * h * w == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (r) {
-    case 0: return launch<0, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
-    case 1: return launch<1, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
-    case 2: return launch<2, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
-    default: return launch<3, false>(f1, lv, coords, out, nullptr, B, h, w, out_c, offset, box_bytes, s);
+    case 0: return launch<0>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
+    case 1: return launch<1>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
+    case 2: return launch<2>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
+    default: return launch<3>(f1, lv, coords, out, B, h, w, out_c, offset, box_bytes, s);
   }
 }
 
 // The gradient of the lookup's coordinates: g (B,h,w,L*K) the cotangent of
-// the four-level output, dcoords (B,h,w,2) f32, written in full.
+// the four-level output, dcoords (B,h,w,2) f32, written in full; part: L *
+// B*h*w float2 of scratch (each level's gradients).  box_bytes: the shared
+// memory a block may stage a chunk of its box in (256 bytes a pixel, in
+// whole n-tiles of 8 pixels, at least one).
 extern "C" int corr_patch_lookup_coords_backward_launch(
     const void* f1, const void* const* levels, const int* hw,
     const float* scales, int L, const void* coords, const void* g,
-    void* dcoords, int B, int h, int w, int r, int box_bytes, void* stream) {
+    void* dcoords, void* part, int B, int h, int w, int r, int box_bytes,
+    void* stream) {
   if (L < 1 || L > CORR_MAX_LEVELS || r < 0 || 2 * r + 2 > MAXT ||
       box_bytes < 0 || box_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -810,12 +1013,13 @@ extern "C" int corr_patch_lookup_coords_backward_launch(
   }
   lv.n = L;
   if ((long long)B * h * w == 0) return 0;
+  const int fit = box_bytes / PIX_BYTES / 8 * 8;
+  const int pmax = fit > 8 ? fit : 8;
   cudaStream_t s = (cudaStream_t)stream;
-  const int gc = L * (2 * r + 1) * (2 * r + 1);
   switch (r) {
-    case 0: return launch<0, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
-    case 1: return launch<1, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
-    case 2: return launch<2, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
-    default: return launch<3, true>(f1, lv, coords, dcoords, g, B, h, w, gc, 0, box_bytes, s);
+    case 0: return launch_coords<0>(f1, lv, coords, dcoords, part, g, B, h, w, pmax, s);
+    case 1: return launch_coords<1>(f1, lv, coords, dcoords, part, g, B, h, w, pmax, s);
+    case 2: return launch_coords<2>(f1, lv, coords, dcoords, part, g, B, h, w, pmax, s);
+    default: return launch_coords<3>(f1, lv, coords, dcoords, part, g, B, h, w, pmax, s);
   }
 }

@@ -39,19 +39,31 @@
 // runs give the same bits.  A point's sum runs over its K fragments, which
 // lie in K different runs, so it needs every run done first; a launch
 // boundary is that grid-wide barrier.
-// - splat_composite_backward_runs: BLANES lanes of a warp a pixel, lane r
-//   the run's rank-r fragment (so ppp <= BLANES): its dot g_p . f in
-//   channel order, the exclusive sum of log1p(-a) passed up the lanes one
-//   add at a time (the forward's sequence of rounded adds, so w_i is the
-//   forward's weight in bits), the suffix sum of w_k (g.f_k) passed down
-//   the same way.  It writes dalpha at each fragment id of the run, and
+// - The runs pass writes, at each fragment id of the run, dalpha and
 //   frag[o] = (w_i, p, head flag in the sign bit) for the second pass;
-//   fragments past ppp get w = 0 and dalpha = 0.
-// - splat_composite_backward_points: a thread a point and group of 4
-//   channels walks the point's K fragments (o = k N + n) in order: one
-//   with alpha > 0 lies in a run (a culled fragment has alpha 0, the
-//   projection's mask) and adds w g_p, and gz_p where it heads its run;
-//   the culled ones get dalpha = 0 here, so dalpha needs no zero fill.
+//   fragments past ppp get w = 0 and dalpha = 0.  The exclusive sum of
+//   log1p(-a) is the forward's sequence of rounded adds, so w_i is the
+//   forward's weight in bits, and the suffix sum of w_k (g . f_k) is taken
+//   from the run's end one add at a time.  Two forms, by C, like the
+//   forward: for C <= WALK_C (the full-res call: C = 6, ~2-3 fragments a
+//   pixel) splat_composite_backward_runs gives a pixel BLANES lanes, lane
+//   r the run's rank-r fragment and its dot g_p . f in channel order, the
+//   two sums passed along the lanes one add at a time; for wider features
+//   (the quarter-res call: C = 32) splat_composite_backward_lanes gives a
+//   pixel a warp, lane (r, j) = (lane / 4, lane % 4) the rank-r fragment
+//   and channels 8j .. 8j + 7 (+ 32 t), each dot four chains of 8 joined by
+//   a fixed xor-shuffle tree (a 32-long chain a lane waits on its loads),
+//   the sums along the lanes at stride 4, and it writes one 16-byte record
+//   frag[o] = (w, p, dalpha), which the points pass copies to dalpha: one
+//   scattered store a fragment, not two.  So ppp <= BLANES.  At full res
+//   the cost is those scattered stores; a walk a pixel, the 16-byte
+//   record and records in run order all measured slower there (PERF.md
+//   section 6, PR 15).
+// - The points pass: a thread a point and group of 4 channels walks the
+//   point's K fragments (o = k N + n) in order: one with alpha > 0 lies in
+//   a run (a culled fragment has alpha 0, the projection's mask) and adds
+//   w g_p, and gz_p where it heads its run; the culled ones get dalpha = 0
+//   here, so dalpha needs no zero fill.
 #include <cuda_runtime.h>
 
 #define WALK_C 8          // channels a walk holds in registers, at most
@@ -60,7 +72,7 @@
 #define LANE_CH 4         // channels a lane holds
 #define ROWS 2            // feature rows a lane loads at a time
 #define LANE_THREADS 256  // threads a block of splat_composite_lanes
-#define BLANES 8          // lanes a pixel in the backward's run pass (ppp max)
+#define BLANES 8          // lanes a pixel in the 8-lane run pass (ppp max)
 #define BWD_THREADS 256   // threads a block of either backward pass
 #define HEAD_BIT 0x80000000u  // frag[o].y: the fragment heads its run
 
@@ -292,10 +304,92 @@ splat_composite_backward_runs(const long long* __restrict__ order,
   }
 }
 
-// a thread a point and group of 4 channels, its K fragments in order
+// a warp a pixel: lane (r, j) the run's rank-r fragment, channels 8j + 32t
+// .. + 7 (C > WALK_C)
+__global__ void __launch_bounds__(BWD_THREADS)
+splat_composite_backward_lanes(const long long* __restrict__ order,
+                               const long long* __restrict__ offsets,
+                               const float* __restrict__ alpha,
+                               const float* __restrict__ feat,
+                               const float* __restrict__ g,
+                               int4* __restrict__ frag, int npix, int N,
+                               int C, int ppp) {
+  static_assert(BLANES * 4 == 32, "a rank's 4 lanes, a run's ranks a warp");
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31, r = lane >> 2, j = lane & 3;
+  const long long q = ((long long)blockIdx.x * BWD_THREADS + threadIdx.x) >> 5;
+  if (q >= npix) return;  // the whole warp
+  const int p = (int)q;
+  const int s = (int)offsets[p], e = (int)offsets[p + 1];
+  const int m = e - s > ppp ? ppp : e - s;  // fragments composited
+  const bool mine = r < m;
+  int o = 0;
+  float a = 0.f, dot = 0.f;
+  if (mine) {
+    o = (int)order[s + r];
+    a = alpha[o];
+  }
+  // CUTOUT lanes dot {
+  if (mine) {
+    const float* gp = g + (long long)p * C;
+    const float* fp = feat + (long long)((unsigned)o % (unsigned)N) * C;
+    for (int c = 8 * j; c < C; c += 32) {
+      if ((C & 3) == 0) {  // two 16-byte loads of each row
+#pragma unroll
+        for (int h = 0; h < 8; h += 4) {
+          if (c + h >= C) break;
+          const float4 u = *(const float4*)(gp + c + h),
+                       v = *(const float4*)(fp + c + h);
+          dot = fmaf(u.w, v.w,
+                     fmaf(u.z, v.z, fmaf(u.y, v.y, fmaf(u.x, v.x, dot))));
+        }
+      } else {
+        for (int k = c; k < c + 8 && k < C; ++k) dot = fmaf(gp[k], fp[k], dot);
+      }
+    }
+  }
+  // the four chains of a fragment: (j0 + j1) + (j2 + j3)
+  dot = __fadd_rn(dot, __shfl_xor_sync(FULL, dot, 1));
+  dot = __fadd_rn(dot, __shfl_xor_sync(FULL, dot, 2));
+  // CUTOUT lanes dot }
+  const float la = mine ? log1pf(-a) : 0.f;
+  float excl = 0.f;
+  // CUTOUT scan1 {
+  // exclusive sum of log1p(-a) up the ranks: after round k the ranks <= k
+  // hold theirs, each the forward's running sum, one add at a time
+#pragma unroll
+  for (int k = 1; k < BLANES; ++k) {
+    const float up = __shfl_up_sync(FULL, __fadd_rn(excl, la), 4);
+    if (r >= 1) excl = up;
+  }
+  // CUTOUT scan1 }
+  const float T = expf(excl);
+  const float w = mine ? __fmul_rn(a, T) : 0.f;
+  const float wd = __fmul_rn(w, dot);
+  float after = 0.f;
+  // CUTOUT scan2 {
+  // sum of w_k (g . f_k) over the later fragments, passed down the ranks
+#pragma unroll
+  for (int k = 1; k < BLANES; ++k) {
+    const float dn = __shfl_down_sync(FULL, __fadd_rn(after, wd), 4);
+    if (r < BLANES - 1) after = dn;
+  }
+  // CUTOUT scan2 }
+  if (mine && j == 0)
+    frag[o] = make_int4(__float_as_int(w),
+                        (int)((unsigned)p | (r == 0 ? HEAD_BIT : 0u)),
+                        __float_as_int(__fsub_rn(__fmul_rn(T, dot),
+                            __fdiv_rn(after, __fsub_rn(1.0f, a)))), 0);
+  for (int k = ppp + lane; k < e - s; k += 32)  // past ppp: no weight
+    frag[order[s + k]] = make_int4(0, p, 0, 0);
+}
+
+// a thread a point and group of 4 channels, its K fragments in order;
+// REC16: frag holds 16-byte records (w, p, dalpha), copied to dalpha here
+template <bool REC16>
 __global__ void __launch_bounds__(BWD_THREADS)
 splat_composite_backward_points(const float* __restrict__ alpha,
-                                const int2* __restrict__ frag,
+                                const void* __restrict__ frag,
                                 const float* __restrict__ g,
                                 const float* __restrict__ gz,
                                 float* __restrict__ dfeat,
@@ -310,7 +404,14 @@ splat_composite_backward_points(const float* __restrict__ alpha,
   for (int k = 0; k < K; ++k) {
     const long long o = (long long)k * N + n;
     if (alpha[o] > 0.f) {
-      const int2 fr = frag[o];
+      int2 fr;
+      if (REC16) {
+        const int4 r = reinterpret_cast<const int4*>(frag)[o];
+        fr = make_int2(r.x, r.y);
+        if (first) dalpha[o] = __int_as_float(r.z);
+      } else {
+        fr = reinterpret_cast<const int2*>(frag)[o];
+      }
       const float w = __int_as_float(fr.x);
       const unsigned pu = (unsigned)fr.y;
       const float* gp = g + (long long)(pu & ~HEAD_BIT) * C + c0;
@@ -337,7 +438,9 @@ splat_composite_backward_points(const float* __restrict__ alpha,
   if (first) dz[n] = az;
 }
 
-// frag: K*N int2 of scratch, written where the first pass reaches
+// frag: 4 K*N ints of scratch, written where the first pass reaches: an
+// int2 (w, p) a fragment id for C <= WALK_C (dalpha written beside), an
+// int4 (w, p, dalpha) above
 extern "C" int splat_composite_backward_launch(
     const void* order, const void* offsets, const void* alpha,
     const void* feat, const void* g, const void* gz, void* frag, void* dfeat,
@@ -345,26 +448,35 @@ extern "C" int splat_composite_backward_launch(
     void* stream) {
   if (ppp > BLANES || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (npix > 0) {
-    const long long threads = (long long)npix * BLANES;
-    splat_composite_backward_runs<<<(int)((threads + BWD_THREADS - 1) /
-                                          BWD_THREADS),
-                                    BWD_THREADS, 0, st>>>(
-        (const long long*)order, (const long long*)offsets,
-        (const float*)alpha, (const float*)feat, (const float*)g,
-        (float*)dalpha, (int2*)frag, npix, N, C, ppp);
+  const bool eight = C <= WALK_C;  // the 8-lane runs pass, int2 records
+  const long long* o = (const long long*)order;
+  const long long* off = (const long long*)offsets;
+  if (npix > 0) {  // CUTOUT runs
+    const long long threads = (long long)npix * (eight ? BLANES : 32);
+    const int blocks = (int)((threads + BWD_THREADS - 1) / BWD_THREADS);
+    if (eight)
+      splat_composite_backward_runs<<<blocks, BWD_THREADS, 0, st>>>(
+          o, off, (const float*)alpha, (const float*)feat, (const float*)g,
+          (float*)dalpha, (int2*)frag, npix, N, C, ppp);
+    else
+      splat_composite_backward_lanes<<<blocks, BWD_THREADS, 0, st>>>(
+          o, off, (const float*)alpha, (const float*)feat, (const float*)g,
+          (int4*)frag, npix, N, C, ppp);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (N > 0) {
+  if (N > 0) {  // CUTOUT points
     const int groups = (C + 3) / 4;
     const long long threads = (long long)N * groups;
-    splat_composite_backward_points<<<(int)((threads + BWD_THREADS - 1) /
-                                            BWD_THREADS),
-                                      BWD_THREADS, 0, st>>>(
-        (const float*)alpha, (const int2*)frag, (const float*)g,
-        (const float*)gz, (float*)dfeat, (float*)dalpha, (float*)dz, N, C, K,
-        groups);
+    const int blocks = (int)((threads + BWD_THREADS - 1) / BWD_THREADS);
+    if (eight)
+      splat_composite_backward_points<false><<<blocks, BWD_THREADS, 0, st>>>(
+          (const float*)alpha, frag, (const float*)g, (const float*)gz,
+          (float*)dfeat, (float*)dalpha, (float*)dz, N, C, K, groups);
+    else
+      splat_composite_backward_points<true><<<blocks, BWD_THREADS, 0, st>>>(
+          (const float*)alpha, frag, (const float*)g, (const float*)gz,
+          (float*)dfeat, (float*)dalpha, (float*)dz, N, C, K, groups);
   }
   return (int)cudaGetLastError();
 }

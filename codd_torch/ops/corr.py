@@ -69,9 +69,12 @@ the SE(3) field): ``floor()`` has none, so per query and level
 ``d out / d fy = (1 - fx)(d10 - d00) + fx (d11 - d01)`` from the masked tap
 dots d, and ``d coords = sum_levels scale_l sum_taps g . d out / d f``.
 ``corr_patch_lookup_coords_backward`` (``csrc/corr_patch.cu``'s third
-entry) recomputes the dots as the forward does, on its tile and staged
-box, and sums the levels inside a block: two floats a query, no atomics.
-It launches only where the coordinates require grad.  The volume lookup
+entry) recomputes the dots on the forward's tile as one product on the
+tensor cores, the tile's f1 rows against the box of their windows, staged
+in chunks of ``PATCH_COORDS_BOX_BYTES`` (``patch_lookup_plan(coords_grad=
+True)`` says which boxes take one), a block a tile and level; a second
+kernel sums each query's levels in order: two floats a query, no
+atomics.  It launches only where the coordinates require grad.  The volume lookup
 (kernel 2) has no backward and raises wherever autograd would need it.
 """
 
@@ -89,6 +92,7 @@ __all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_levels",
            "corr_patch_lookup_levels", "corr_patch_lookup_level",
            "corr_patch_lookup_level_plain", "patch_lookup_plan", "CORR_IMPLS",
            "PATCH_TILE", "PATCH_BOX_BYTES", "PATCH_BWD_BOX_BYTES",
+           "PATCH_COORDS_BOX_BYTES",
            "CorrPatchLookup",
            "corr_patch_lookup_backward", "corr_patch_lookup_backward_plain",
            "corr_patch_lookup_level_backward_plain",
@@ -110,6 +114,10 @@ PATCH_BOX_BYTES = 96 * 1024
 # let two blocks share an SM.
 PATCH_BWD_BOX_BYTES = 75 * 1024
 _BWD_PIXEL_BYTES = 320
+# the coordinates' gradient: the shared memory a block may stage a chunk of
+# its box in, 256 bytes a pixel, whole n-tiles of 8 pixels, at least one.
+# 224 pixels a chunk let three blocks share an SM.
+PATCH_COORDS_BOX_BYTES = 56 * 1024
 
 
 def _pool2(x):
@@ -406,9 +414,9 @@ def corr_patch_lookup_coords_backward_terms(g, f1, levels, coords,
 
 def corr_patch_lookup_coords_backward(g, f1, levels, coords, radius: int = 3,
                                       scales=None):
-    """The coordinates' gradient: one launch of kernel 6's coordinate mode
-    (every level) for CUDA tensors, the plain version for CPU tensors ->
-    (B,h,w,2) f32."""
+    """The coordinates' gradient: one launch of its kernels (a block a tile
+    and level, then the sum over levels) for CUDA tensors, the plain
+    version for CPU tensors -> (B,h,w,2) f32."""
     levels = list(levels)
     if not levels[0].is_cuda:
         return corr_patch_lookup_coords_backward_plain(g, f1, levels, coords,
@@ -429,11 +437,15 @@ def corr_patch_lookup_coords_backward(g, f1, levels, coords, radius: int = 3,
                          f"{tuple(f1.shape)} levels "
                          f"{[tuple(l.shape) for l in levels]}")
     dc = torch.empty((B, h, w, 2), dtype=torch.float32, device=g.device)
+    # scratch: each level's gradients, summed in level order by the launch
+    part = torch.empty((len(levels), B * h * w, 2), dtype=torch.float32,
+                       device=g.device)
     ptrs, hw, sc = _levels_args(levels, [l.shape[1:3] for l in levels],
                                 _scales(len(levels), scales))
     kernels.launch(name, f1.data_ptr(), ptrs, hw, sc, len(levels),
-                   coords.data_ptr(), g.data_ptr(), dc.data_ptr(), B, h, w,
-                   radius, PATCH_BOX_BYTES, kernels.stream_ptr(g.device))
+                   coords.data_ptr(), g.data_ptr(), dc.data_ptr(),
+                   part.data_ptr(), B, h, w, radius, PATCH_COORDS_BOX_BYTES,
+                   kernels.stream_ptr(g.device))
     return dc
 
 
@@ -510,7 +522,8 @@ class CorrPatchLookup(torch.autograd.Function):
 
 
 def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
-                      box_bytes=None, backward: bool = False):
+                      box_bytes=None, backward: bool = False,
+                      coords_grad: bool = False):
     """Which blocks of kernel 6 stage their window box in shared memory
     (True) and which read their taps from global memory (False), by the
     kernel's own rule.  A block takes ``PATCH_TILE`` queries of one level;
@@ -521,11 +534,17 @@ def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
     rule of the backward kernel, which stages every box, in chunks: True
     where the box is one chunk, bw * bh pixels at 320 bytes within
     ``box_bytes`` (default ``PATCH_BWD_BOX_BYTES``; at least 16 pixels).
+    With ``coords_grad`` the rule of the coordinates' gradient, which also
+    stages every box in chunks: True where the box is one chunk, bw * bh
+    pixels at 256 bytes within ``box_bytes`` (default
+    ``PATCH_COORDS_BOX_BYTES``; whole n-tiles of 8 pixels, at least one).
     A block none of whose windows touches the level reads nothing and
     counts as staged.  ``level_shapes``: (Hp, Wp) of each padded level.
     Returns (L, B, tiles_y, tiles_x) bool."""
     if box_bytes is None:
-        box_bytes = PATCH_BWD_BOX_BYTES if backward else PATCH_BOX_BYTES
+        box_bytes = (PATCH_BWD_BOX_BYTES if backward else
+                     PATCH_COORDS_BOX_BYTES if coords_grad else
+                     PATCH_BOX_BYTES)
     B, h, w, _ = coords.shape
     th, tw = PATCH_TILE
     ny, nx = -(-h // th), -(-w // tw)
@@ -551,6 +570,8 @@ def patch_lookup_plan(coords, level_shapes, radius: int = 3, scales=None,
         bw, bh = x_hi - x_lo + t, y_hi - y_lo + t
         if backward:   # a chunk: whole m-tiles of 16 pixels, at least one
             fits = bw * bh <= max(16, box_bytes // _BWD_PIXEL_BYTES // 16 * 16)
+        elif coords_grad:  # a chunk: whole n-tiles of 8 pixels, at least one
+            fits = bw * bh <= max(8, box_bytes // 256 // 8 * 8)
         else:
             fits = (bw * 256 + 16) * bh <= box_bytes
         plans.append(~touched | fits)

@@ -416,13 +416,14 @@ def _route(impl: str, radius: int, w: int, bf16_scores: bool = False,
     shape, and whether the scores are rounded to bf16: only where
     ``codd_tpu`` would not run its dense form.  With ``grad`` (autograd
     needs the sums' gradient) ``auto`` is ``window`` and what has no
-    backward raises: kernel 3, and bf16 scores where they apply (where
-    ``codd_tpu`` runs its dense form, it trains with f32 scores, and so
-    does the port)."""
+    backward raises where ``codd_tpu`` would run it: kernel 3, and bf16
+    scores.  Where ``codd_tpu`` runs its dense form instead, it trains
+    that with f32 scores, and the port trains ``fused`` as ``auto``."""
     if impl not in GN_IMPLS:
         raise ValueError(f"bad GN impl {impl!r}; one of {GN_IMPLS}")
-    bf16 = bool(bf16_scores) and resolve_impl(impl, radius, w) != "dense"
-    if grad and (impl == "fused" or bf16):
+    resolved = resolve_impl(impl, radius, w)
+    bf16 = bool(bf16_scores) and resolved != "dense"
+    if grad and (resolved == "fused" or bf16):
         raise NotImplementedError(
             f"gn_step: gn_impl={impl!r}, gn_bf16_scores={bool(bf16_scores)} "
             f"at a width of {w} has no backward (kernel 3 returns the solved "

@@ -65,7 +65,7 @@ KERNELS = {
                                    + [_P]),
     "corr_patch_lookup_coords_backward": (
         "corr_patch.cu", "corr_patch_lookup_coords_backward_launch",
-        [_P] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_P]),
+        [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_P]),
     "splat_composite_backward": ("splat_composite.cu",
                                  "splat_composite_backward_launch",
                                  [_P] * 10 + [_I] * 5 + [_P]),

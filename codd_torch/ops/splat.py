@@ -49,8 +49,9 @@ key, its z quantisation and the ranks carry no gradient.  The projection
 (``_project_fragments``) stays plain PyTorch under autograd, so ``dalpha``
 reaches the points through ``alpha = 1 - d^2/r^2`` (0 where the clip at
 ``1 - 1e-4`` binds, as in ``codd_tpu``).  Two launches, no float atomics:
-the first walks each run (eight lanes a pixel, a lane a fragment, so
-``points_per_pixel <= 8``) and writes each fragment's weight and
+the first walks each run (a lane a fragment, so ``points_per_pixel <=
+8``: eight lanes a pixel for C <= 8, a warp a pixel above, four lanes
+sharing each fragment's dot) and writes each fragment's weight and
 ``dalpha``; the second sums each point's K fragments in order; two runs
 give the same bits.
 """
@@ -227,7 +228,7 @@ def composite_backward(order, offsets, alpha, feat, g, gz,
         raise ValueError(f"{name}: points_per_pixel {points_per_pixel}; the "
                          f"kernel takes 1 to {BWD_PPP} (a lane a fragment)")
     dev = feat.device
-    frag = torch.empty((M, 2), dtype=torch.int32, device=dev)
+    frag = torch.empty((M, 4), dtype=torch.int32, device=dev)  # scratch
     dfeat = torch.empty((N, C), dtype=torch.float32, device=dev)
     dalpha = torch.empty((M,), dtype=torch.float32, device=dev)
     dz = torch.empty((N,), dtype=torch.float32, device=dev)

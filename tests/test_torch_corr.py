@@ -175,11 +175,13 @@ def test_corr_lookup_dispatches_on_patch_layout():
 
 
 def _plan_brute(coords, shapes, radius, box_bytes, tile=(4, 8),
-                backward=False):
+                backward=False, coords_grad=False):
     """Kernel 6's staging rule, tile by tile in numpy; with ``backward``
     its backward's: the box's pixels at 320 bytes each (a bf16 half pixel
     and an f32 row of D) within the budget, in whole 16-pixel m-tiles and
-    at least one."""
+    at least one; with ``coords_grad`` the coordinates' gradient's: the
+    box's pixels at 256 bytes each, in whole 8-pixel n-tiles, at least
+    one."""
     B, h, w, _ = coords.shape
     t, P = 2 * radius + 2, 2 * radius + 1
     th, tw = tile
@@ -206,6 +208,9 @@ def _plan_brute(coords, shapes, radius, box_bytes, tile=(4, 8),
                     bh = max(sys_) - min(sys_) + t
                     if backward:
                         pixels = max(16, box_bytes // 320 // 16 * 16)
+                        out[lvl, b, ty, tx] = bw * bh <= pixels
+                    elif coords_grad:
+                        pixels = max(8, box_bytes // 256 // 8 * 8)
                         out[lvl, b, ty, tx] = bw * bh <= pixels
                     else:
                         out[lvl, b, ty, tx] = ((bw * 256 + 16) * bh
@@ -272,6 +277,36 @@ def test_patch_backward_plan(field, box_bytes):
         assert share > 0.9 if field == "smooth" else share < 0.1
     if box_bytes == 0:      # one m-tile: no box of 8 x 8 taps or more
         assert share < 0.1  # (a block whose windows all miss counts)
+
+
+@pytest.mark.parametrize("box_bytes", [0, 100 * 256, None])
+@pytest.mark.parametrize("field", ["smooth", "scattered"])
+def test_patch_coords_plan(field, box_bytes):
+    """The coordinates' gradient's rule in the plain planner
+    (``coords_grad=True``): a block's box is one chunk when its bw * bh
+    pixels, 256 bytes each, fit the budget (the default
+    ``PATCH_COORDS_BOX_BYTES``) in whole n-tiles of 8 pixels, else
+    several; against each tile's box counted in numpy, on the smooth and
+    the scattered field of ``test_patch_backward_plan``."""
+    rng = np.random.RandomState(9)
+    B, h, w = 2, 22, 45
+    grid = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+    if field == "smooth":
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        drift = np.stack([8 * np.sin(xs / 13.0 + ys / 17.0),
+                          6 * np.cos(xs / 19.0 - ys / 11.0)], -1)
+        coords = grid + drift + 0.25 * rng.randn(B, h, w, 2)
+    else:
+        coords = grid + 6 * rng.randn(B, h, w, 2)
+    coords = coords.astype(np.float32)
+    shapes = [(-(-h // 2 ** i) + 14, -(-w // 2 ** i) + 14) for i in range(4)]
+    got = tcorr.patch_lookup_plan(torch.from_numpy(coords), shapes, 3,
+                                  box_bytes=box_bytes, coords_grad=True)
+    budget = tcorr.PATCH_COORDS_BOX_BYTES if box_bytes is None else box_bytes
+    ref = _plan_brute(coords, shapes, 3, budget, coords_grad=True)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    if box_bytes == 0:      # one n-tile: no box of 8 x 8 taps or more
+        assert got[0].float().mean() < 0.1
 
 
 @pytest.mark.parametrize("layout", ["volume", "patch"])

@@ -374,11 +374,16 @@ def test_splat_composite_kernel(dev, C, radius, cluster, ppp):
 
 
 @pytest.mark.parametrize("C,radius,cluster,ppp", [
-    (6, 1.0, False, 8),    # the full-res training call
-    (32, 2.0, False, 8),   # the quarter-res training call
+    (6, 1.0, False, 8),    # the full-res training call (the walk)
+    (32, 2.0, False, 8),   # the quarter-res training call (the lanes)
     (40, 2.0, True, 8),    # runs far past points_per_pixel
     (6, 1.0, True, 3),
-    (1, 2.0, False, 1)])
+    (1, 2.0, False, 1),
+    (8, 2.0, True, 2),     # the walk's widest C
+    (9, 2.0, True, 4),     # the lanes' narrowest, rows not 8-byte aligned
+    (32, 2.0, True, 5),
+    (1, 1.0, True, 6),
+    (9, 1.0, False, 7)])
 def test_splat_composite_backward_kernel(dev, C, radius, cluster, ppp):
     """Kernel 4's backward against ``composite_backward_plain`` on random
     cotangents, each element within 1e-5 of its sum of |terms|
@@ -390,11 +395,15 @@ def test_splat_composite_backward_kernel(dev, C, radius, cluster, ppp):
     1 - alpha, down to 1e-4, and its two parts may cancel) plus 2^-122
     (the plain version's ``index_add_`` adds by float atomics, which flush
     subnormals to zero on the card: K = 16 of 2^-126); every fragment id
-    written (culled ones 0); two launches equal in bits."""
+    written (culled ones 0); two launches equal in bits.  Each form of
+    each pass (the walk for C <= 8, the lanes above), points_per_pixel 1
+    to 8, runs longer than it where the points cluster."""
     h, w = 48, 80
     pts, intr, g = _splat_points(dev, h, w, cluster)
     feat = torch.randn(h * w, C, generator=g).to(dev)
     order, offsets, alpha, Z = splat.sort_fragments(pts, intr, h, w, radius)
+    if cluster:
+        assert int((offsets[1:] - offsets[:-1]).max()) > ppp
     gout = torch.randn(h * w, C, generator=g).to(dev)
     gz = torch.randn(h * w, generator=g).to(dev)
     args = (order, offsets, alpha, feat, gout, gz, ppp)
@@ -753,35 +762,56 @@ def test_corr_patch_backward_kernel(dev, r, h, w, B, monkeypatch):
     _bf16_within_ulp(corr.corr_patch_lookup_backward(*args), ref)
 
 
-@pytest.mark.parametrize("r,h,w,B", [(3, 12, 40, 2), (3, 13, 37, 4),
-                                     (1, 12, 40, 2)])
-def test_corr_patch_coords_backward_kernel(dev, r, h, w, B, monkeypatch):
-    """The lookup's coordinate gradient against its plain version, four
-    levels, on a coherent and a scattered field with windows wholly and
-    partly outside the levels (ragged tiles where w is not a multiple of 8
-    or h of 4): each element within 1e-5 of its sum of |terms|
+@pytest.mark.parametrize("r,h,w,B,L", [
+    (3, 12, 40, 2, 4), (3, 13, 37, 4, 4), (1, 12, 40, 2, 4),
+    (3, 12, 40, 2, 1), (3, 13, 37, 2, 2), (2, 13, 37, 2, 3)])
+def test_corr_patch_coords_backward_kernel(dev, r, h, w, B, L, monkeypatch):
+    """The lookup's coordinate gradient against its plain version, 1 to 4
+    levels (a cluster of as many blocks), on a coherent and a scattered
+    field with windows wholly and partly outside the levels (ragged tiles
+    where w is not a multiple of 8 or h of 4), a tile none of whose
+    windows meets level 0 (levels 1 and up do), a tile whose windows miss
+    every level, and with 4 levels a whole level that no query reads
+    (scale 1000): each element within 1e-5 of its sum of |terms|
     (``corr_patch_lookup_coords_backward_terms``: the tap dots are f32
     sums of 128 products in another order, and the derivative takes their
-    differences); the same bits on two launches, and with every block
-    reading its taps from global memory (``PATCH_BOX_BYTES = 0``); a
-    query whose window misses every level has none."""
+    differences); the same bits on two launches; boxes of one chunk and of
+    several in one launch, and the same bits with every box in chunks of 8
+    pixels (``PATCH_COORDS_BOX_BYTES = 0``: runs of one box row; a tap is
+    its own column of one product, whatever the chunk); a query whose
+    window misses every level has none."""
     g = _g()
     f1, f2 = (torch.randn(B, h, w, 128, generator=g).to(dev)
               for _ in range(2))
     coords = _corr_coords(dev, r, 2, h, w)
+    coords[0, 0:4, 8:16] = torch.tensor([-(r + 1.5), 1.0])
+    coords[0, 4:8, 16:24] = torch.tensor([-1000.0, 2.0])
     coords = torch.cat([coords] * (B // 2)).contiguous()
-    pyr = corr.build_corr_pyramid(f1, f2, 4, r, impl="patch")
-    gout = torch.randn(B, h, w, 4 * (2 * r + 1) ** 2, generator=g).to(dev)
-    args = (gout, pyr["f1"], pyr["levels"], coords, r)
-    got = _launched("corr_patch_lookup_coords_backward",
-                    lambda: corr.corr_patch_lookup_coords_backward(*args))
-    ref = corr.corr_patch_lookup_coords_backward_plain(*args)
-    terms = corr.corr_patch_lookup_coords_backward_terms(*args)
-    assert torch.isfinite(got).all() and float(got.abs().max()) > 0
-    assert bool(((got - ref).abs() <= 1e-5 * terms).all())
-    assert torch.equal(corr.corr_patch_lookup_coords_backward(*args), got)
-    monkeypatch.setattr(corr, "PATCH_BOX_BYTES", 0)
-    assert torch.equal(corr.corr_patch_lookup_coords_backward(*args), got)
+    pyr = corr.build_corr_pyramid(f1, f2, L, r, impl="patch")
+    shapes = [tuple(l.shape[1:3]) for l in pyr["levels"]]
+    plan = corr.patch_lookup_plan(coords, shapes, r, coords_grad=True)
+    assert plan[0].any() and not plan[0].all()
+    gout = torch.randn(B, h, w, L * (2 * r + 1) ** 2, generator=g).to(dev)
+    scale_sets = [None] + ([[1.0, 0.5, 1000.0, 0.125]] if L == 4 else [])
+    def check(scales):
+        args = (gout, pyr["f1"], pyr["levels"], coords, r, scales)
+        got = _launched("corr_patch_lookup_coords_backward",
+                        lambda: corr.corr_patch_lookup_coords_backward(*args))
+        ref = corr.corr_patch_lookup_coords_backward_plain(*args)
+        terms = corr.corr_patch_lookup_coords_backward_terms(*args)
+        assert torch.isfinite(got).all() and float(got.abs().max()) > 0
+        assert bool(((got - ref).abs() <= 1e-5 * terms).all())
+        assert not got[0, 4:8, 16:24].any()
+        assert torch.equal(corr.corr_patch_lookup_coords_backward(*args),
+                           got)
+        return got
+
+    results = [check(scales) for scales in scale_sets]
+    monkeypatch.setattr(corr, "PATCH_COORDS_BOX_BYTES", 0)
+    assert not corr.patch_lookup_plan(coords, shapes, r,
+                                      coords_grad=True)[0].all()
+    for scales, got in zip(scale_sets, results):
+        assert torch.equal(check(scales), got)
 
 
 def test_backward_kernels_under_autograd(dev):

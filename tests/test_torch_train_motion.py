@@ -729,10 +729,11 @@ def test_motion_train_step_matches(motion_stage):
 
 @pytest.mark.parametrize("case", ["fused", "volume", "bf16_scores"])
 def test_motion_training_raises(case):
-    """bf16 scores raise only where codd_tpu would score in bf16, on its
-    windowed form: at a 1/8-res width of 128 (a 64x1024 frame); at the
-    other widths they train as f32 scores (the two tests below)."""
-    width = 1024 if case == "bf16_scores" else W
+    """bf16 scores and the fused GN solve raise only where codd_tpu would
+    run them, on its windowed form: at a 1/8-res width of 128 (a 64x1024
+    frame); at the other widths both train as auto trains, with f32 scores
+    (the tests below)."""
+    width = 1024 if case in ("bf16_scores", "fused") else W
     rng = np.random.RandomState(0)
     args = (_t(rng.rand(1, T, H, width, 3)), _t(rng.rand(1, T, H, width, 3)),
             _t([[100.0, 100.0, width / 2, H / 2]]))
@@ -748,10 +749,10 @@ def test_motion_training_raises(case):
                                                                3)
 
 
-def _gn_step_grads(field, bf16_scores):
+def _gn_step_grads(field, bf16_scores, impl="auto"):
     Ts, ae, target, weight, depth, intr = (_t(a) for a in field)
     ins = [x.requires_grad_() for x in (ae, target, weight)]
-    out = tgn.gn_step(Ts, ins[0], ins[1], ins[2], depth, intr,
+    out = tgn.gn_step(Ts, ins[0], ins[1], ins[2], depth, intr, impl=impl,
                       bf16_scores=bf16_scores)
     out.backward(torch.ones_like(out))
     return out.detach(), [x.grad for x in ins]
@@ -769,6 +770,20 @@ def test_gn_bf16_scores_train_with_f32_scores_where_dense():
     out_f, g_f = _gn_step_grads(field, False)
     assert torch.equal(out_bf, out_f)
     for a, b in zip(g_bf, g_f):
+        assert torch.equal(a, b)
+
+
+def test_gn_fused_trains_as_auto_where_dense():
+    """A 48x96 field at 1/8 res: codd_tpu resolves gn_impl="fused" to its
+    dense form there and trains it.  Under autograd the port trains
+    "fused" as "auto": the update and the gradients of ae, target and
+    weight equal in bits to those with gn_impl="auto"."""
+    field = _gn_field(48, 96, seed=6)
+    assert jgn.resolve_impl("fused", 32, 96) == "dense"
+    out_fu, g_fu = _gn_step_grads(field, False, "fused")
+    out_au, g_au = _gn_step_grads(field, False, "auto")
+    assert torch.equal(out_fu, out_au)
+    for a, b in zip(g_fu, g_au):
         assert torch.equal(a, b)
 
 
