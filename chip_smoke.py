@@ -29,9 +29,11 @@ Phases, in order:
      their plain bf16 versions, each timed beside the f32 form, with the
      share of outputs off their plain version's bits, and its backward
      (the VJP of tile_warping) against the plain backward on the random
-     and on a smooth field (shared taps; the row's ``ms_smooth``), dhyp3
-     and dfea_l equal in bits on two launches, timed at each channel
-     group a pass of its row block takes (16, 8, 4); the
+     and on a smooth field (shared taps; the row's ``ms_smooth``), its
+     three outputs equal in bits on two launches, timed at each channel
+     group a pass of its row block takes (16, 8, 4), in bf16 also at the
+     training call with taps past both edges, four launches each the
+     first's bits (dhyp3 and dfea_l the plain version's); the
      backward of kernels 5 and 6 at the motion stage's training call (B=4,
      48x96 queries) against their plain backward, timed, with their
      bounds: kernel 5's (tensor-core products) twice for equal bits;
@@ -152,6 +154,21 @@ Phases, in order:
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
      and its JSON line; the launches a call must be the main path's.
+  weights: a reference CODD checkpoint through utils/port_weights.py: the
+     default model (configs/models/codd.py, max_disp 320, 16 GN
+     iterations) with seeded weights on the card, its state_dict written
+     under the reference's names (the port's tables read backward, with
+     BatchNorm's num_batches_tracked and the HITLoss plane-fit convs) to
+     a .pth under build/, converted by port_codd_checkpoint and saved,
+     then loaded into a second model (another seed) by
+     train/checkpoint.py:restore_params, ``--load-from``'s loader; both
+     stream first_step + 2 steps at 384x1280 with launch counts; the last
+     frame's point cloud from vis_point_cloud.disparity_to_points on the
+     card, written by write_ply; the point count and the phase's seconds.
+     Fails on a missing prefix, other plane-fit kernels, a tensor off the
+     original's bits, launches other than the main path's a frame,
+     pred_disp moved on more than 1e-3 of the pixels (phase 6's rule), or
+     a point cloud other than the same function's on the CPU.
   loader (not in the default phases; with entry): the in-memory step
      with the entry's data work beside it, a batch drawn and dropped a
      step, in the entry's prefetch thread and in a process of its own
@@ -185,6 +202,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 in the tensor cores
@@ -527,7 +545,7 @@ def tile_warp_backward_check(hyp3, fl, fr, gout):
     """Kernel 1's backward at the full-res call against its plain version
     (the VJP of tile_warping, scatter by index_add_), on the random field
     and on a smooth one (one disparity, no slant: neighbouring pixels share
-    their taps); dhyp3 and dfea_l equal in bits on two launches; the time
+    their taps); all three outputs equal in bits on two launches; the time
     at channel groups of 16, 8 and 4 channels a pass."""
     import torch
     from codd_torch.ops import tile_warp
@@ -541,17 +559,15 @@ def tile_warp_backward_check(hyp3, fl, fr, gout):
         torch.cuda.synchronize()
         # the same floor() and sign decisions; dhyp3 sums 16 pixels x 16
         # channels x 3 offsets in another order, dfea_r gathers up to 12
-        # terms a value in an order that the sort's ranks (integer atomics)
-        # vary from run to run: 1e-5 of each output's largest value and
-        # 1e-5 relative
+        # terms a value in the stable sort's order (index_add_'s atomics
+        # vary the plain version's): 1e-5 of each output's largest value
+        # and 1e-5 relative
         err = max(err, *(_compare(f"tile_warp_cost_backward {label} {n}", a,
                                   b, 1e-5 * float(b.abs().max()), 1e-5)
                          for n, a, b in zip(("dhyp3", "dfea_l", "dfea_r"),
                                             got, ref)))
-        if not (torch.equal(got[0], again[0])
-                and torch.equal(got[1], again[1])):
-            fail(f"tile_warp_cost_backward {label}: dhyp3 or dfea_l differ "
-                 "between two launches")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"tile_warp_cost_backward {label}: two launches differ")
         if not torch.equal(got[1], ref[1]):
             fail(f"tile_warp_cost_backward {label}: dfea_l is not the plain "
                  "backward's bits")
@@ -630,6 +646,36 @@ def tile_warp_backward_bf16_compare(label, args, quiet=False):
     return err, off
 
 
+def tile_warp_backward_bf16_repeat(dev, launches: int = 4):
+    """The bf16 backward at the training call (4 x 384x768, C=16) on
+    tests/test_torch_gpu.py's random field (seed 0, disparities -20 to
+    W + 20: taps past both edges), the case whose dfea_r took other bits
+    from launch to launch while the row's sort ranked pixels by the order
+    of shared-memory atomics: each of ``launches`` launches with dhyp3 and
+    dfea_l equal in bits to the plain version, all three outputs equal in
+    bits to the first launch's."""
+    import torch
+    from codd_torch.ops import tile_warp
+    from codd_torch.tools.kernel_cutouts import training_call_inputs
+    args = training_call_inputs(dev)
+    ref = tile_warp.tile_warp_cost_backward_plain(*args)
+    first = None
+    for n in range(launches):
+        got = tile_warp.tile_warp_cost_backward(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            fail(f"tile_warp_cost_backward bf16, training call, launch {n}: "
+                 "dhyp3 or dfea_l is not the plain version's bits")
+        if first is None:
+            first = got
+        elif not all(torch.equal(a, b) for a, b in zip(got, first)):
+            fail(f"tile_warp_cost_backward bf16, training call, launch {n}: "
+                 "not the first launch's bits")
+    print(f"  tile_warp_cost_backward bf16, training call, taps past both "
+          f"edges: {launches} launches, dhyp3 and dfea_l the plain "
+          f"version's bits, all three outputs the first launch's", flush=True)
+
+
 def tile_warp_backward_bf16(hyp3, smooth, fl, fr, gout, nbytes, flops):
     """Kernel 1's backward in bf16 (the VJP of the exact form) on phase 3's
     inputs rounded to bf16, the random and the smooth field at 384x1280,
@@ -654,6 +700,7 @@ def tile_warp_backward_bf16(hyp3, smooth, fl, fr, gout, nbytes, flops):
              "smooth": bf(gout, smooth, fl, fr), "training call": train}
     errs, offs = zip(*(tile_warp_backward_bf16_compare(k, a)
                        for k, a in cases.items()))
+    tile_warp_backward_bf16_repeat(dev)
     out = dict(max_abs_err_bf16=max(errs), unequal_share_bf16=max(offs))
     for key, k in (("ms_bf16", "random"), ("ms_bf16_smooth", "smooth"),
                    ("ms_bf16_train", "training call")):
@@ -2907,6 +2954,137 @@ def bench_phase():
     return {k: int(v * 5) for k, v in res["bf16"]["launches_per_call"].items()}
 
 
+# ---------------------------------------------------------------------------
+# weights: a reference CODD checkpoint through utils/port_weights.py
+# ---------------------------------------------------------------------------
+
+WEIGHTS_DIR = Path(__file__).resolve().parent / "build" / "weights_smoke"
+WEIGHTS_STEPS = 2
+# the point-cloud CLI's defaults (KITTI's fx times its baseline)
+CALIB = 384.38
+
+
+def reference_state_dict(sd):
+    """The port's state_dict ``sd`` under the reference checkpoint's names
+    (``utils/port_weights.py``'s tables read backward; the layouts are the
+    reference's already), with BatchNorm's ``num_batches_tracked`` and the
+    HITLoss plane-fit convs, as an mmcv checkpoint holds them."""
+    import torch
+    from codd_torch.losses.hitnet import plane_fit_kernels
+    from codd_torch.utils import port_weights
+
+    ref = {}
+    for sub, table, dest in port_weights.SUBMODULES:
+        for entry in table:
+            bn = len(entry) > 2 and entry[2] == "bn"
+            base = f"{dest}.{entry[1].replace('/', '.')}"
+            leaves = (("weight", "bias", "running_mean", "running_var")
+                      if bn else ("weight", "bias"))
+            for leaf in leaves:
+                if f"{base}.{leaf}" in sd:
+                    ref[f"{sub}.{entry[0]}.{leaf}"] = sd[f"{base}.{leaf}"]
+            if bn:
+                ref[f"{sub}.{entry[0]}.num_batches_tracked"] = torch.tensor(0)
+    for name, k in zip(("convx", "convy"), plane_fit_kernels()):
+        ref[f"stereo.loss.{name}.weight"] = torch.from_numpy(k)[None, None]
+    return ref
+
+
+def weights_phase(dev):
+    """The default model with seeded weights written as a reference
+    checkpoint, converted by ``port_codd_checkpoint``, saved and loaded
+    into a second model by ``train/checkpoint.py:restore_params``
+    (``--load-from``'s loader); both streamed; the last frame's point
+    cloud.  Returns the launches of the two streams."""
+    import shutil
+    import torch
+    from codd_torch.losses.hitnet import plane_fit_kernels
+    from codd_torch.models.builder import build_estimator
+    from codd_torch.ops import kernels
+    from codd_torch.train.checkpoint import restore_params
+    from codd_torch.utils import port_weights, vis_point_cloud
+
+    t0 = time.perf_counter()
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    WEIGHTS_DIR.mkdir(parents=True)
+    try:
+        model = build_model()
+        sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        ref_path, port_path = (WEIGHTS_DIR / "reference.pth",
+                               WEIGHTS_DIR / "port.pth")
+        torch.save({"meta": {"epoch": 0}, "state_dict":
+                    reference_state_dict(sd)}, ref_path)
+        conv = port_weights.port_codd_checkpoint(
+            torch.load(ref_path, map_location="cpu", weights_only=True))
+        if conv["missing"]:
+            fail(f"weights: port_codd_checkpoint missing {conv['missing'][:5]}"
+                 f" ({len(conv['missing'])})")
+        kx, ky = plane_fit_kernels()
+        kernels_back = conv.get("hit_loss_kernels", {})
+        if not (np.array_equal(kernels_back.get("convx"), kx)
+                and np.array_equal(kernels_back.get("convy"), ky)):
+            fail("weights: hit_loss_kernels are not the file's")
+        torch.save(conv["state_dict"], port_path)
+        second = build_estimator(model_cfg(), device="cuda", seed=1)
+        restore_params(str(port_path), second)
+        got = second.state_dict()
+        off = [k for k, v in model.state_dict().items()
+               if not torch.equal(got[k], v)]
+        if off:
+            fail(f"weights: {len(off)} tensors off the original's bits, "
+                 f"e.g. {off[:3]}")
+        n_tensors, mib = len(sd), ref_path.stat().st_size / 2 ** 20
+
+        intr = torch.tensor([[721.5, 721.5, 609.6, 172.9]], device=dev)
+        seq = frames(WEIGHTS_STEPS + 1, dev)
+        kernels.reset_counts()
+        outs = {label: stream(m, intr, seq)[2]
+                for label, m in (("original", model), ("converted", second))}
+        launches = kernels.counts()
+        expect = dict(dict.fromkeys(kernels.KERNELS, 0),
+                      tile_warp_cost=2 * 9 * (WEIGHTS_STEPS + 1),
+                      corr_lookup=2 * 16 * WEIGHTS_STEPS,
+                      gn_fused_solve=2 * 16 * WEIGHTS_STEPS,
+                      splat_composite=2 * 2 * WEIGHTS_STEPS)
+        if launches != expect:
+            fail(f"weights: launch counts {launches} != expected {expect}")
+        for t, (a, b) in enumerate(zip(outs["converted"], outs["original"])):
+            a, b = a["pred_disp"], b["pred_disp"]
+            if a.shape != (1, H, W, 1) or not torch.isfinite(a).all():
+                fail(f"weights: frame {t} pred_disp {tuple(a.shape)} or "
+                     "non-finite")
+            share = float(((a - b).abs() > 1e-2 * (1 + b.abs())).float()
+                          .mean())
+            if share > 1e-3:
+                fail(f"weights: frame {t} pred_disp moved on {share:.2e} of "
+                     "the pixels")
+        disp = outs["converted"][-1]["pred_disp"][0, ..., 0]
+        pts, col = vis_point_cloud.disparity_to_points(
+            disp, intr[0].tolist(), CALIB)
+        cpu_pts, cpu_col = vis_point_cloud.disparity_to_points(
+            disp.cpu(), intr[0].tolist(), CALIB)
+        if not (np.array_equal(pts, cpu_pts)
+                and np.array_equal(col, cpu_col)):
+            fail("weights: the point cloud on the card is not the CPU's")
+        ply = WEIGHTS_DIR / f"frame{WEIGHTS_STEPS}.ply"
+        vis_point_cloud.write_ply(str(ply), pts, col)
+        header = 200 + len(str(len(pts)))
+        if not 15 * len(pts) < ply.stat().st_size <= 15 * len(pts) + header:
+            fail(f"weights: {ply.name} holds {ply.stat().st_size} bytes for "
+                 f"{len(pts)} points")
+    finally:
+        shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    print(f"  reference checkpoint: {n_tensors} tensors ({mib:.1f} MiB) "
+          "converted with no missing prefix, loaded by restore_params, every "
+          "tensor the original's bits", flush=True)
+    print(f"  first_step + {WEIGHTS_STEPS} steps on both models: pred_disp "
+          f"agrees; launches {launches}", flush=True)
+    print(f"  point cloud of frame {WEIGHTS_STEPS}: {len(pts)} points "
+          f"(the CPU's bits); phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def profile_step(model, intr, seq, out_file: Path):
     """torch.profiler over one streaming step (``profile_call``)."""
     import torch
@@ -2998,9 +3176,11 @@ def _category(kernel: str, hand) -> str:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,main,eval,plain,train,entry,bench",
+                    default="kernels,main,eval,plain,train,entry,bench,"
+                            "weights",
                     help="comma list of kernels, main, eval, plain, train, "
-                         "entry, bench, profile (profile writes chiprun_out/"
+                         "entry, bench, weights, profile (profile writes "
+                         "chiprun_out/"
                          "profile_step*.txt, the bf16 model's too, and "
                          "streams both configurations in turns), loader "
                          "(with entry: the in-memory step beside the "
@@ -3010,7 +3190,7 @@ def main():
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "main", "eval", "plain", "train", "entry",
-                        "bench", "profile", "loader"}
+                        "bench", "weights", "profile", "loader"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     if "loader" in phases and "entry" not in phases:
@@ -3087,6 +3267,13 @@ def main():
         print("[bench] tools/bench.py at 384x1280: f32, bf16, bf16 batch 2",
               flush=True)
         bf16_launches = bench_phase()
+    weights_launches = {}
+    if "weights" in phases:
+        print(f"[weights] a reference checkpoint of the default model "
+              f"through port_codd_checkpoint and restore_params; first_step "
+              f"+ {WEIGHTS_STEPS} steps at {H}x{W} on both models; the point "
+              "cloud", flush=True)
+        weights_launches = weights_phase(dev)
     if "profile" in phases:
         if model is None and eval_model is None and "train" not in phases:
             fail("the profile phase needs the main, eval or train phase")
@@ -3109,14 +3296,15 @@ def main():
             streams_in_turns(dev, model, eval_model)
     # each path was driven with the counts at 0; a kernel's launches are
     # the default path's plus the evaluation path's plus the training
-    # steps' plus the training entry's (the backward launches in training
-    # only)
+    # steps' plus the training entry's plus the converted checkpoint's
+    # streams (the backward launches in training only)
     for r in rows:
         r["route"] = "cuda"
         r["launches"] = (launches.get(r["name"], 0)
                          + eval_launches.get(r["name"], 0)
                          + train_launches.get(r["name"], 0)
-                         + entry_launches.get(r["name"], 0))
+                         + entry_launches.get(r["name"], 0)
+                         + weights_launches.get(r["name"], 0))
         needs = ({"train"} if r["name"].endswith("_backward")
                  else {"main", "eval"})
         if r["launches"] == 0 and needs <= phases:
@@ -3133,6 +3321,8 @@ def main():
             "plain_ms_bf16", "max_abs_err_bf16", "unequal_share_bf16",
             "ms_bf16_smooth", "ms_bf16_train", "bound_ms_bf16_train",
             "ms_smooth", "ms_scattered", "one_chunk_share", "global_adds")
+    print(f"chip_smoke: phases {','.join(sorted(phases))} in "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

@@ -376,8 +376,8 @@ __device__ __forceinline__ unsigned channels_exact(
 // shared memory is a compare-and-swap loop on this card, ATOMS.CAST.SPIN,
 // and 64 a pixel of them set the time):
 //   0. the row's pixels sorted by the bin of their first tap, col0 + 3 in
-//      [0, W + 2] (a counting sort: ranks by integer shared atomics,
-//      native, and a scan); a pixel's data lives at its slot; a pixel with
+//      [0, W + 2] (a stable counting sort: ranks in pixel order within a
+//      bin, then a scan); a pixel's data lives at its slot; a pixel with
 //      no tap in the image takes no slot;
 //   1. per channel group of cg channels, each pixel stores its dfea_l,
 //      keeps dlocal (dloc) and packs the sign of l - warped, 2 bits a
@@ -398,7 +398,9 @@ __device__ __forceinline__ unsigned channels_exact(
 // add (kept across channel groups in shared memory), combined in the
 // transpose's order; the tile sums of to_plane's transpose rounded after
 // every add.  The sums' order is fixed, so every output but dfea_r is the
-// plain version's bits (ops/tile_warp.py:_backward_exact).
+// plain version's bits (ops/tile_warp.py:_backward_exact), and dfea_r, whose
+// column sums run in bin order and pixel order within a bin (the stable
+// sort), has the same bits at every launch.
 template <int FORM, typename T>
 __global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kBwdMaxThreads, 2)
 tile_warp_cost_backward_kernel(
@@ -425,21 +427,35 @@ tile_warp_cost_backward_kernel(
   T* drow = dfea_r + (long long)by * W * C;
   const int nt = blockDim.x, tid = threadIdx.x;
 
-  // 0. the counting sort
+  // 0. the counting sort, stable: a pixel's rank in its bin is the number
+  // of pixels left of it in that bin (its warp's lanes with the same bin
+  // by __match_any_sync, then the warps in turn add their counts), so a
+  // column's taps are summed in the same order at every launch
+  const int lane = tid & 31, warp = tid >> 5;
   for (int k = tid; k <= nb; k += nt) start[k] = 0;
   __syncthreads();
-  for (int x = tid; x < W; x += nt) {
-    float f;
-    int col0;
-    unsigned okbits;
-    bwd_plane<FORM>(hyp3 + (bt * wt + (x >> 2)) * 3, x, i, W, f, col0,
-                    okbits);
-    int code = -1;  // no tap in the image (also a NaN plane)
-    if (okbits) {
-      const int bin = col0 + 3;
-      code = bin << 16 | atomicAdd(start + bin, 1);
+  for (int xb = 0; xb < W; xb += nt) {  // every thread, every pass
+    const int x = xb + tid;
+    int bin = -1;  // no tap in the image (also a NaN plane), or x >= W
+    if (x < W) {
+      float f;
+      int col0;
+      unsigned okbits;
+      bwd_plane<FORM>(hyp3 + (bt * wt + (x >> 2)) * 3, x, i, W, f, col0,
+                      okbits);
+      if (okbits) bin = col0 + 3;
     }
-    slot[x] = code;
+    const unsigned same = __match_any_sync(0xffffffffu, bin);
+    const unsigned left = same & ((1u << lane) - 1u);
+    int base = 0;
+    for (int w = 0; w < nt / 32; ++w) {
+      if (warp == w && bin >= 0) base = start[bin];
+      __syncwarp();
+      if (warp == w && bin >= 0 && left == 0)
+        start[bin] = base + __popc(same);
+      __syncthreads();
+    }
+    if (x < W) slot[x] = bin < 0 ? -1 : (bin << 16 | (base + __popc(left)));
   }
   __syncthreads();
   {  // exclusive scan of the nb bin counts in place; start[nb]: their sum
@@ -447,7 +463,6 @@ tile_warp_cost_backward_kernel(
     const int lo = min(tid * per, nb), hi = min(lo + per, nb);
     int sum = 0;
     for (int k = lo; k < hi; ++k) sum += start[k];
-    const int lane = tid & 31, warp = tid >> 5;
     int incl = sum;
     for (int o = 1; o < 32; o <<= 1) {
       const int v = __shfl_up_sync(0xffffffffu, incl, o);

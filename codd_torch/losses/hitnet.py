@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.metrics import masked_mean
+from ..utils.precision import absolute
 
 __all__ = ["HITLossConfig", "hit_loss", "hit_loss_with_depth",
            "plane_fit_kernels", "echo_loss", "PROP_WEIGHTS", "TRUNCATION_A",
@@ -134,7 +135,7 @@ def hit_loss(
     prop_sum = prop_cnt = 0.0
     diffs = []
     for i, disp in enumerate(prop_disp_pyramid):
-        diff = torch.abs(d_gt - disp)
+        diff = absolute(d_gt - disp)
         diffs.append(diff)
         val = cfg.lambda_prop * PROP_WEIGHTS[i] * echo_loss(
             torch.clamp(diff, max=TRUNCATION_A[i]), cfg.alpha, cfg.c)
@@ -145,7 +146,7 @@ def hit_loss(
     for i in range(len(dx_pyramid)):
         m = mask & (diffs[i] < 1.0)
         val = cfg.lambda_slant * PROP_WEIGHTS[i] * (
-            torch.abs(dx_gt - dx_pyramid[i]) + torch.abs(dy_gt - dy_pyramid[i]))
+            absolute(dx_gt - dx_pyramid[i]) + absolute(dy_gt - dy_pyramid[i]))
         s, c = _acc(val, m)
         slant_sum, slant_cnt = slant_sum + s, slant_cnt + c
 
@@ -194,7 +195,7 @@ def hit_loss_with_depth(
     mask = (d_gt > 0) & (d_gt < cfg.max_disp)
 
     def comp_err(a, b):
-        return torch.log1p(torch.abs(a - b))
+        return torch.log1p(absolute(a - b))
 
     depth_loss = lambda_depth * masked_mean(comp_err(pred_depth, target_depth),
                                             mask)
@@ -213,7 +214,7 @@ def hit_loss_with_depth(
         cos = torch.sum(pn * tn, -1, keepdim=True) / (
             torch.linalg.norm(pn, dim=-1, keepdim=True)
             * torch.linalg.norm(tn, dim=-1, keepdim=True) + eps)
-        normal_loss = masked_mean(torch.abs(1.0 - cos), mask)
+        normal_loss = masked_mean(absolute(1.0 - cos), mask)
         logs["depth_grad_loss"] = lambda_depth_grad * grad_loss
         logs["depth_normal_loss"] = lambda_depth_normal * normal_loss
         total = total + logs["depth_grad_loss"] + logs["depth_normal_loss"]

@@ -8,6 +8,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..ops.metrics import masked_mean
+from ..utils.precision import absolute
 
 __all__ = ["motion_loss", "fusion_loss"]
 
@@ -34,10 +35,11 @@ def motion_loss(
         w = gamma ** (N - i - 1)
         fl_est = flow2d_est[i][..., :2]
         dz_est = flow2d_est[i][..., 2:]
-        total = total + w * torch.mean(m * torch.abs(fl_est - fl_gt))
-        total = total + w * dz_weight * torch.mean(m * torch.abs(dz_est - dz_gt))
+        total = total + w * torch.mean(m * absolute(fl_est - fl_gt))
+        total = total + w * dz_weight * torch.mean(
+            m * absolute(dz_est - dz_gt))
         total = total + w * rv_weight * torch.mean(
-            m * torch.abs(flow2d_rev[i] - fl_gt))
+            m * absolute(flow2d_rev[i] - fl_gt))
 
     # metrics of the last iteration
     epe2d = torch.sqrt(torch.sum((fl_est - fl_gt) ** 2, -1, keepdim=True))
@@ -85,7 +87,7 @@ def fusion_loss(
         out = (masked_mean(weight_warp, (d < -C) & mask)
                + masked_mean(weight_curr, (d > C) & mask))
         if with_same:
-            same = masked_mean(torch.abs(weight_curr - 0.5),
+            same = masked_mean(absolute(weight_curr - 0.5),
                                (torch.abs(d) <= C) & mask)
             out = out + same * 0.2
         return out

@@ -60,7 +60,11 @@ add.
 
 The backward kernel gives each image row one block (a cluster of four per
 tile row): a pixel's taps lie on its own row, so the block owns the row of
-``dfea_r``.  It sorts the row's pixels by their first tap; then, for a
+``dfea_r``.  It sorts the row's pixels by their first tap (a stable
+sort, so that each column sums its taps in one order at every launch:
+pixel order within a bin; ranks taken in the order of shared-memory
+atomics gave dfea_r other bits from launch to launch where an f32 sum
+rounds to two bf16 values); then, for a
 group of ``backward_channel_group`` channels at a time, each pixel packs
 the signs of its L1 terms into shared memory and each column rebuilds and
 sums the cotangents of the taps that read it and stores them once: no

@@ -12,7 +12,8 @@ are never loaded by the port.  Kernels (``--kernel``, default
 ``tile_warp``):
 
 - ``tile_warp``: kernel 1 and its backward 1b (``csrc/tile_warp.cu``) at
-  384x1280, C=16: a random field, and for the backward also a smooth one;
+  384x1280, C=16: a random field, and for the backward also a smooth one,
+  in f32 and bf16, and 1b in bf16 at the training call (4 x 384x768);
   ``--forward-only`` skips the backward, whose launcher an older revision
   may not share;
 - ``corr_coords``: the lookup's coordinate gradient 6c
@@ -253,14 +254,41 @@ def tile_warp_calls(lib, dev, opts):
         out[f"forward {form}"] = (lib.tile_warp_cost_launch, args, ins + [res])
     if not opts.forward_only:
         cg = tile_warp.backward_channel_group(W, C)
-        grads = [torch.empty_like(t) for t in (hyp3, fl, fr)]
-        for label, h in (("random", hyp3), ("smooth", smooth)):
-            ts = [h, fl, fr, gout, *grads]
-            args = [t.data_ptr() for t in ts] + [
-                1, H, W, C, cg, tile_warp.FORMS["f32"], stream]
-            out[f"backward {label}"] = (lib.tile_warp_cost_backward_launch,
-                                        args, ts)
+        for form in ("f32", "exact"):
+            dt = torch.float32 if form == "f32" else torch.bfloat16
+            for label, h in (("random", hyp3), ("smooth", smooth)):
+                ins = [t.to(dt) for t in (h, fl, fr, gout)]
+                ts = ins + [torch.empty_like(t) for t in ins[:3]]
+                args = [t.data_ptr() for t in ts] + [
+                    1, H, W, C, cg, tile_warp.FORMS[form], stream]
+                name = label if form == "f32" else f"bf16 {label}"
+                out[f"backward {name}"] = (
+                    lib.tile_warp_cost_backward_launch, args, ts)
+        g, hyp, fa, fb = training_call_inputs(dev)
+        B, h, w, _ = fa.shape
+        ts = [hyp, fa, fb, g] + [torch.empty_like(t) for t in (hyp, fa, fb)]
+        args = [t.data_ptr() for t in ts] + [
+            B, h, w, C, tile_warp.backward_channel_group(w, C),
+            tile_warp.FORMS["exact"], stream]
+        out["backward bf16 training call"] = (
+            lib.tile_warp_cost_backward_launch, args, ts)
     return out
+
+
+def training_call_inputs(dev):
+    """1b's bf16 inputs (g, hyp3, fea_l, fea_r) at the training call, 4 x
+    384x768, C=16, drawn as tests/test_torch_gpu.py draws its random field
+    (seed 0; disparities -20 to W + 20: taps past both edges)."""
+    B, h, w = 4, 384, 768
+    g = _gen()
+    fl, fr = (torch.randn(B, h, w, C, generator=g) for _ in range(2))
+    hyp3 = torch.stack([torch.rand(B, h // 4, w // 4, generator=g)
+                        * (w + 40) - 20,
+                        torch.rand(B, h // 4, w // 4, generator=g) * 4 - 2,
+                        torch.rand(B, h // 4, w // 4, generator=g) * 4 - 2],
+                       -1)
+    gout = torch.randn(B, h // 4, w // 4, 48, generator=g)
+    return [t.to(dev).to(torch.bfloat16) for t in (gout, hyp3, fl, fr)]
 
 
 def corr_coords_calls(lib, dev, opts):
@@ -363,6 +391,9 @@ def build(kernel: str, source: Path, names):
             print(f"  {kernel} {name}: not in {source}, skipped")
             continue
         cu, so = out / f"{name}.cu", out / f"{name}.so"
+        if so.exists() and cu.exists() and cu.read_text() == cut:
+            jobs[name] = (so, None)  # built from this text already
+            continue
         cu.write_text(cut)
         jobs[name] = (so, subprocess.Popen(
             [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
@@ -371,8 +402,9 @@ def build(kernel: str, source: Path, names):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
+        log, _ = proc.communicate() if proc else ("", None)
+        if proc and proc.returncode != 0:
+            so.unlink(missing_ok=True)
             raise RuntimeError(f"cut-out {kernel} {name}: nvcc failed\n{log}")
         libs[name] = ctypes.CDLL(str(so))
         for entry in entries:

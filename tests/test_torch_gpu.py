@@ -10,6 +10,10 @@ where JAX is not installed:
 ``python -m pytest tests/test_torch_gpu.py --noconftest -m gpu``."""
 
 import contextlib
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -606,10 +610,10 @@ def test_tile_warp_backward_kernel(dev, B, H, W, C, field):
     """Kernel 1's backward against its plain version.  The same floor()
     and sign decisions by construction; dhyp3 sums a tile's 16 pixels x C
     channels x 3 offsets in another order, dfea_r gathers up to 12 terms
-    a value in an order that the row's sort varies from run to run: 1e-5
-    of each output's largest value, 1e-5 relative.  dfea_l sums in the same
-    order: equal.  A second launch gives dfea_l and dhyp3 the same bits
-    (dhyp3 in a fixed order across the cluster's rows)."""
+    a value in the row's stable sort's order (index_add_'s atomics vary the
+    plain version's): 1e-5 of each output's largest value, 1e-5 relative.
+    dfea_l sums in the same order: equal.  A second launch gives all three
+    the same bits (dhyp3 in a fixed order across the cluster's rows)."""
     hyp3, fl, fr, gout = _tile_warp_inputs(dev, B, H, W, C, field)
     got = _launched("tile_warp_cost_backward",
                     lambda: tile_warp.tile_warp_cost_backward(gout, hyp3, fl,
@@ -621,7 +625,7 @@ def test_tile_warp_backward_kernel(dev, B, H, W, C, field):
                                    rtol=1e-5)
     assert torch.equal(got[1], ref[1])
     again = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
-    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_tile_warp_autograd_launches_both_kernels(dev):
@@ -691,6 +695,45 @@ def test_tile_warp_backward_kernel_bf16(dev, B, H, W, C, field):
             + n * 2.0 ** -24 * terms).all()
     again = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# one process's hashes of kernel 1's bf16 backward at the training call
+# (dhyp3, dfea_l, dfea_r) and of the plain version's dhyp3 and dfea_l
+_BITS_SCRIPT = """
+import hashlib, sys
+import torch
+sys.path[:0] = sys.argv[1:3]
+from test_torch_gpu import _tile_warp_inputs
+from codd_torch.ops import tile_warp
+torch.backends.cudnn.allow_tf32 = False
+ins = [t.to(torch.bfloat16) for t in _tile_warp_inputs(
+    torch.device("cuda"), 4, 384, 768, 16, "random")]
+hyp3, fl, fr, gout = ins
+got = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
+ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
+torch.cuda.synchronize()
+print(" ".join(hashlib.sha1(t.cpu().view(torch.int16).numpy().tobytes())
+               .hexdigest() for t in list(got) + list(ref[:2])))
+"""
+
+
+def test_tile_warp_backward_bf16_bits_across_processes(dev):
+    """The training call's case of test_tile_warp_backward_kernel_bf16 in
+    three processes of their own: the kernel's three outputs have the same
+    bits in each (the row's sort is stable; ranks taken in the order of
+    shared-memory atomics gave dfea_r other bits where a column's f32 sum
+    rounds to two bf16 values), and dhyp3 and dfea_l are the plain
+    version's."""
+    here = Path(__file__).resolve().parent
+    runs = []
+    for _ in range(3):
+        r = subprocess.run([sys.executable, "-c", _BITS_SCRIPT, str(here),
+                            str(here.parent)], capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        runs.append(r.stdout.split()[-5:])
+    assert all(h == runs[0] for h in runs), runs
+    assert runs[0][:2] == runs[0][3:], runs[0]
 
 
 @pytest.mark.parametrize("h,w,radius,B", [(12, 72, 32, 2), (5, 19, 3, 1),

@@ -32,7 +32,9 @@ def _port_files():
             "ops/metrics.py", "utils/masks.py", "apis/train.py",
             "data/loader.py", "data/native.py", "data/pipelines.py",
             "data/transforms.py", "train/checkpoint.py", "utils/logging.py",
-            "tools/train.py"} <= names, names
+            "tools/train.py", "utils/port_weights.py",
+            "utils/generate_split_files.py",
+            "utils/vis_point_cloud.py"} <= names, names
     return files + [ROOT / "chip_smoke.py"]
 
 
