@@ -46,7 +46,13 @@ Phases, in order:
      dots one tensor-core product over its window box, staged in chunks)
      against its plain version on both fields, twice for equal
      bits, with the share of boxes that are one chunk (the row's
-     ``ms_scattered`` and ``one_chunk_share``); kernel 4's backward at the
+     ``ms_scattered`` and ``one_chunk_share``); the volume lookup's
+     backward 2b at the same call, for both selects ("xla", "reduce") on
+     both fields, against its plain backward (the volumes' cotangents in
+     bits, the coordinates' within 1e-5 of their sum of |terms|), twice
+     for equal bits, timed with the wrapper's ``torch.zeros`` of the
+     dense cotangents (the row's time; the kernel alone is ``ms_kernel``);
+     kernel 4's backward at the
      joint stage's two splat calls (one image of B=4: full res 384x768,
      C=6, r=1, the row's time; quarter res 96x192, C=32, r=2, the row's
      ``ms_quarter``) on random cotangents against its plain backward,
@@ -79,7 +85,11 @@ Phases, in order:
      and motion frozen, OneCycle 2e-4), then the motion stage
      (configs/models/stereo_motion.py: stereo frozen, no fusion, RAFT-3D
      trained by motion_loss; OneCycle 2e-4, on the panning plane, whose
-     flow and disparity change are known in closed form), then the joint
+     flow and disparity change are known in closed form), one step of the
+     motion stage with ``corr_impl="volume"`` (kernel 2 forward twice an
+     iteration, 2b once, in place of 6 and 6b; 2b on the step's 16 calls
+     against its plain backward, the batch's gradients with 2b's plain
+     backward within 1e-3), then the joint
      stage (configs/models/codd.py with the stereo frozen: RAFT-3D and
      the fusion trained together, the splats differentiated by kernel 4's
      backward; OneCycle 2e-4, the motion stage's batches), then the full
@@ -154,6 +164,18 @@ Phases, in order:
      calls each, f32, ``--bf16`` and ``--bf16 --batch 2``: each run's
      lines (ms a call, stream ms, launches a call, peak memory, the card)
      and its JSON line; the launches a call must be the main path's.
+  dist: multi-process training on the one card, after the build (the
+     ranks load its libraries): (a) ``python -m torch.distributed.run
+     --standalone --nproc_per_node=1`` of the training CLI over NCCL, 2
+     steps of configs/training_config.py with ``corr_impl="volume"`` (no
+     kernel of the step adds by atomics) on the entry phase's PNG data,
+     against the same 2 steps without torchrun, both under deterministic
+     cuDNN and ATen: ckpt_2 equal in bits; (b) two ranks on the one card
+     over gloo (NCCL takes one rank a GPU), one stereo-stage step under
+     SGD with 2 rows each of the train phase's first batch, against one
+     process on the 4 rows under ``deterministic()``: each parameter's
+     change within 1e-4 of its norm, loss and grad_norm to 1e-4; the
+     phase's seconds.
   weights: a reference CODD checkpoint through utils/port_weights.py: the
      default model (configs/models/codd.py, max_disp 320, 16 GN
      iterations) with seeded weights on the card, its state_dict written
@@ -1000,6 +1022,95 @@ def corr_coords_backward_check(pyr, fields, g):
                     * 49 * 12), peak=BF16_FLOPS_PER_S, library_ms=None)
 
 
+def corr_volume_backward_check(vols, fields, g):
+    """Kernel 2b, the volume lookup's backward, at the motion stage's
+    training call (B=4, 48x96 queries, four levels) against its plain
+    backward, for both selects ("xla", corr_impl volume; "reduce",
+    volume_reduce) on a smooth and a scattered field: the volumes'
+    cotangents equal in bits (the same roundings in the same order), the
+    coordinates' each within 1e-5 of its sum of |terms|
+    (``corr_lookup_coords_backward_terms``: the kernel sums a level's 49
+    products by rows, then the rows, the plain version in torch's order);
+    two launches equal in bits.  Timed as the autograd Function calls it,
+    ``torch.zeros`` of the dense cotangents included (the smooth field,
+    select "xla", is the row's time), and the kernel alone on zeroed
+    planes; the bound counts g, the coordinates and the taps of every
+    unmasked query-level read once, the dense cotangents (zeros included)
+    and the coordinates' gradient written once."""
+    import ctypes
+
+    import torch
+    from codd_torch.ops import corr, kernels
+    ms, err = {}, {}
+    for select in ("xla", "reduce"):
+        for fname, coords in fields.items():
+            args = (g, vols, coords, 3, None, select)
+            got = corr.corr_lookup_backward(*args)
+            again = corr.corr_lookup_backward(*args)
+            ref = corr.corr_lookup_backward_plain(*args)
+            terms = corr.corr_lookup_coords_backward_terms(g, vols, coords)
+            torch.cuda.synchronize()
+            label = f"corr_lookup_backward ({select}, {fname})"
+            if not (all(torch.equal(a, b) for a, b in zip(got[0], again[0]))
+                    and torch.equal(got[1], again[1])):
+                fail(f"{label}: two launches differ in bits")
+            unequal = [i for i, (a, b) in enumerate(zip(got[0], ref[0]))
+                       if not torch.equal(a, b)]
+            if unequal:
+                fail(f"{label}: the volumes' cotangents of levels {unequal} "
+                     "differ from the plain backward's bits")
+            if not torch.isfinite(got[1]).all():
+                fail(f"{label}: non-finite coordinate gradient")
+            e = (got[1] - ref[1]).abs()
+            share = float((e / (1e-5 * terms).clamp(min=1e-30)).max())
+            if share > 1.0:
+                fail(f"{label}: the coordinates' gradient disagrees with the "
+                     f"plain version ({share:.3f} of its allowance)")
+            err[(select, fname)] = float(e.max())
+            ms[(select, fname)] = cuda_ms(
+                lambda: corr.corr_lookup_backward(*args))
+            print(f"  {label}: {ms[(select, fname)]:.4f} ms (torch.zeros "
+                  f"of the dense cotangents included); volumes' cotangents "
+                  f"equal in bits to the plain backward's; coordinates' worst "
+                  f"|err| {share:.3f} of its allowance (1e-5 of the sum of "
+                  f"|terms|), max |err| {err[(select, fname)]:.3e}, max |ref| "
+                  f"{float(ref[1].abs().max()):.3e}; equal in bits on two "
+                  "launches", flush=True)
+    coords = fields["smooth"]
+    B, h, w = coords.shape[:3]
+    dvols = [torch.zeros_like(v) for v in vols]
+    dc = torch.empty((B, h, w, 2), dtype=torch.float32, device=g.device)
+    ptrs, hw, sc = corr._levels_args(vols, [v.shape[2:] for v in vols],
+                                     corr._scales(len(vols), None))
+    grads = (ctypes.c_void_p * len(vols))(*[d.data_ptr() for d in dvols])
+    kernel_ms = cuda_ms(lambda: kernels.launch(
+        "corr_lookup_backward", ptrs, hw, sc, len(vols), coords.data_ptr(),
+        g.data_ptr(), grads, dc.data_ptr(), B, h * w, 3, 0,
+        kernels.stream_ptr(g.device)))
+    zeros_ms = cuda_ms(lambda: [torch.zeros_like(v) for v in vols])
+    valid = 0
+    for i, v in enumerate(vols):
+        *_, vq = corr._window_starts(coords / 2 ** i, v.shape[2] - 14,
+                                     v.shape[3] - 14, 3)
+        valid += int(vq.sum())
+    dense = float(2 * sum(v.numel() for v in vols))
+    print(f"  corr_lookup_backward: the kernel alone on zeroed planes "
+          f"{kernel_ms:.4f} ms, torch.zeros of the {dense / 1e6:.0f} MB of "
+          f"dense cotangents {zeros_ms:.4f} ms; scattered field "
+          f"{ms[('xla', 'scattered')]:.4f} ms; select reduce "
+          f"{ms[('reduce', 'smooth')]:.4f} ms", flush=True)
+    return dict(
+        name="corr_lookup_backward", source="codd_torch/csrc/corr_lookup.cu",
+        replaces="codd_tpu/ops/corr.py:152",
+        max_abs_err=max(err.values()), ms=ms[("xla", "smooth")],
+        ms_scattered=ms[("xla", "scattered")], ms_kernel=kernel_ms,
+        plain_ms=cuda_ms(lambda: corr.corr_lookup_backward_plain(
+            g, vols, coords)),
+        bytes=float(4 * g.numel() + 4 * coords.numel() * 2
+                    + valid * 64 * 2 + dense),
+        flops=float(valid * (64 * 11 + 49 * 12)), library_ms=None)
+
+
 def kernel_checks(dev):
     import torch
     from codd_torch.ops import corr, gn, se3, splat, tile_warp
@@ -1197,6 +1308,11 @@ def kernel_checks(dev):
     tg = randn(tb, th, tw, 4 * 49)
     rows.append(corr_patch_backward_check(tpyr, tfields, tg))
     rows.append(corr_coords_backward_check(tpyr, tfields, tg))
+    del tpyr
+    tvols = corr.build_corr_pyramid(tf1, tf2, 4, 3)
+    rows.append(corr_volume_backward_check(tvols, tfields, tg))
+    del tvols
+    torch.cuda.empty_cache()
 
     # -- kernel 4's backward at the joint stage's two training calls, one
     # image of B=4 each: full res 384x768 (C=6, r=1; the row's time) and
@@ -1294,7 +1410,8 @@ def plain_versions():
     from codd_torch.models.stereo import hitnet
     from codd_torch.ops import corr, gn, splat, tile_warp
 
-    def corr_plain(vols, coords, radius=3, scales=None, out=None, offset=0):
+    def corr_plain(vols, coords, radius=3, scales=None, out=None, offset=0,
+                   select="xla"):   # the forward of every select
         res = torch.cat([corr.corr_lookup_level_plain(v, coords * sc, radius)
                          for v, sc in zip(vols, corr._scales(len(vols), scales))],
                         -1)
@@ -1835,6 +1952,59 @@ def motion_grad_checks(model, lc, batch, trace=False):
         ("both plain", both(gp, cp, False))])
 
 
+def volume_motion_checks(model, lc, batch):
+    """One batch of the motion stage with ``corr_impl="volume"`` (the
+    lookup through the volume pyramid, kernel 2b in the backward),
+    gradients only, no update.  Gated: 2b on each of the step's 16 calls
+    against the plain backward on the same inputs (phase 3's rules:
+    volumes' cotangents in bits, coordinates' within 1e-5 of the sum of
+    |terms|); the batch's gradients with 2b swapped for its plain backward
+    (every other kernel kept): each parameter's within 1e-3 of its norm (a
+    norm counted as at least 1e-5 of the largest), the loss to 1e-6."""
+    import torch
+    from codd_torch.ops import corr
+    with recorded(corr, "corr_lookup_backward") as kept:
+        lk, gk, _ = stage_grads(model, lc, batch)
+    if len(kept) != 16:
+        fail(f"volume motion stage: {len(kept)} calls of kernel 2b in one "
+             "batch, not 16")
+    worst = 0.0
+    for i, (g, vols, coords, radius, scales, select) in enumerate(kept):
+        with torch.no_grad():
+            got = corr.corr_lookup_backward(g, vols, coords, radius, scales,
+                                            select)
+            ref = corr.corr_lookup_backward_plain(g, vols, coords, radius,
+                                                  scales, select)
+            terms = corr.corr_lookup_coords_backward_terms(g, vols, coords,
+                                                           radius, scales)
+        if select != "xla" or not all(torch.equal(a, b)
+                                      for a, b in zip(got[0], ref[0])):
+            fail(f"volume motion stage: call {i} of kernel 2b (select "
+                 f"{select}) differs from its plain backward's bits")
+        worst = max(worst, float(((got[1] - ref[1]).abs()
+                                  / (1e-5 * terms).clamp(min=1e-30)).max()))
+    if worst > 1.0:
+        fail(f"volume motion stage: kernel 2b's coordinate gradient "
+             f"{worst:.3f} of its allowance")
+    del kept
+    with recorded(corr, "corr_lookup_backward",
+                  corr.corr_lookup_backward_plain):
+        lx, gx, _ = stage_grads(model, lc, batch)
+    err, where = grads_apart(gk, gx, 1e-5, show=4)
+    rel_loss = abs(lk - lx) / abs(lx)
+    print(f"  volume motion stage, one batch: kernel 2b on the step's 16 "
+          f"calls against its plain backward: volumes' cotangents equal in "
+          f"bits, coordinates' worst {worst:.3f} of the allowance; the "
+          f"batch's {len(gk)} gradients with 2b's plain backward (bound "
+          f"1e-3, loss 1e-6): loss {lx:.6f} (rel {rel_loss:.2e}), worst "
+          f"|diff| / |plain| {err:.2e} at {where}", flush=True)
+    if set(gx) != set(gk) or err > 1e-3 or rel_loss > 1e-6:
+        fail("volume motion stage: the gradients with kernel 2b disagree "
+             "with those of its plain backward")
+    if any(k.startswith("stereo.") for k in gk):
+        fail("volume motion stage: a frozen stereo parameter has a gradient")
+
+
 def joint_grad_checks(label, model, lc, batch, stereo_frozen=True,
                       trace=False):
     """One batch of a joint stage, gradients only, no update.  Gated:
@@ -2348,7 +2518,7 @@ def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
     print(f"  {label}: {len(batches)} steps at B={TRAIN_B}, T={TRAIN_T}, "
           f"{TRAIN_H}x{TRAIN_W}: ms a step {['%.1f' % t for t in ms]}, "
           f"median of steps 1-{len(ms) - 1} "
-          f"{float(np.median(ms[1:])):.1f} ms; peak {peak:.2f} GiB; "
+          f"{float(np.median(ms[1:] or ms)):.1f} ms; peak {peak:.2f} GiB; "
           f"{len(kept)} frozen tensors kept their bits; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     if profile_to is not None:
@@ -2367,7 +2537,7 @@ def train_phase(dev, profile_dir=None):
     prof = (lambda n: None) if profile_dir is None else \
         (lambda n: profile_dir / f"profile_train_{n}.txt")
     import torch
-    from codd_torch.models.builder import build_loss_config
+    from codd_torch.models.builder import build_estimator, build_loss_config
     from codd_torch.ops import kernels
     from codd_torch.train import optim
 
@@ -2416,6 +2586,24 @@ def train_phase(dev, profile_dir=None):
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if motion != want:
         fail(f"motion stage: launches {motion} != {want}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # the motion stage through the volumes (corr_impl="volume"): kernel 2
+    # forward, twice an iteration, and kernel 2b in the backward; one step
+    vcfg = dict(cfg, runtime=dict(cfg.get("runtime") or {},
+                                  corr_impl="volume"))
+    model = build_estimator(vcfg, device="cuda", seed=0)
+    volume_motion_checks(model, lc, mb[0])
+    opt = optim.make_optimizer(optim.one_cycle_schedule(2e-4, 200000 // 8),
+                               1.0, dict(model.named_parameters()),
+                               ["stereo"])
+    volume = train_stage("volume motion stage", model, opt, lc, mb[:1],
+                         ("stereo",))
+    want = dict(per_step, corr_patch_lookup=0, corr_patch_lookup_backward=0,
+                corr_lookup=32, corr_lookup_backward=16)
+    if volume != want:
+        fail(f"volume motion stage: launches {volume} != {want}")
     del model, opt
     torch.cuda.empty_cache()
 
@@ -2485,8 +2673,8 @@ def train_phase(dev, profile_dir=None):
         fail(f"full joint bf16 stage: launches {full16} != {want}")
     del model, opt
     torch.cuda.empty_cache()
-    return {k: stereo[k] + fusion[k] + motion[k] + joint[k] + full[k]
-            + stereo16[k] + full16[k] for k in stereo}
+    return {k: stereo[k] + fusion[k] + motion[k] + volume[k] + joint[k]
+            + full[k] + stereo16[k] + full16[k] for k in stereo}
 
 
 # ---------------------------------------------------------------------------
@@ -2926,6 +3114,219 @@ def entry_phase(dev, loader=False):
             for k in rows_a[0][2]}
 
 
+# ---------------------------------------------------------------------------
+# dist: multi-process training on the one card
+# ---------------------------------------------------------------------------
+
+DIST_DIR = Path(__file__).resolve().parent / "build" / "dist_smoke"
+DIST_TIMEOUT = 600  # seconds a group of processes may take
+
+# the training CLI with deterministic cuDNN and ATen algorithms, so that
+# two runs can be compared in bits (torchrun runs a script or a module)
+_DET_TRAIN = """
+import runpy, sys
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+sys.argv[0] = "codd_torch.tools.train"
+runpy.run_module("codd_torch.tools.train", run_name="__main__",
+                 alter_sys=True)
+"""
+
+# one rank of the two-rank stereo step: gloo on the one card (NCCL refuses
+# two ranks on one GPU), LOCAL_RANK 0 for both, this rank's half of the
+# train phase's first batch, make_train_step under SGD
+_GLOO_RANK = """
+import datetime, sys
+import torch
+import chip_smoke as cs
+from codd_torch.models.builder import build_loss_config
+from codd_torch.parallel import mesh
+
+dev = mesh.init_distributed("cuda", backend="gloo",
+                            timeout=datetime.timedelta(seconds=300))
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+rank, world = mesh.process_index(), mesh.process_count()
+batch = cs.train_batches(1, dev)[0]
+n = batch["l_img"].shape[0] // world
+mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+model = cs.build_model("stereo.py")
+mesh.broadcast_state(model)
+with cs.deterministic():
+    before, state, logs = cs.sgd_step(model, build_loss_config(
+        cs.model_cfg("stereo.py")), mine)
+if rank == 0:
+    torch.save({"delta": {k: (p.detach() - before[k]).cpu()
+                          for k, p in model.named_parameters()},
+                "logs": {k: float(v) for k, v in logs.items()},
+                "backend": torch.distributed.get_backend(),
+                "device": str(dev)}, sys.argv[1])
+torch.distributed.destroy_process_group()
+"""
+
+
+class Sgd:
+    """SGD(1.0) in the optimizer's interface: the update is -grad, so the
+    parameters' change is the step's gradient."""
+
+    def init(self, params):
+        from codd_torch.train import optim
+        return optim.AdamState(0, {}, {})
+
+    def trained_names(self, tree):
+        return list(tree)
+
+    def update(self, grads, state, params=None):
+        return {k: -g for k, g in grads.items()}, state
+
+
+def sgd_step(model, lc, batch):
+    """One ``make_train_step`` step under ``Sgd``: the parameters before,
+    the state and the logs."""
+    from codd_torch.train import trainer
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = trainer.make_train_step(model, Sgd(), lc)
+    state, logs = step(trainer.create_train_state(model, Sgd()), batch)
+    return before, state, logs
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _dist_env(**extra):
+    import os
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _run(cmd, env, label):
+    """``cmd`` to its end within DIST_TIMEOUT; fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(Path(__file__).resolve().parent),
+                          env=env, capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dist ({label}): exit {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, secs
+
+
+def dist_phase(dev):
+    """(a) ``python -m torch.distributed.run --standalone --nproc_per_node=1
+    -m codd_torch.tools.train`` over NCCL, 2 steps of
+    configs/training_config.py (the volume lookup, so that no kernel of
+    the step adds by atomics) on the entry phase's PNG data, against the
+    same 2 steps without torchrun: ckpt_2's parameters, Adam's moments and
+    data state equal in bits (deterministic cuDNN and ATen in both).
+    (b) two ranks on the one card over gloo, one stereo-stage step under
+    SGD with each rank holding 2 rows of the train phase's first batch,
+    against one process on all 4 under ``deterministic()``: each
+    parameter's change within 1e-4 of its norm (a norm counted as at least
+    1e-5 of the largest), the loss and grad_norm to 1e-4."""
+    import shutil
+
+    import torch
+    from codd_torch.models.builder import build_loss_config
+    from codd_torch.train.checkpoint import STATE_FILE
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    split = write_entry_dataset(DIST_DIR / "data")
+    _, paths = entry_config(DIST_DIR / "data", split)
+    det = DIST_DIR / "det_train.py"
+    det.write_text(_DET_TRAIN)
+    opts = ["--max-steps", "2", "--options", *paths, "evaluation.interval=0",
+            "checkpoint.interval=2", "model.runtime.corr_impl=volume"]
+    try:
+        out1, s1 = _run([sys.executable, str(det), str(TRAINING_CONFIG),
+                         "--work-dir", str(DIST_DIR / "one")] + opts,
+                        _dist_env(), "one process")
+        outn, sn = _run([sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc_per_node=1", str(det),
+                         str(TRAINING_CONFIG), "--work-dir",
+                         str(DIST_DIR / "nccl")] + opts, _dist_env(),
+                        "torchrun, NCCL")
+        if "backend nccl" not in outn:
+            fail(f"dist (torchrun): no NCCL group in its log: {outn[-1500:]}")
+        a, b = (torch.load(DIST_DIR / w / "ckpt_2" / STATE_FILE,
+                           weights_only=True) for w in ("one", "nccl"))
+        unequal = [k for k, v in a["params"].items()
+                   if not torch.equal(v, b["params"][k])]
+        unequal += [f"{part}.{k}" for part in ("mu", "nu")
+                    for k, v in a["opt_state"][part].items()
+                    if not torch.equal(v, b["opt_state"][part][k])]
+        if unequal or a["data"] != b["data"] or b["step"] != 2:
+            fail(f"dist (torchrun, NCCL): ckpt_2 differs from the run "
+                 f"without torchrun: {unequal[:5]} ({len(unequal)})")
+        lines = [l for l in outn.splitlines() if "step " in l or "rank" in l]
+        print(f"  dist (a): torchrun --nproc_per_node=1 over NCCL, 2 steps "
+              f"of training_config.py (corr_impl volume): {sn:.1f} s, "
+              f"without torchrun {s1:.1f} s; ckpt_2's {len(a['params'])} "
+              f"tensors, Adam's moments and data state equal in bits; "
+              f"{lines}", flush=True)
+
+        # (b) two ranks on the one card over gloo
+        script = DIST_DIR / "gloo_rank.py"
+        script.write_text(_GLOO_RANK)
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(script), str(DIST_DIR / "gloo.pt")],
+            cwd=str(Path(__file__).resolve().parent),
+            env=_dist_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                          WORLD_SIZE=2, RANK=r, LOCAL_RANK=0),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        t0 = time.perf_counter()
+        try:
+            outs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        s2 = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            fail(f"dist (b): a rank failed: "
+                 f"{[o[-2000:] for o in outs]}")
+        two = torch.load(DIST_DIR / "gloo.pt", weights_only=True)
+        model = build_model("stereo.py")
+        lc = build_loss_config(model_cfg("stereo.py"))
+        batch = train_batches(1, dev)[0]
+        with deterministic():
+            before, _, logs = sgd_step(model, lc, batch)
+        one = {k: (p.detach() - before[k]).cpu()
+               for k, p in model.named_parameters()}
+        err, where = grads_apart(two["delta"], one, 1e-5, show=3)
+        rl = abs(two["logs"]["loss"] - float(logs["loss"])) / abs(
+            float(logs["loss"]))
+        rg = abs(two["logs"]["grad_norm"] - float(logs["grad_norm"])) / abs(
+            float(logs["grad_norm"]))
+        print(f"  dist (b): two ranks on {two['device']} over "
+              f"{two['backend']}, a stereo step under SGD on 2 + 2 rows of "
+              f"B={TRAIN_B} at {TRAIN_H}x{TRAIN_W}: {s2:.1f} s; against one "
+              f"process on the 4 rows: worst |change diff| / |change| "
+              f"{err:.2e} at {where} (bound 1e-4), loss rel {rl:.2e}, "
+              f"grad_norm rel {rg:.2e}", flush=True)
+        if two["backend"] != "gloo" or err > 1e-4 or rl > 1e-4 or rg > 1e-4:
+            fail("dist (b): the two-rank step is not the global batch's")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    print(f"  dist: {time.perf_counter() - t_phase:.1f} s for the phase; "
+          f"{smi_name_power()}", flush=True)
+
+
 def bench_phase():
     """``codd_torch/tools/bench.py`` in this process, a few calls each: f32
     and bf16 at 384x1280, and bf16 --batch 2; each run's lines and its
@@ -3177,9 +3578,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,main,eval,plain,train,entry,bench,"
-                            "weights",
+                            "dist,weights",
                     help="comma list of kernels, main, eval, plain, train, "
-                         "entry, bench, weights, profile (profile writes "
+                         "entry, bench, dist, weights, profile (profile "
+                         "writes "
                          "chiprun_out/"
                          "profile_step*.txt, the bf16 model's too, and "
                          "streams both configurations in turns), loader "
@@ -3190,7 +3592,7 @@ def main():
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     unknown = phases - {"kernels", "main", "eval", "plain", "train", "entry",
-                        "bench", "weights", "profile", "loader"}
+                        "bench", "dist", "weights", "profile", "loader"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     if "loader" in phases and "entry" not in phases:
@@ -3267,6 +3669,11 @@ def main():
         print("[bench] tools/bench.py at 384x1280: f32, bf16, bf16 batch 2",
               flush=True)
         bf16_launches = bench_phase()
+    if "dist" in phases:
+        print("[dist] torchrun --nproc_per_node=1 over NCCL against one "
+              "process, 2 training steps; two ranks on the one card over "
+              "gloo, one stereo step", flush=True)
+        dist_phase(dev)
     weights_launches = {}
     if "weights" in phases:
         print(f"[weights] a reference checkpoint of the default model "
@@ -3320,7 +3727,8 @@ def main():
             "plain_ms_bf16_pallas", "bound_ms_bf16", "ms_bf16",
             "plain_ms_bf16", "max_abs_err_bf16", "unequal_share_bf16",
             "ms_bf16_smooth", "ms_bf16_train", "bound_ms_bf16_train",
-            "ms_smooth", "ms_scattered", "one_chunk_share", "global_adds")
+            "ms_smooth", "ms_scattered", "one_chunk_share", "global_adds",
+            "ms_kernel")
     print(f"chip_smoke: phases {','.join(sorted(phases))} in "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

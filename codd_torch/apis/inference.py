@@ -8,20 +8,25 @@ summarised as ascii tables) or the predicted disparities are saved as
 
 Unlike ``codd_tpu``, the frame axis is **not** padded to bucket lengths:
 nothing is compiled per shape here, so a sequence runs at its own length
-(``frame_valid`` is all true).  One process only; merging the rows of
-several processes is not implemented.
+(``frame_valid`` is all true).
+
+Under a process group (``parallel/mesh.py``) the sequences shard as
+``range(rank, len(dataset), world)``, as ``codd_tpu``'s hosts shard them;
+``_merge_hosts`` gathers every process's metric rows, rank 0 dumps the
+CSV, and every process returns the merged summary.
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..models.codd import CODD
+from ..parallel import mesh
 from ..utils.running_stats import RunningStatsWithBuffer
 from .evaluation import METER_NAMES, SUM_NAMES, make_sequence_evaluator
 
@@ -67,12 +72,15 @@ def run_inference(model: CODD, dataset, evaluate: bool = True,
                   out_csv: Optional[str] = None, metric: str = "default",
                   log=print) -> Dict[str, float]:
     """Evaluate (or dump) every sequence of ``dataset`` on the model's
-    device.  Returns the aggregate metric dict of ``summarize``."""
+    device, this process's share of them under a process group.  Returns
+    the aggregate metric dict of ``summarize``, of every process's rows."""
     device = next(model.parameters()).device
     evaluators: Dict[Any, Any] = {}
     stats = RunningStatsWithBuffer(path=out_csv)
+    host, n_hosts = mesh.process_index(), mesh.process_count()
+    local_rows: List[Any] = []  # (sequence index, metric values)
 
-    for i in range(len(dataset)):
+    for i in range(host, len(dataset), n_hosts):
         sample = dataset[i]
         batch = _to_batch(sample, device)
         name = sample["meta"]["filename"]
@@ -102,13 +110,41 @@ def run_inference(model: CODD, dataset, evaluate: bool = True,
             if stats.header is None:
                 stats.header = (["filename"] + list(METER_NAMES)
                                 + list(SUM_NAMES))
-            stats.push(name, [metrics[k] for k in METER_NAMES + SUM_NAMES])
+            vals = [metrics[k] for k in METER_NAMES + SUM_NAMES]
+            stats.push(name, vals)
+            local_rows.append((i, vals))
 
     if show_dir or not evaluate:
         return {}
-    if out_csv:
+    if n_hosts > 1:
+        stats = _merge_hosts(local_rows, dataset, n_hosts, out_csv)
+    if out_csv and host == 0:
         stats.dump()
     return summarize(stats, metric=metric, log=log)
+
+
+def _merge_hosts(local_rows, dataset, n_hosts: int,
+                 out_csv) -> RunningStatsWithBuffer:
+    """Every process's metric rows, gathered (``codd_tpu``'s
+    ``_merge_hosts``): each travels as a fixed-shape (max_n, 1 + width)
+    array, rows [sequence index, metrics...] and index -1 padding, the
+    rows of all processes sorted stably by index and named by
+    ``dataset.sequence_name``."""
+    width = len(METER_NAMES) + len(SUM_NAMES)
+    max_n = -(-len(dataset) // n_hosts)
+    arr = np.full((max_n, 1 + width), -1.0, np.float64)
+    for r, (idx, vals) in enumerate(local_rows):
+        arr[r, 0] = idx
+        arr[r, 1:] = vals
+    gathered = mesh.gather_rows(arr).reshape(-1, 1 + width)
+
+    merged = RunningStatsWithBuffer(path=out_csv)
+    merged.header = ["filename"] + list(METER_NAMES) + list(SUM_NAMES)
+    order = np.argsort(gathered[:, 0], kind="stable")
+    for row in gathered[order]:
+        if row[0] >= 0:
+            merged.push(dataset.sequence_name(int(row[0])), list(row[1:]))
+    return merged
 
 
 def _ascii_table(header, row) -> str:

@@ -14,13 +14,21 @@ Where it differs from ``codd_tpu``:
   runtime.seed)``); ``codd_tpu`` inits from the first batch's shapes with
   ``PRNGKey(seed)``.  That first batch is drawn all the same and not
   trained on, so each step trains on the batch ``codd_tpu``'s would.
-* one device, no mesh: ``codd_tpu``'s ``make_mesh`` / ``shard_batch``
-  (``parallel/mesh.py``) is to become DDP (ROADMAP item 14).
-* resume continues the data stream: a checkpoint keeps the pipeline's
-  generator state after its step's batch, and ``batch_iterator`` passes
-  over the batches drawn before it without loading them, so a resumed run
-  trains on the batches the uninterrupted run would have (``codd_tpu``
-  starts the stream again).
+* processes, not a mesh: under torchrun (``tools/train_dist.sh``) each
+  process trains on one device with ``batch_size`` rows of the global
+  batch, drawn as ``codd_tpu``'s hosts draw theirs (the same permutation,
+  rows ``rank::world``), and the step is the global batch's
+  (``train/trainer.py``, ``parallel/mesh.py``).  Every process builds its
+  pipeline from the same seed, as ``codd_tpu``'s hosts do, so their
+  augmentation streams start alike.  Rank 0 writes the checkpoints,
+  ``metrics.jsonl`` and the log lines; validation runs on every rank,
+  each on its share of the sequences.
+* resume continues the data stream: a checkpoint keeps every rank's
+  pipeline generator state after its step's batch, and ``batch_iterator``
+  passes over the batches drawn before it without loading them, so a
+  resumed run at the same number of processes trains on the batches the
+  uninterrupted run would have (``codd_tpu`` starts the stream again); at
+  another number it raises.
 * the step's logs stay on the device until a log line reads them; a log
   line also has the host ms a step (data included) and the ms a step
   spent waiting on the prefetcher, over the steps since the last line.
@@ -43,8 +51,9 @@ from ..data.loader import Prefetcher, batch_iterator, to_device
 from ..data.pipelines import (build_test_pipeline, build_train_pipeline,
                               pipeline_rng_state, set_pipeline_rng_state)
 from ..models.builder import build_estimator, build_loss_config
-from ..train.checkpoint import (restore_checkpoint, restore_params,
-                                save_checkpoint)
+from ..parallel import mesh
+from ..train.checkpoint import (rank_data_state, restore_checkpoint,
+                                restore_params, save_checkpoint)
 from ..train.optim import (make_optimizer, multi_gamma_schedule,
                            one_cycle_schedule)
 from ..train.trainer import TrainState, create_train_state, make_train_step
@@ -99,7 +108,11 @@ def train_estimator(
 ) -> Tuple[TrainState, int]:
     """Train as ``cfg`` says on ``device``; returns the state and the step
     it reached.  The log lines' rows and the ``val/*`` rows go to
-    ``work_dir/metrics.jsonl``."""
+    ``work_dir/metrics.jsonl``.  Under a process group this process trains
+    on its rows of the global batch; only rank 0 logs and writes."""
+    rank, world = mesh.process_index(), mesh.process_count()
+    if rank:
+        log = _quiet
     os.makedirs(work_dir, exist_ok=True)
     runtime = cfg.get("runtime", {})
     seed = int(runtime.get("seed", 0))
@@ -140,17 +153,20 @@ def train_estimator(
     data_state = None
     if resume_from:
         state, data_state = restore_checkpoint(resume_from, model, state)
+        data_state = rank_data_state(data_state, rank, world)
         log(f"resumed from {resume_from} at step {state.opt_state.count}")
     elif load_from:
         restore_params(load_from, model)
         log(f"loaded weights from {load_from}")
+    if mesh.process_group_active():   # every process starts from rank 0's
+        mesh.broadcast_state(model)
     start = state.opt_state.count
     if data_state is not None:
         set_pipeline_rng_state(dataset.pipeline, data_state)
 
     log_interval = int(runtime.get("log_interval", 50))
     ckpt_interval = int(cfg.get("checkpoint", {}).get("interval", 5000))
-    mlog = MetricLogger(work_dir)
+    mlog = MetricLogger(work_dir) if rank == 0 else None
 
     # validation during training; a missing val dataset only logs
     eval_interval = int(cfg.get("evaluation", {}).get("interval", 0) or 0)
@@ -161,9 +177,22 @@ def train_estimator(
         if not eval_interval or not val_cfg:
             return
         t0 = time.perf_counter()
+        error = None
         try:
             if val["dataset"] is None:
                 val["dataset"] = build_test_dataset(dict(val_cfg))
+        except OSError as e:
+            error = e
+        # a dataset missing on any process skips validation on every one,
+        # so that none waits in a collective the others left
+        missing = float(error is not None)
+        if world > 1:
+            missing = float(mesh.gather_rows(
+                torch.tensor([missing]).numpy()).max())
+        if missing:
+            log(f"validation skipped: {error or 'no dataset on a process'}")
+            return
+        try:
             with torch.no_grad():
                 metrics = run_inference(model, val["dataset"], evaluate=True,
                                         log=log)
@@ -172,12 +201,13 @@ def train_estimator(
             return
         row = {f"val/{k}": v for k, v in metrics.items()}
         row["val/ms"] = 1e3 * (time.perf_counter() - t0)
-        mlog.log(step, row)
+        if mlog is not None:
+            mlog.log(step, row)
 
     # the stream starts after the batches drawn up to ``start``: the init
     # batch (as codd_tpu's) and one a step
-    it = batch_iterator(dataset, batch_size, seed=seed,
-                        skip=start + 1 if start else 0)
+    it = batch_iterator(dataset, batch_size, seed=seed, host_id=rank,
+                        num_hosts=world, skip=start + 1 if start else 0)
     batches = Prefetcher(_with_rng_state(it, dataset.pipeline))
     step = start
     try:
@@ -206,14 +236,19 @@ def train_estimator(
                     f"lr={row['lr']:.2e} it/s={row['it_per_s']:.2f} "
                     f"grad_norm={row['grad_norm']:.3f} "
                     f"data_wait={row['data_wait_ms']:.1f}ms")
-                mlog.log(step, row)
+                if mlog is not None:
+                    mlog.log(step, row)
                 marked = True
             if step % ckpt_interval == 0 or step == total_steps:
-                path = save_checkpoint(
-                    os.path.join(work_dir, f"ckpt_{step}"), model, state,
-                    data_state=rng_state,
-                    meta={"step": step, "config": dict(cfg)})
-                log(f"saved {path}")
+                # every rank's data stream, so that a resume is exact
+                states = (mesh.gather_objects(rng_state) if world > 1
+                          else [rng_state])
+                if rank == 0:
+                    path = save_checkpoint(
+                        os.path.join(work_dir, f"ckpt_{step}"), model,
+                        state, data_state={"world": world, "ranks": states},
+                        meta={"step": step, "config": dict(cfg)})
+                    log(f"saved {path}")
                 marked = True
             if eval_interval and step % eval_interval == 0:
                 run_validation(step)
@@ -222,5 +257,10 @@ def train_estimator(
                 t_mark, n_mark, wait = time.perf_counter(), step, 0.0
     finally:
         batches.close()
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
     return state, step
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The log of a process other than rank 0."""

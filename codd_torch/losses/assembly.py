@@ -1,7 +1,11 @@
 """The loss of a T-frame training clip from the per-frame model outputs
 and the ground truth (counterpart of ``codd_tpu/losses/assembly.py``).
 Keys that start with "loss" are the terms summed into the total; the
-others are logged metrics."""
+others are logged metrics.  Every term and metric is a sum over a
+gradient-free count (HITNet's (sum, count) pairs, ``masked_mean``,
+``global_mean``; no root or product of means), so under a process group
+each process's loss is its rows' share of the global batch's
+(``parallel.mesh.counting``)."""
 
 from __future__ import annotations
 

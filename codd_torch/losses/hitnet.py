@@ -2,9 +2,10 @@
 (counterpart of ``codd_tpu/losses/hitnet.py``).
 
 As there, each term is accumulated as (weighted sum, count) pairs over
-the pyramid levels and divided once, an empty mask contributes 0, and the
-9x9 plane-fit kernels that give the ground-truth slants are constants.
-Tensors are NHWC.
+the pyramid levels and divided once (by the count over every process's
+rows when several train: ``parallel.mesh.global_count``), an empty mask
+contributes 0, and the 9x9 plane-fit kernels that give the ground-truth
+slants are constants.  Tensors are NHWC.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.metrics import masked_mean
+from ..parallel.mesh import global_count
 from ..utils.precision import absolute
 
 __all__ = ["HITLossConfig", "hit_loss", "hit_loss_with_depth",
@@ -164,7 +166,7 @@ def hit_loss(
         w_sum, w_cnt = w_sum + s, w_cnt + c
 
     def per(s, c):
-        return s / torch.clamp(torch.as_tensor(c), min=1.0)
+        return s / torch.clamp(torch.as_tensor(global_count(c)), min=1.0)
 
     total = per(init_sum + prop_sum + slant_sum + w_sum,
                 init_cnt + prop_cnt + slant_cnt + w_cnt)

@@ -1,5 +1,7 @@
 """Motion (RAFT-style sequence) and fusion losses (counterpart of
-``codd_tpu/losses/temporal.py``).  An empty mask contributes 0."""
+``codd_tpu/losses/temporal.py``).  An empty mask contributes 0.  Every
+term is a sum over a count (``masked_mean``, ``global_mean``), so several
+processes take it over the global batch (``parallel.mesh``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..ops.metrics import masked_mean
+from ..parallel.mesh import global_mean
 from ..utils.precision import absolute
 
 __all__ = ["motion_loss", "fusion_loss"]
@@ -35,10 +38,10 @@ def motion_loss(
         w = gamma ** (N - i - 1)
         fl_est = flow2d_est[i][..., :2]
         dz_est = flow2d_est[i][..., 2:]
-        total = total + w * torch.mean(m * absolute(fl_est - fl_gt))
-        total = total + w * dz_weight * torch.mean(
+        total = total + w * global_mean(m * absolute(fl_est - fl_gt))
+        total = total + w * dz_weight * global_mean(
             m * absolute(dz_est - dz_gt))
-        total = total + w * rv_weight * torch.mean(
+        total = total + w * rv_weight * global_mean(
             m * absolute(flow2d_rev[i] - fl_gt))
 
     # metrics of the last iteration

@@ -12,14 +12,18 @@ module (shared weights, named ``gn_iter`` like the scan).
 
 Training (``forward(..., train_mode=True)``, ``codd_tpu``'s
 ``raft3d.py:106-166, 212-297``): the pyramid takes the patch layout when
-``corr_impl`` is ``auto`` (a volume layout raises: kernel 2 has no
-backward); each iteration detaches the SE(3) field at its top, clips the
-cotangents of its four heads (``grad_clip``) and emits the full-res
-supervision ``flow2d_est`` (the induced flow of the upsampled field) and
-``flow2d_rev`` (the upsampled revised target); and each runs under
-``torch.utils.checkpoint``, the counterpart of ``nn.remat``, so its
-activations are recomputed in the backward and kernels 5 and 6 run their
-forward twice a step.
+``corr_impl`` is ``auto``; ``volume`` and ``volume_reduce`` train
+through the volumes (kernel 2, and kernel 2b in the backward, with their
+select's rounding), and ``volume_pallas`` raises as ``codd_tpu`` cannot
+differentiate it either; each iteration detaches the SE(3) field at its
+top, clips the cotangents of its four heads (``grad_clip``) and emits the
+full-res supervision ``flow2d_est`` (the induced flow of the upsampled
+field) and ``flow2d_rev`` (the upsampled revised target); and each runs
+under ``torch.utils.checkpoint``, the counterpart of ``nn.remat``, so its
+activations are recomputed in the backward and the lookup and GN kernels
+run their forward twice a step.  The volumes' cotangents of the
+iterations add up in bf16 in autograd's buffer, last iteration first, as
+``codd_tpu``'s scan carry adds them.
 """
 
 from __future__ import annotations
@@ -111,9 +115,10 @@ class GNIteration(nn.Module):
 
     def __init__(self, hidden_dim: int = 128, corr_radius: int = 3,
                  corr_levels: int = 4, gn_impl: str = "auto",
-                 gn_bf16_scores: bool = False):
+                 gn_bf16_scores: bool = False, corr_select: str = "xla"):
         super().__init__()
         self.corr_radius = corr_radius
+        self.corr_select = corr_select
         self.gn_impl = gn_impl
         self.gn_bf16_scores = gn_bf16_scores
         self.update_block = BasicUpdateBlock(
@@ -127,7 +132,8 @@ class GNIteration(nn.Module):
         zinv_proj = coords1_xyz[..., 2:]
         zinv = grid_sample(zinv2[..., None], coords1, mode="bilinear",
                            padding_mode="zeros")
-        corr = corr_ops.corr_lookup(vols, coords1, self.corr_radius)
+        corr = corr_ops.corr_lookup(vols, coords1, self.corr_radius,
+                                    select=self.corr_select)
         flow = coords1 - coords0
         dz = zinv - zinv_proj
         twist = se3.log(Ts)
@@ -157,8 +163,8 @@ class RAFT3D(nn.Module):
         if corr_impl not in corr_ops.CORR_IMPLS:
             raise ValueError(f"bad corr_impl {corr_impl!r}; one of "
                              f"{corr_ops.CORR_IMPLS}")
-        # eval: "auto" and the three volume selects are one volume lookup;
-        # training: "auto" is "patch"
+        # eval: "auto" and the three volume selects are one volume lookup
+        # ("auto" is volume_reduce); training: "auto" is "patch"
         self.corr_impl = corr_impl
         self.pyramid_impl = "patch" if corr_impl == "patch" else "volume"
         self.iters = iters
@@ -168,8 +174,9 @@ class RAFT3D(nn.Module):
         self.fnet = BasicEncoder(128)
         self.cnet = HRNetSmall()
         self.cnet_out = ResizeConcatConv(18 + 36 + 72 + 144, 128 * 4)
-        self.gn_iter = GNIteration(hidden_dim, corr_radius, corr_levels,
-                                   gn_impl, gn_bf16_scores)
+        self.gn_iter = GNIteration(
+            hidden_dim, corr_radius, corr_levels, gn_impl, gn_bf16_scores,
+            corr_ops.CORR_SELECTS.get(corr_impl, "reduce"))
 
     def encode(self, image):
         return self.fnet(image), self.cnet_out(self.cnet(image))
@@ -186,12 +193,14 @@ class RAFT3D(nn.Module):
         dt, dev = image_curr.dtype, image_curr.device
         pyramid_impl = self.pyramid_impl
         if train_mode:
-            if self.corr_impl not in ("auto", "patch"):
+            if self.corr_impl == "volume_pallas":
                 raise NotImplementedError(
-                    f"RAFT3D: corr_impl={self.corr_impl!r} has no backward "
-                    "(kernel 2, the volume lookup, is forward only); train "
-                    "with corr_impl auto or patch")
-            pyramid_impl = "patch"
+                    "RAFT3D: corr_impl='volume_pallas' has no backward: "
+                    "codd_tpu cannot differentiate its select either "
+                    "(window_select has no VJP); train with corr_impl "
+                    "volume, volume_reduce, patch or auto")
+            if self.corr_impl == "auto":
+                pyramid_impl = "patch"
         fmap_curr = self.fnet(image_curr)
         vols = corr_ops.build_corr_pyramid(fmap_prev, fmap_curr,
                                            self.corr_levels, self.corr_radius,

@@ -74,8 +74,26 @@ tensor cores, the tile's f1 rows against the box of their windows, staged
 in chunks of ``PATCH_COORDS_BOX_BYTES`` (``patch_lookup_plan(coords_grad=
 True)`` says which boxes take one), a block a tile and level; a second
 kernel sums each query's levels in order: two floats a query, no
-atomics.  It launches only where the coordinates require grad.  The volume lookup
-(kernel 2) has no backward and raises wherever autograd would need it.
+atomics.  It launches only where the coordinates require grad.
+
+The volume lookup trains as ``codd_tpu`` trains ``corr_impl="volume"``
+(``select="xla"``) and ``"volume_reduce"`` (``select="reduce"``): under
+autograd it runs as ``CorrVolumeLookup``, whose backward is kernel 2b
+(``csrc/corr_lookup.cu``'s second kernel), the VJP of
+``codd_tpu/ops/corr.py:152-205 _lookup_level_volume`` with respect to the
+volumes and the coordinates.  A query reads only its own plane of a
+volume, so the volumes' cotangents are collision-free: zero outside each
+query's t x t window, and inside it the bilinear transpose of its 49
+cotangents (0 for a masked query).  The two selects round that transpose
+to bf16 at different points, as ``codd_tpu``'s VJPs do: ``"xla"`` adds the
+four corners' f32 terms and rounds the sum once (the one-hot einsum's
+transpose), ``"reduce"`` rounds each corner's term and adds them in bf16
+(its ``dots`` are bf16); both add the corners d11, d10, d01, d00, JAX's
+order.  The coordinates' cotangent is the patch path's formula on the
+masked taps read back from the volume.  The rest of the VJP is the matmul
+that built the volumes, left to autograd as the forward leaves it to
+``torch.matmul``.  ``volume_pallas`` (``select="pallas"``) raises under
+autograd: ``codd_tpu``'s ``window_select`` has no VJP either.
 """
 
 from __future__ import annotations
@@ -98,11 +116,17 @@ __all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_levels",
            "corr_patch_lookup_level_backward_plain",
            "corr_patch_lookup_coords_backward",
            "corr_patch_lookup_coords_backward_plain",
-           "corr_patch_lookup_coords_backward_terms"]
+           "corr_patch_lookup_coords_backward_terms",
+           "CorrVolumeLookup", "CORR_SELECTS", "corr_lookup_backward",
+           "corr_lookup_backward_plain", "corr_lookup_coords_backward_terms"]
 
 # runtime.corr_impl values; the three volume selects of codd_tpu are
-# bit-identical there and are one lookup (kernel 2) here
+# bit-identical there and are one lookup (kernel 2) here.  Their VJPs
+# differ (the module's docstring): each volume impl's select, as
+# codd_tpu/models/motion/raft3d.py:_CORR_SELECT names it
 CORR_IMPLS = ("auto", "volume", "volume_reduce", "volume_pallas", "patch")
+CORR_SELECTS = {"volume": "xla", "volume_reduce": "reduce",
+                "volume_pallas": "pallas"}
 Pyramid = Union[List[torch.Tensor], Dict[str, object]]
 # kernel 6: a block's queries (rows, columns), and the shared memory it may
 # stage its window box in; 96 KB lets two blocks share an SM
@@ -151,13 +175,14 @@ def build_corr_pyramid(fmap1, fmap2, num_levels: int = 4, radius: int = 3,
     if impl == "patch":
         return {"f1": f1.contiguous(),
                 "levels": [f2p.contiguous() for f2p in levels]}
-    f1 = f1.float()
     vols = []
     for f2p in levels:
         Hp, Wp = f2p.shape[1:3]
         # bf16 operands are exact in f32: f32 products, f32 sums, one bf16
-        # rounding of the result (the JAX preferred_element_type=f32 einsum)
-        vol = torch.matmul(f1, f2p.reshape(B, Hp * Wp, C).float()
+        # rounding of the result (the JAX preferred_element_type=f32
+        # einsum).  f1 is cast per level so that, as in codd_tpu, each
+        # level's gradient of f1 is rounded to bf16 before the levels add
+        vol = torch.matmul(f1.float(), f2p.reshape(B, Hp * Wp, C).float()
                            .transpose(1, 2))
         vols.append(vol.reshape(B, h * w, Hp, Wp).to(torch.bfloat16))
     return vols
@@ -250,17 +275,33 @@ def _check_levels(name, levels, coords, out, offset, radius, K):
 
 
 def corr_lookup_levels(vols: Sequence[torch.Tensor], coords, radius: int = 3,
-                       scales=None, out=None, offset: int = 0):
+                       scales=None, out=None, offset: int = 0,
+                       select: str = "xla"):
     """Volumes ``vols`` (each (B,N,Hp,Wp) bf16) looked up at ``coords *
     scales[i]`` (default 1/2^i), level i into channels [offset + i*49, ...)
     of ``out`` (B,h,w,C) f32, which is made when not given: one launch of
     kernel 2 for CUDA tensors, the plain version level by level for CPU
-    tensors."""
+    tensors; through ``CorrVolumeLookup`` when autograd needs the gradient
+    of a volume or the coordinates, with ``select``'s VJP (the forward is
+    the same for every select)."""
     B, h, w = coords.shape[:3]
     K = (2 * radius + 1) ** 2
     scales = _scales(len(vols), scales)
-    # no backward, on either device
-    kernels.check_forward_only("corr_lookup", *vols, coords)
+    if select not in CORR_SELECTS.values():
+        raise ValueError(f"corr_lookup: bad select {select!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (coords, *vols)):
+        if select == "pallas":
+            raise NotImplementedError(
+                "corr_lookup: corr_impl='volume_pallas' has no backward: "
+                "codd_tpu cannot differentiate its select either "
+                "(window_select has no VJP); train with corr_impl volume, "
+                "volume_reduce, patch or auto")
+        if out is not None or offset:
+            raise NotImplementedError("corr_lookup: under autograd the "
+                                      "lookup makes its own output")
+        return CorrVolumeLookup.apply(coords, radius, tuple(scales), select,
+                                      *vols)
     if out is None:
         out = torch.empty((B, h, w, len(vols) * K), dtype=torch.float32,
                           device=coords.device)
@@ -289,6 +330,132 @@ def corr_lookup_level(vol, coords, radius: int = 3, scale: float = 1.0,
     tensors (writing channels [offset, offset+49) of ``out`` when given),
     the plain version for CPU tensors."""
     return corr_lookup_levels([vol], coords, radius, [scale], out, offset)
+
+
+def _tap_cotangents(g, fy, fx, vq, t, select):
+    """codd_tpu's VJP of the volume lookup's bilinear combine and mask:
+    (B,N,(t-1)^2) f32 cotangents -> (B,N,t,t) bf16 tap cotangents.  The
+    corners' terms are added d11, d10, d01, d00 (the order of JAX's VJP);
+    ``"xla"`` adds them in f32 and rounds once, ``"reduce"`` rounds each
+    and adds in bf16 (``codd_tpu/ops/corr.py:180-205``)."""
+    B, N, _ = g.shape
+    gg = g.reshape(B, N, t - 1, t - 1)
+    fy_, fx_ = fy[..., None], fx[..., None]
+    gy, gx = 1 - fy_, 1 - fx_
+    dt = torch.float32 if select == "xla" else torch.bfloat16
+    dd = None
+    for c, oy, ox in (((gg * fy_) * fx_, 1, 1), ((gg * fy_) * gx, 1, 0),
+                      ((gg * gy) * fx_, 0, 1), ((gg * gy) * gx, 0, 0)):
+        p = torch.nn.functional.pad(c.to(dt), (ox, 1 - ox, oy, 1 - oy))
+        dd = p if dd is None else dd + p
+    return (dd * vq[:, :, None, None]).to(torch.bfloat16)
+
+
+def _volume_backward(g, vols, coords, radius, scales, select, sign):
+    """Each level's window cotangents (with ``select``; none for
+    ``select=None``) and its masked taps against the bilinear weights'
+    derivatives, times its scale, summed in level order (``sign=1``: the
+    corners' terms added instead, their |terms| on |g| and |taps|)."""
+    B, h, w = coords.shape[:3]
+    K = (2 * radius + 1) ** 2
+    t = 2 * radius + 2
+    P = 2 * radius + 1
+    g = g.reshape(B, h * w, -1).float()
+    dvols, dc = [], 0.0
+    for i, (vol, sc) in enumerate(zip(vols, _scales(len(vols), scales))):
+        _, N, Hp, Wp = vol.shape
+        gi = g[..., i * K:(i + 1) * K]
+        sy, sx, fy, fx, vq = _window_starts(coords * sc, Hp - 2 * P,
+                                            Wp - 2 * P, radius)
+        ar = torch.arange(t, device=vol.device)
+        idx = ((sy[..., None, None] + ar[:, None]) * Wp
+               + sx[..., None, None] + ar[None, :]).reshape(B, N, t * t)
+        if select is not None:
+            dd = _tap_cotangents(gi, fy, fx, vq, t, select)
+            # collision-free: each query writes its own plane; 0 + x makes
+            # every zero +0, as JAX's scatter-add into zeros does
+            dv = torch.zeros((B, N, Hp * Wp), dtype=torch.bfloat16,
+                             device=vol.device)
+            dv.scatter_add_(2, idx, dd.reshape(B, N, t * t))
+            dvols.append(dv.reshape(vol.shape))
+        dots = torch.gather(vol.reshape(B, N, Hp * Wp), 2, idx).float()
+        dots = dots.reshape(B, N, t, t) * vq[:, :, None, None]
+        dc = dc + sc * _bilinear_coords(gi, dots, fy, fx, sign).reshape(
+            coords.shape)
+    return dvols, dc
+
+
+def corr_lookup_backward_plain(g, vols, coords, radius: int = 3, scales=None,
+                               select: str = "xla"):
+    """The VJP of ``corr_lookup_levels`` (``out`` made by it) for the
+    cotangent g (B,h,w,L*(2r+1)^2) f32 -> ([dvol] bf16 shaped like
+    ``vols``, zero outside each query's window; dcoords (B,h,w,2) f32, each
+    level's gradient times its scale, summed in level order)."""
+    return _volume_backward(g, vols, coords, radius, scales, select, -1.0)
+
+
+def corr_lookup_coords_backward_terms(g, vols, coords, radius: int = 3,
+                                      scales=None):
+    """Each coordinate gradient's sum of |terms| (the plain version on |g|
+    and |taps| with the corners' terms added): the scale against which a
+    kernel's sums in another order are held."""
+    return _volume_backward(g.abs(), [v.abs() for v in vols], coords, radius,
+                            scales, None, 1.0)[1]
+
+
+def corr_lookup_backward(g, vols, coords, radius: int = 3, scales=None,
+                         select: str = "xla"):
+    """Kernel 2b for CUDA tensors (one launch, every level), the plain
+    version for CPU tensors -> ([dvol] bf16, dcoords f32).  The volumes'
+    cotangents are made by ``torch.zeros``; the kernel writes each
+    query's window into them."""
+    vols = list(vols)
+    if not vols[0].is_cuda:
+        return corr_lookup_backward_plain(g, vols, coords, radius, scales,
+                                          select)
+    B, h, w = coords.shape[:3]
+    K = (2 * radius + 1) ** 2
+    name = "corr_lookup_backward"
+    if select not in ("xla", "reduce"):
+        raise ValueError(f"{name}: select {select!r} has no backward")
+    kernels.check_cuda(name, g, coords, *vols,
+                       dtypes=(torch.float32,) * 2
+                       + (torch.bfloat16,) * len(vols))
+    _check_levels(name, vols, coords, g, 0, radius, K)
+    if (g.shape[-1] != len(vols) * K
+            or any(tuple(v.shape[:2]) != (B, h * w) for v in vols)):
+        raise ValueError(f"{name}: bad shapes g {tuple(g.shape)} volumes "
+                         f"{[tuple(v.shape) for v in vols]} coords "
+                         f"{tuple(coords.shape)}")
+    dvols = [torch.zeros_like(v) for v in vols]
+    dc = torch.empty((B, h, w, 2), dtype=torch.float32, device=g.device)
+    ptrs, hw, sc = _levels_args(vols, [v.shape[2:] for v in vols],
+                                _scales(len(vols), scales))
+    grads = (ctypes.c_void_p * len(vols))(*[d.data_ptr() for d in dvols])
+    kernels.launch(name, ptrs, hw, sc, len(vols), coords.data_ptr(),
+                   g.data_ptr(), grads, dc.data_ptr(), B, h * w, radius,
+                   int(select == "reduce"), kernels.stream_ptr(g.device))
+    return dvols, dc
+
+
+class CorrVolumeLookup(torch.autograd.Function):
+    """The four-level volume lookup (kernel 2) with kernel 2b's backward:
+    the volumes' cotangents and, where they require it, the
+    coordinates'."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, scales, select, *vols):
+        ctx.radius, ctx.scales, ctx.select = radius, scales, select
+        ctx.save_for_backward(coords, *vols)
+        return corr_lookup_levels(vols, coords, radius, scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, *vols = ctx.saved_tensors
+        dvols, dc = corr_lookup_backward(g.contiguous(), vols, coords,
+                                         ctx.radius, ctx.scales, ctx.select)
+        return (dc if ctx.needs_input_grad[0] else None, None, None, None,
+                *dvols)
 
 
 def _tap_dots(f1, f2p, coords, radius):
@@ -637,13 +804,14 @@ def corr_patch_lookup_level(f1, f2p, coords, radius: int = 3,
                                     offset)
 
 
-def corr_lookup(pyramid: Pyramid, coords, radius: int = 3):
+def corr_lookup(pyramid: Pyramid, coords, radius: int = 3,
+                select: str = "xla"):
     """coords (B,h,w,2) in level-0 pixels -> (B,h,w,L*(2r+1)^2), level-major
     then window row-major (dy outer, dx inner), in one launch.  Dispatches
     on the pyramid's layout: a list of volumes or a ``{"f1", "levels"}``
-    dict."""
+    dict; ``select`` is the volume path's (its VJP's rounding)."""
     coords = coords.contiguous()
     if isinstance(pyramid, dict):
         return corr_patch_lookup_levels(pyramid["f1"], pyramid["levels"],
                                         coords, radius)
-    return corr_lookup_levels(pyramid, coords, radius)
+    return corr_lookup_levels(pyramid, coords, radius, select=select)

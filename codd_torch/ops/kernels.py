@@ -2,9 +2,9 @@
 
 Each source is an ``sm_90a`` translation unit with plain C launch
 functions that return their ``cudaError_t`` (``tile_warp.cu``,
-``gn_window.cu``, ``splat_composite.cu`` and ``corr_patch.cu`` hold the
-forward and the backward, ``corr_patch.cu`` also the coordinates'
-gradient); sources may share code through
+``gn_window.cu``, ``splat_composite.cu``, ``corr_lookup.cu`` and
+``corr_patch.cu`` hold the forward and the backward, ``corr_patch.cu``
+also the coordinates' gradient); sources may share code through
 the headers in ``csrc/*.cuh``.  ``load()`` compiles every source with its
 own ``nvcc`` process, all started together, into
 ``<repo>/build/kernels/<name>-<content hash>.so`` and opens each library with
@@ -46,6 +46,9 @@ KERNELS = {
                                 [_P] * 7 + [_I] * 6 + [_P]),
     "corr_lookup": ("corr_lookup.cu", "corr_lookup_launch",
                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "corr_lookup_backward": ("corr_lookup.cu", "corr_lookup_backward_launch",
+                             [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P]),
     "gn_fused_solve": ("gn_fused.cu", "gn_fused_solve_launch",
                        [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P]),
     "splat_composite": ("splat_composite.cu", "splat_composite_launch",

@@ -8,14 +8,18 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import global_count
+
 __all__ = ["masked_mean", "epe_metric", "thres_metric", "t_epe_metric",
            "depth2normal"]
 
 
 def masked_mean(x, mask):
-    """Mean of x over mask; 0 if the mask is empty."""
+    """Mean of x over mask; 0 if the mask is empty.  In a loss taken over
+    several processes the count is the global one (``global_count``)."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(x * m) / torch.clamp(global_count(torch.sum(m)),
+                                          min=1.0)
 
 
 def epe_metric(d_est, d_gt, mask):

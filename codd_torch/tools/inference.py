@@ -14,6 +14,11 @@ The model runs on the CUDA card unless ``--device cpu`` is given, and the
 command fails without a card otherwise.  CHECKPOINT is a ``torch.save``d
 ``state_dict`` or a training checkpoint's ``ckpt_<step>`` directory (omit
 it for seeded random weights).
+
+Under torchrun (``tools/inference_dist.sh``) each process joins the group
+(``parallel.mesh.init_distributed``) and runs its share of the sequences
+on ``cuda:LOCAL_RANK``; rank 0 writes ``--out-csv`` and every process
+prints the merged summary.
 """
 
 from __future__ import annotations
@@ -52,22 +57,38 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
 
-    from ..apis.inference import run_inference
     from ..config import load_config
-    from ..data.datasets import StereoVideoDataset, build_test_dataset
-    from ..data.pipelines import build_test_pipeline
     from ..models.builder import build_estimator
-    from ..train.checkpoint import restore_params
-    from ..utils.precision import round_floats
+    from ..parallel import mesh
 
     cfg = load_config(args.config, args.options)
     try:
-        model = build_estimator(cfg["model"], device=args.device)
+        device = args.device
+        if mesh.launched_by_torchrun():
+            device = mesh.init_distributed(args.device)
+        model = build_estimator(cfg["model"], device=device)
     except RuntimeError as e:
         print(f"error: {e} (or run with --device cpu)", file=sys.stderr)
         return 1
+    try:
+        return _run(args, cfg, model)
+    finally:
+        if mesh.process_group_active():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, model) -> int:
+    from ..apis.inference import run_inference
+    from ..data.datasets import StereoVideoDataset, build_test_dataset
+    from ..data.pipelines import build_test_pipeline
+    from ..parallel import mesh
+    from ..train.checkpoint import restore_params
+    from ..utils.precision import round_floats
+
     if args.checkpoint:
         restore_params(args.checkpoint, model)
+    if mesh.process_group_active():   # every process runs rank 0's weights
+        mesh.broadcast_state(model)
     if args.bf16:
         round_floats(model, torch.bfloat16)
 

@@ -12,6 +12,12 @@ the weights only.  ``--debug-nans`` turns on
 unless ``--device cpu`` is given, and the command fails without a card
 otherwise.  The work dir is ``--work-dir``, else ``runtime.work_dir``,
 else ``work_dirs/<config name>``.
+
+Under torchrun (``tools/train_dist.sh``: ``torchrun --nproc_per_node=N -m
+codd_torch.tools.train CONFIG ...``) each process joins the group
+(``parallel.mesh.init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``) and trains on its rows of a global batch of
+``data.train.batch_size`` x N.
 """
 
 from __future__ import annotations
@@ -48,9 +54,15 @@ def main(argv=None) -> int:
     from ..apis.train import train_estimator
     from ..config import load_config
     from ..models.builder import _resolve_device
+    from ..parallel import mesh
 
     try:
-        _resolve_device(args.device)
+        device = _resolve_device(args.device)
+        if mesh.launched_by_torchrun():
+            device = mesh.init_distributed(args.device)
+            print(f"rank {mesh.process_index()} of {mesh.process_count()} "
+                  f"on {device}, backend {torch.distributed.get_backend()}",
+                  flush=True)
     except RuntimeError as e:
         print(f"error: {e} (or run with --device cpu)", file=sys.stderr)
         return 1
@@ -62,9 +74,13 @@ def main(argv=None) -> int:
     work_dir = (args.work_dir or cfg.get("runtime", {}).get("work_dir")
                 or osp.join("work_dirs",
                             osp.splitext(osp.basename(args.config))[0]))
-    train_estimator(cfg, work_dir, load_from=args.load_from,
-                    resume_from=args.resume_from, max_steps=args.max_steps,
-                    device=args.device)
+    try:
+        train_estimator(cfg, work_dir, load_from=args.load_from,
+                        resume_from=args.resume_from,
+                        max_steps=args.max_steps, device=device)
+    finally:
+        if mesh.process_group_active():
+            torch.distributed.destroy_process_group()
     return 0
 
 

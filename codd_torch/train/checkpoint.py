@@ -8,15 +8,19 @@ A checkpoint is a directory ``ckpt_<step>`` with ``state.pt``, one
      "params": the model's state_dict (parameters and the frozen
                batch-norm statistics), on the CPU,
      "opt_state": {"count": int, "mu": {name: tensor}, "nu": {...}},
-     "data": the training pipeline's generator state after the step's
-             batch (``data.pipelines.pipeline_rng_state``), or None}
+     "data": {"world": the number of processes,
+              "ranks": each process's training pipeline's generator state
+                       after the step's batch, by rank
+                       (``data.pipelines.pipeline_rng_state``)}, or None}
 
 and ``meta.json`` (the step and the config).  Adam's moments exist for the
 trained parameters only (``train/optim.py``).  Two flows, as in
 ``codd_tpu``:
 
   * ``--resume-from``: ``restore_checkpoint``, params + optimizer + step
-    (and the data stream's position, which ``codd_tpu`` does not keep);
+    (and the data stream's position, which ``codd_tpu`` does not keep:
+    ``rank_data_state`` takes a process's own, and raises when the number
+    of processes differs from the checkpoint's);
   * ``--load-from``: ``restore_params``, weights only; the optimizer state
     on disk is ignored.  Given a file, not a ``ckpt_<step>`` directory,
     it loads a plain ``state_dict`` (inference weights) through
@@ -38,7 +42,7 @@ from .optim import AdamState
 from .trainer import TrainState
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "restore_params",
-           "STATE_FILE"]
+           "rank_data_state", "STATE_FILE"]
 
 STATE_FILE = "state.pt"
 
@@ -118,3 +122,20 @@ def restore_checkpoint(path: str, model: torch.nn.Module, state: TrainState
                                            mu=moved(opt["mu"]),
                                            nu=moved(opt["nu"]))),
             blob.get("data"))
+
+
+def rank_data_state(data: Optional[Dict[str, Any]], rank: int, world: int
+                    ) -> Optional[Dict[str, Any]]:
+    """Process ``rank``'s data stream state from a checkpoint's ``data``
+    (None where it has none); raises where the checkpoint was written by
+    another number of processes, whose streams cannot be resumed exactly.
+    A ``data`` without ``"ranks"`` is one process's state."""
+    if data is None:
+        return None
+    if "ranks" not in data:
+        data = {"world": 1, "ranks": [data]}
+    if data["world"] != world or len(data["ranks"]) != world:
+        raise ValueError(f"checkpoint written by {data['world']} processes "
+                         f"cannot resume {world}: each process's data stream "
+                         "is kept, and they would not continue")
+    return data["ranks"][rank]

@@ -147,6 +147,45 @@ def test_corr_lookup_kernel(dev, r):
         corr.corr_lookup_level(vols[0][:, :-1].contiguous(), coords, r)
 
 
+@pytest.mark.parametrize("select", ["xla", "reduce"])
+@pytest.mark.parametrize("r", [0, 1, 3])
+def test_corr_lookup_backward_kernel(dev, r, select):
+    """Kernel 2b against its plain backward on the same inputs (windows
+    past every edge): the volumes' cotangents equal in bits (the same
+    roundings in the same order), zero outside the windows; the
+    coordinates' within 1e-5 of their sum of |terms| (sums in another
+    order); two launches equal in bits; under autograd ``corr_lookup``
+    runs as ``CorrVolumeLookup`` and launches 2b once a backward."""
+    g = _g()
+    f1, f2 = (torch.randn(2, 12, 40, 64, generator=g).to(dev)
+              for _ in range(2))
+    vols = corr.build_corr_pyramid(f1, f2, 4, r)
+    coords = _corr_coords(dev, r)
+    cot = torch.randn(2, 12, 40, 4 * (2 * r + 1) ** 2, generator=g).to(dev)
+    kernels.reset_counts()
+    got = corr.corr_lookup_backward(cot, vols, coords, r, None, select)
+    again = corr.corr_lookup_backward(cot, vols, coords, r, None, select)
+    ref = corr.corr_lookup_backward_plain(cot, vols, coords, r, None, select)
+    terms = corr.corr_lookup_coords_backward_terms(cot, vols, coords, r)
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_lookup_backward"] == 2
+    for a, b, c in zip(got[0], ref[0], again[0]):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert torch.equal(a, c)
+    assert torch.equal(got[1], again[1])
+    assert ((got[1] - ref[1]).abs() <= 1e-5 * terms).all()
+    need = [v.detach().clone().requires_grad_() for v in vols]
+    c = coords.clone().requires_grad_()
+    out = corr.corr_lookup(need, c, r, select=select)
+    kernels.reset_counts()
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_lookup_backward"] == 1
+    for v, b in zip(need, ref[0]):
+        assert torch.equal(v.grad, b)
+    assert torch.equal(c.grad, got[1])
+
+
 @pytest.mark.parametrize("r", [0, 1, 3])
 def test_corr_patch_kernel(dev, r, monkeypatch):
     """Both of kernel 6's paths in one launch (the plain planner shows
@@ -485,6 +524,7 @@ def test_streaming_goes_through_the_kernels(dev):
     # 9 tile warps a frame; one corr lookup (four levels) and one GN solve
     # an iteration; 2 splats
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 4,
+                                "corr_lookup_backward": 0,
                                 "gn_fused_solve": 4, "splat_composite": 4,
                                 "gn_window_aggregate": 0,
                                 "corr_patch_lookup": 0,
@@ -513,6 +553,7 @@ def test_bf16_streaming_goes_through_the_kernels(dev):
         carry, out = model.step(carry, left, right, intr)
     torch.cuda.synchronize()
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 4,
+                                "corr_lookup_backward": 0,
                                 "gn_fused_solve": 4, "splat_composite": 4,
                                 "gn_window_aggregate": 0,
                                 "corr_patch_lookup": 0,
@@ -557,6 +598,7 @@ def test_eval_path_goes_through_kernels_5_and_6(dev):
     metrics = run_inference(model, OneClip(), evaluate=True,
                             log=lambda *_: None)
     assert kernels.counts() == {"tile_warp_cost": 27, "corr_lookup": 0,
+                                "corr_lookup_backward": 0,
                                 "gn_fused_solve": 0, "splat_composite": 4,
                                 "gn_window_aggregate": 4,
                                 "corr_patch_lookup": 4,
@@ -898,7 +940,9 @@ def test_backward_kernels_under_autograd(dev):
 
 
 def test_forward_only_kernels_raise_under_autograd(dev):
-    """Kernels 2 and 3 have no backward, kernel 5 none for bf16 scores,
+    """Kernel 2 has no backward for the ``volume_pallas`` select (its
+    other selects train through kernel 2b), kernel 3 none, kernel 5 none
+    for bf16 scores,
     and kernel 4 called directly (``composite``, not ``splat_render``'s
     ``SplatComposite``) none: asked for such a gradient, each wrapper
     raises instead of returning a tensor cut from the graph; under
@@ -915,7 +959,8 @@ def test_forward_only_kernels_raise_under_autograd(dev):
     need = lambda t: t.detach().clone().requires_grad_()  # noqa: E731
     calls = {
         "corr_lookup": lambda grad: corr.corr_lookup(
-            [need(v) if grad else v for v in vols], coords, 3),
+            [need(v) if grad else v for v in vols], coords, 3,
+            select="pallas"),
         "gn_fused_solve": lambda grad: gn.gn_fused_solve(
             need(ae) if grad else ae, vals),
         "gn_window_aggregate": lambda grad: gn.gn_window_aggregate(
@@ -1007,7 +1052,8 @@ def test_training_step_on_the_card(dev, stage):
         full = stage == "full"
         assert counts == {"tile_warp_cost": 18,
                           "tile_warp_cost_backward": 18 if full else 0,
-                          "corr_lookup": 0, "gn_fused_solve": 0,
+                          "corr_lookup": 0, "corr_lookup_backward": 0,
+                          "gn_fused_solve": 0,
                           "splat_composite": 2, "gn_window_aggregate": 4,
                           "corr_patch_lookup": 4,
                           "gn_window_aggregate_backward": 2,
@@ -1123,8 +1169,8 @@ def test_train_estimator_step_on_the_card(dev, tmp_path):
     assert len(rows) == 1 and np.isfinite(json.loads(rows[0])["loss"])
     assert kernels.counts() == {
         "tile_warp_cost": 18, "tile_warp_cost_backward": 18,
-        "corr_lookup": 0, "gn_fused_solve": 0, "splat_composite": 2,
-        "gn_window_aggregate": 4, "corr_patch_lookup": 4,
+        "corr_lookup": 0, "corr_lookup_backward": 0, "gn_fused_solve": 0,
+        "splat_composite": 2, "gn_window_aggregate": 4, "corr_patch_lookup": 4,
         "gn_window_aggregate_backward": 2, "corr_patch_lookup_backward": 2,
         "splat_composite_backward": 2, "corr_patch_lookup_coords_backward": 2}
     assert (tmp_path / "work" / "ckpt_1" / "state.pt").exists()

@@ -34,7 +34,7 @@ def _port_files():
             "data/transforms.py", "train/checkpoint.py", "utils/logging.py",
             "tools/train.py", "utils/port_weights.py",
             "utils/generate_split_files.py",
-            "utils/vis_point_cloud.py"} <= names, names
+            "utils/vis_point_cloud.py", "parallel/mesh.py"} <= names, names
     return files + [ROOT / "chip_smoke.py"]
 
 

@@ -16,8 +16,9 @@ weights and batches.
   ``jax.value_and_grad``, stereo without gradients; one step of the
   port's ``make_train_step`` against codd_tpu's optimizer on codd_tpu's
   gradients;
-* the raises: ``gn_impl="fused"``, a volume ``corr_impl`` and
-  ``gn_bf16_scores`` where codd_tpu scores in bf16 (its windowed form;
+* the raises: ``gn_impl="fused"``, ``corr_impl="volume_pallas"`` (the
+  other volume impls train: ``tests/test_torch_corr_volume_backward.py``)
+  and ``gn_bf16_scores`` where codd_tpu scores in bf16 (its windowed form;
   at the other widths they train as f32 scores, as in codd_tpu) (joint
   training, with the coordinates' gradient, is
   ``tests/test_torch_train_joint.py``'s).
@@ -732,13 +733,14 @@ def test_motion_training_raises(case):
     """bf16 scores and the fused GN solve raise only where codd_tpu would
     run them, on its windowed form: at a 1/8-res width of 128 (a 64x1024
     frame); at the other widths both train as auto trains, with f32 scores
-    (the tests below)."""
+    (the tests below).  ``volume_pallas`` raises at every width: codd_tpu
+    cannot differentiate its ``window_select`` either."""
     width = 1024 if case in ("bf16_scores", "fused") else W
     rng = np.random.RandomState(0)
     args = (_t(rng.rand(1, T, H, width, 3)), _t(rng.rand(1, T, H, width, 3)),
             _t([[100.0, 100.0, width / 2, H / 2]]))
     opts = {"fused": ["model.runtime.gn_impl=fused"],
-            "volume": ["model.runtime.corr_impl=volume_reduce"],
+            "volume": ["model.runtime.corr_impl=volume_pallas"],
             "bf16_scores": ["model.runtime.gn_bf16_scores=True"]}
     model = build_estimator(_cfg("stereo_motion.py", "model.motion.iters=1",
                                  *opts[case]), device="cpu")
