@@ -36,7 +36,13 @@ Phases, in order:
      first's bits (dhyp3 and dfea_l the plain version's); the
      backward of kernels 5 and 6 at the motion stage's training call (B=4,
      48x96 queries) against their plain backward, timed, with their
-     bounds: kernel 5's (tensor-core products) twice for equal bits;
+     bounds: kernel 5's (tensor-core products) twice for equal bits, and
+     its bf16-score form (the VJP of codd_tpu's windowed sums with bf16
+     scores) at the same call with a 384x1024 crop (48x128 queries) on a
+     random and a smooth embedding field, each element within one bf16
+     ulp of its sum of |terms| beyond the f32 bound, twice for equal bits,
+     with the share beyond the f32 bound, its registers and spill and the
+     f32 form's time on the same inputs;
      kernel 6's (products over each tile's window box, staged in chunks)
      on the smooth and the scattered field, df1 twice for equal bits, the
      share of blocks whose box is one chunk and the global atomics it
@@ -81,7 +87,9 @@ Phases, in order:
   train: a training step on the card, 5 steps a stage at B=4, T=2,
      384x768 (SceneFlow's training crop) on seeded synthetic batches:
      the stereo stage (configs/models/stereo.py, Adam 4e-4 MultiGamma,
-     clip 1.0), the fusion stage (configs/models/codd.py with stereo
+     clip 1.0), one stereo step with ``tile_warp_variant="tilewin"``
+     (codd_tpu's windowed warp as ATen ops: no hand kernel launches), the
+     fusion stage (configs/models/codd.py with stereo
      and motion frozen, OneCycle 2e-4), then the motion stage
      (configs/models/stereo_motion.py: stereo frozen, no fusion, RAFT-3D
      trained by motion_loss; OneCycle 2e-4, on the panning plane, whose
@@ -89,7 +97,10 @@ Phases, in order:
      motion stage with ``corr_impl="volume"`` (kernel 2 forward twice an
      iteration, 2b once, in place of 6 and 6b; 2b on the step's 16 calls
      against its plain backward, the batch's gradients with 2b's plain
-     backward within 1e-3), then the joint
+     backward within 1e-3), one step of the motion stage with
+     ``gn_bf16_scores`` at 384x1024 crops (kernel 5's bf16-score backward
+     16 times a step, on each of its calls against its plain backward, the
+     batch's gradients with its plain backward within 1e-3), then the joint
      stage (configs/models/codd.py with the stereo frozen: RAFT-3D and
      the fusion trained together, the splats differentiated by kernel 4's
      backward; OneCycle 2e-4, the motion stage's batches), then the full
@@ -767,6 +778,142 @@ def gn_backward_compare(label, got, ref, terms, ae):
     return worst, worst_rel, share
 
 
+def gn_backward_bf16_compare(label, got, ref, terms, ae):
+    """Kernel 5's backward in its bf16-score form against its plain
+    version: every element within one bf16 ulp (2^-7 of a value) of its
+    sum of |terms| beyond the f32 form's bound (``gn_backward_compare``):
+    each ordered pair's dS and each block sum of dvals is an f32 sum in
+    another order rounded to bf16, which near a rounding boundary rounds
+    the other way.  Returns (worst |err| / sum|terms|, the share of
+    elements beyond the f32 bound, max |err|)."""
+    import torch
+    share = 1e-5 + 8 * 2.0 ** -24 * 2 * float((ae * ae).sum(-1).max())
+    worst, beyond, n, err_max = 0.0, 0, 0, 0.0
+    for name, a, b, t in zip(("dae", "dvals"), got, ref, terms):
+        if not torch.isfinite(a).all():
+            fail(f"gn_window_aggregate_backward_bf16 ({label}): non-finite "
+                 f"{name}")
+        err = (a - b).abs()
+        over = err > (2.0 ** -7 + share) * t + 1e-7
+        if bool(over.any()):
+            fail(f"gn_window_aggregate_backward_bf16 ({label}): {name} "
+                 f"disagrees with its plain backward ({int(over.sum())} of "
+                 f"{err.numel()} past 2^-7 + {share:.2e} of the sum of "
+                 "|terms|)")
+        beyond += int((err > share * t + 1e-7).sum())
+        n += err.numel()
+        worst = max(worst, float((err / (t + 1e-30)).max()))
+        err_max = max(err_max, float(err.max()))
+    return worst, beyond / n, err_max
+
+
+def gn_backward_attributes(bf16: bool):
+    """(registers a thread, bytes spilled to local memory) of kernel 5's
+    backward form, as cudaFuncGetAttributes reports them."""
+    import ctypes
+    from codd_torch.ops import kernels
+    lib = kernels.load()["gn_window_aggregate_backward"]
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.gn_window_aggregate_backward_attributes(
+        int(bf16), ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        fail(f"gn_window_aggregate_backward_attributes: CUDA error {err}")
+    return regs.value, local.value
+
+
+def gn_backward_bf16_check(fields, g):
+    """Kernel 5's backward in its bf16-score form at the motion stage's
+    training call with a 1024-wide crop (B=4, 48x128 queries, where
+    codd_tpu takes its windowed form) against its plain backward, on the
+    ``random`` and the ``smooth`` embedding field (``fields``: name ->
+    (ae, vals)), each twice for equal bits; its time on the random field,
+    the plain version's, registers and spill, and the bound by the f32
+    form's rule (``gn_backward_check``)."""
+    import torch
+    from codd_torch.ops import gn
+    out = dict(name="gn_window_aggregate_backward_bf16",
+               source="codd_torch/csrc/gn_window.cu",
+               replaces="codd_tpu/ops/gn.py:268", max_abs_err=0.0)
+    for label, (ae, vals) in fields.items():
+        got = gn.gn_window_aggregate_backward(g, ae, vals, bf16_scores=True)
+        ref = gn.gn_window_aggregate_backward_plain(g, ae, vals,
+                                                    bf16_scores=True)
+        again = gn.gn_window_aggregate_backward(g, ae, vals,
+                                                bf16_scores=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"gn_window_aggregate_backward_bf16 ({label}): two launches"
+                 " on one input differ (the sums have a fixed order)")
+        worst, beyond, err = gn_backward_bf16_compare(
+            label, got, ref, gn.gn_window_aggregate_backward_terms(
+                g, ae, vals, bf16_scores=True), ae)
+        # the f32 form on the same inputs stands further off: the bf16
+        # roundings are really taken
+        f32 = gn.gn_window_aggregate_backward_plain(g, ae, vals)
+        apart = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(f32, ref))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out[f"beyond_f32_share_{label}"] = beyond
+        out[f"worst_over_terms_{label}"] = worst
+        print(f"  gn_window_aggregate_backward_bf16 ({label}): worst |err| "
+              f"/ sum|terms| {worst:.3e} (allowed 2^-7 + the f32 bound); "
+              f"share beyond the f32 form's bound {beyond:.2e}; the plain "
+              f"f32-score backward {apart:.2e} of max|ref| away; two "
+              "launches equal in bits", flush=True)
+        del got, ref, again, f32
+        torch.cuda.empty_cache()
+    ae, vals = fields["random"]
+    B, h, w, C = ae.shape
+    ky = np.minimum(np.arange(h) + 32, h - 1) - np.maximum(
+        np.arange(h) - 32, 0) + 1
+    kx = np.minimum(np.arange(w) + 32, w - 1) - np.maximum(
+        np.arange(w) - 32, 0) + 1
+    pairs = float(B * ky.sum() * kx.sum())
+    out["ms"] = cuda_ms(lambda: gn.gn_window_aggregate_backward(
+        g, ae, vals, bf16_scores=True))
+    out["plain_ms"] = cuda_ms(lambda: gn.gn_window_aggregate_backward_plain(
+        g, ae, vals, bf16_scores=True), warmup=1, iters=3)
+    out["ms_f32_form"] = cuda_ms(lambda: gn.gn_window_aggregate_backward(
+        g, ae, vals))
+    out["registers"], out["spill_bytes"] = gn_backward_attributes(True)
+    regs32, spill32 = gn_backward_attributes(False)
+    print(f"  gn_window_aggregate_backward_bf16: {out['ms']:.4f} ms (the f32 "
+          f"form {out['ms_f32_form']:.4f} ms on the same inputs), plain "
+          f"{out['plain_ms']:.4f} ms; {pairs:.4g} pairs; {out['registers']} "
+          f"registers, {out['spill_bytes']} bytes local (f32 form "
+          f"{regs32}, {spill32})", flush=True)
+    out.update(bytes=4 * B * h * w * (2 * C + 3 * 27),
+               flops=pairs * (204 + 5), library_ms=None)
+    return out
+
+
+def gn_bf16_fields(randn, rand, dev):
+    """The inputs of kernel 5's backward at the motion stage's training
+    call with a 384x1024 crop (B=4, 48x128 queries, SceneFlow's
+    intrinsics): the value field of a GN system, its cotangent, and two
+    embedding fields at the model's scale (1/8): ``random`` (iid) and
+    ``smooth`` (one direction plus a 0.05 ripple: logits near 0, so every
+    pair of a window carries weight)."""
+    import torch
+    from codd_torch.ops import gn, se3
+    from codd_torch.ops.projective import inv_project, project
+    b, h, w = TRAIN_B, TRAIN_H // 8, 1024 // 8
+    intr = torch.tensor([[1050.0 / 8, 1050.0 / 8, 512.0 / 8, 270.0 / 8]] * b,
+                        device=dev)
+    depth = rand(b, h, w, lo=2.0, hi=60.0)
+    Ts = se3.exp(randn(b, h, w, 6, scale=0.01))
+    target = (project(se3.act(Ts, inv_project(depth, intr)), intr)
+              + randn(b, h, w, 3, scale=0.5))
+    vals = gn.build_vals(Ts, target, rand(b, h, w, 3), depth,
+                         intr).contiguous()
+    fields = {"random": (randn(b, h, w, 32, scale=1.0 / 8).contiguous(),
+                         vals),
+              "smooth": ((randn(1, 1, 1, 32, scale=1.0 / 8)
+                          + randn(b, h, w, 32, scale=0.05)).contiguous(),
+                         vals)}
+    return fields, randn(b, h, w, 27)
+
+
 def gn_backward_check(ae, vals, g):
     """Kernel 5's backward at the motion stage's training call (B=4, 48x96,
     C=32, 27 values) against its plain backward, twice for equal bits; its
@@ -1301,6 +1448,7 @@ def kernel_checks(dev):
                           intr8t).contiguous()
     tae = randn(tb, th, tw, 32, scale=1.0 / 8).contiguous()
     rows.append(gn_backward_check(tae, tvals, randn(tb, th, tw, 27)))
+    rows.append(gn_backward_bf16_check(*gn_bf16_fields(randn, rand, dev)))
     tf1, tf2 = randn(tb, th, tw, 128), randn(tb, th, tw, 128)
     tfields = {k: torch.cat([v] * tb).contiguous() for k, v in corr_fields(
         randn(1, th, tw, 2, scale=6.0), th, tw, dev).items()}
@@ -1764,9 +1912,10 @@ def train_batches(n: int, dev, seed: int = 7):
     return [{k: v.to(dev) for k, v in b.items()} for b in out]
 
 
-def motion_batches(n: int, dev, seed: int = 11):
+def motion_batches(n: int, dev, seed: int = 11, w: int = TRAIN_W):
     """``n`` seeded batches for the motion stage at SceneFlow's training
-    shape (B=4, T=2, 384x768): each clip is ``frames()``' panning plane,
+    shape (B=4, T=2, 384x768; ``w`` another crop width): each clip is
+    ``frames()``' panning plane,
     so the ground truth is in closed form: disparity 8 + t, flow (-2, 0)
     towards the next frame, disparity change +1; SceneFlow's
     intrinsics."""
@@ -1774,10 +1923,10 @@ def motion_batches(n: int, dev, seed: int = 11):
     out = []
     for i in range(n):
         clips = [frames(TRAIN_T, "cpu", seed * 1000 + i * TRAIN_B + b,
-                        TRAIN_H, TRAIN_W) for b in range(TRAIN_B)]
+                        TRAIN_H, w) for b in range(TRAIN_B)]
         side = lambda k: torch.cat([torch.stack(  # noqa: E731
             [f[k] for f in c], 1) for c in clips])
-        shape = (TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W)
+        shape = (TRAIN_B, TRAIN_T, TRAIN_H, w)
         flow = torch.zeros(shape + (2,))
         flow[..., 0] = -2.0
         out.append({
@@ -1883,7 +2032,10 @@ def motion_grad_checks(model, lc, batch, trace=False):
         fail(f"motion stage: {len(kept['gn'])} / {len(kept['corr'])} calls "
              "of the backward of kernels 5 / 6 in one batch, not 16 / 16")
     gw = gr = gu = cu = cs = 0.0
-    for i, (g, ae, vals, radius) in enumerate(kept["gn"]):
+    for i, (g, ae, vals, radius, bf16) in enumerate(kept["gn"]):
+        if bf16:
+            fail("motion stage: kernel 5's backward took the bf16-score "
+                 "form with f32 scores")
         with torch.no_grad():
             got = gn.gn_window_aggregate_backward(g, ae, vals, radius)
             ref = gn.gn_window_aggregate_backward_plain(g, ae, vals, radius)
@@ -2003,6 +2155,60 @@ def volume_motion_checks(model, lc, batch):
              "with those of its plain backward")
     if any(k.startswith("stereo.") for k in gk):
         fail("volume motion stage: a frozen stereo parameter has a gradient")
+
+
+def bf16_scores_motion_checks(model, lc, batch):
+    """One batch of the motion stage with ``gn_bf16_scores`` at a 1024-wide
+    crop (48x128 GN fields, where codd_tpu scores in bf16 on its windowed
+    form), gradients only, no update.  Gated: kernel 5's backward in its
+    bf16-score form on each of the step's 16 calls against its plain
+    backward (phase 3's rule: one bf16 ulp of the sum of |terms| beyond
+    the f32 bound), twice for equal bits; the batch's gradients with it
+    swapped for its plain backward (every forward kernel kept): each
+    parameter's within 1e-3 of its norm (a norm counted as at least 1e-5
+    of the largest), the loss to 1e-6."""
+    import torch
+    from codd_torch.ops import gn
+    with recorded(gn, "gn_window_aggregate_backward") as kept:
+        lk, gk, _ = stage_grads(model, lc, batch)
+    if len(kept) != 16 or not all(k[4] is True for k in kept):
+        fail(f"bf16-score motion stage: {len(kept)} calls of kernel 5's "
+             "backward in one batch, not 16 in the bf16-score form")
+    worst, beyond = 0.0, 0.0
+    for i, (g, ae, vals, radius, bf16) in enumerate(kept):
+        with torch.no_grad():
+            got = gn.gn_window_aggregate_backward(g, ae, vals, radius, bf16)
+            again = gn.gn_window_aggregate_backward(g, ae, vals, radius,
+                                                    bf16)
+            ref = gn.gn_window_aggregate_backward_plain(g, ae, vals, radius,
+                                                        bf16)
+            terms = gn.gn_window_aggregate_backward_terms(g, ae, vals,
+                                                          radius, bf16)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"bf16-score motion stage: call {i} of kernel 5's "
+                     "backward differs between two launches")
+            w, sh, _ = gn_backward_bf16_compare(
+                f"call {i} of a motion step", got, ref, terms, ae)
+        worst, beyond = max(worst, w), max(beyond, sh)
+    del kept
+    with recorded(gn, "gn_window_aggregate_backward",
+                  gn.gn_window_aggregate_backward_plain):
+        lx, gx, _ = stage_grads(model, lc, batch)
+    err, where = grads_apart(gk, gx, 1e-5, show=4)
+    rel_loss = abs(lk - lx) / abs(lx)
+    print(f"  bf16-score motion stage, one batch: kernel 5's bf16-score "
+          f"backward on the step's 16 calls against its plain backward: "
+          f"worst |err| / sum|terms| {worst:.3e}, share beyond the f32 "
+          f"bound up to {beyond:.2e}, two launches equal in bits; the "
+          f"batch's {len(gk)} gradients with its plain backward (bound "
+          f"1e-3, loss 1e-6): loss {lx:.6f} (rel {rel_loss:.2e}), worst "
+          f"|diff| / |plain| {err:.2e} at {where}", flush=True)
+    if set(gx) != set(gk) or err > 1e-3 or rel_loss > 1e-6:
+        fail("bf16-score motion stage: the gradients with kernel 5's "
+             "bf16-score backward disagree with those of its plain backward")
+    if any(k.startswith("stereo.") for k in gk):
+        fail("bf16-score motion stage: a frozen stereo parameter has a "
+             "gradient")
 
 
 def joint_grad_checks(label, model, lc, batch, stereo_frozen=True,
@@ -2507,6 +2713,7 @@ def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
             fail(f"{label}: non-finite loss at step {i}")
     launches = kernels.counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    b, t, h, w = batches[0]["l_img"].shape[:4]
     moved = [k for k, v in kept.items() if not torch.equal(params[k], v)]
     if moved:
         fail(f"{label}: frozen parameters moved: {moved[:5]}")
@@ -2515,16 +2722,16 @@ def train_stage(label, model, opt, loss_cfg, batches, frozen=(),
              for k, v in tree.items() if v.dtype != torch.float32]
     if not32:
         fail(f"{label}: masters or Adam moments not f32: {not32[:5]}")
-    print(f"  {label}: {len(batches)} steps at B={TRAIN_B}, T={TRAIN_T}, "
-          f"{TRAIN_H}x{TRAIN_W}: ms a step {['%.1f' % t for t in ms]}, "
+    print(f"  {label}: {len(batches)} steps at B={b}, T={t}, {h}x{w}: ms a "
+          f"step {['%.1f' % x for x in ms]}, "
           f"median of steps 1-{len(ms) - 1} "
           f"{float(np.median(ms[1:] or ms)):.1f} ms; peak {peak:.2f} GiB; "
           f"{len(kept)} frozen tensors kept their bits; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     if profile_to is not None:
         profile_call(lambda: step(state, batches[0]),
-                     f"one {label} step at B={TRAIN_B}, T={TRAIN_T}, "
-                     f"{TRAIN_H}x{TRAIN_W}", profile_to)
+                     f"one {label} step at B={b}, T={t}, {h}x{w}",
+                     profile_to)
     return launches
 
 
@@ -2552,6 +2759,21 @@ def train_phase(dev, profile_dir=None):
                          profile_to=prof("stereo"))
     if stereo["tile_warp_cost_backward"] == 0:
         fail("stereo stage: kernel 1's backward never launched")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # the stereo stage with tile_warp_variant="tilewin": codd_tpu's
+    # windowed warp as ATen ops, differentiated by autograd; kernel 1 never
+    # launches; one step
+    tcfg = dict(cfg, runtime=dict(cfg.get("runtime") or {},
+                                  tile_warp_variant="tilewin"))
+    model = build_estimator(tcfg, device="cuda", seed=0)
+    opt = optim.make_optimizer(optim.multi_gamma_schedule(
+        4e-4, [225, 293, 315], [0.25, 0.4, 0.25]), 1.0)
+    tilewin = train_stage("tilewin stereo stage", model, opt, lc,
+                          batches[:1])
+    if any(tilewin.values()):
+        fail(f"tilewin stereo stage: hand kernels launched: {tilewin}")
     del model, opt
     torch.cuda.empty_cache()
 
@@ -2605,6 +2827,26 @@ def train_phase(dev, profile_dir=None):
     if volume != want:
         fail(f"volume motion stage: launches {volume} != {want}")
     del model, opt
+    torch.cuda.empty_cache()
+
+    # the motion stage with gn_bf16_scores at 384x1024 crops (48x128 at
+    # 1/8, where codd_tpu scores in bf16): kernel 5's forward in its bf16
+    # form and its backward in the bf16-score form; one step
+    bb = motion_batches(1, dev, w=1024)
+    bcfg = dict(cfg, runtime=dict(cfg.get("runtime") or {},
+                                  gn_bf16_scores=True))
+    model = build_estimator(bcfg, device="cuda", seed=0)
+    bf16_scores_motion_checks(model, lc, bb[0])
+    opt = optim.make_optimizer(optim.one_cycle_schedule(2e-4, 200000 // 8),
+                               1.0, dict(model.named_parameters()),
+                               ["stereo"])
+    scores16 = train_stage("bf16-score motion stage", model, opt, lc, bb,
+                           ("stereo",))
+    want = dict(per_step, gn_window_aggregate_backward=0,
+                gn_window_aggregate_backward_bf16=16)
+    if scores16 != want:
+        fail(f"bf16-score motion stage: launches {scores16} != {want}")
+    del model, opt, bb
     torch.cuda.empty_cache()
 
     # the joint stage, stereo frozen: the motion stage's launches, and
@@ -2673,8 +2915,8 @@ def train_phase(dev, profile_dir=None):
         fail(f"full joint bf16 stage: launches {full16} != {want}")
     del model, opt
     torch.cuda.empty_cache()
-    return {k: stereo[k] + fusion[k] + motion[k] + volume[k] + joint[k]
-            + full[k] + stereo16[k] + full16[k] for k in stereo}
+    return {k: stereo[k] + fusion[k] + motion[k] + volume[k] + scores16[k]
+            + joint[k] + full[k] + stereo16[k] + full16[k] for k in stereo}
 
 
 # ---------------------------------------------------------------------------
@@ -3525,8 +3767,10 @@ def profile_call(run, label: str, out_file: Path):
             "splat_composite_backward_": "splat_composite_backward",
             "gn_window_aggregate_kernel": "gn_window_aggregate",
             "corr_patch_lookup_kernel": "corr_patch_lookup",
-            "gn_window_aggregate_backward_kernel":
+            "gn_window_aggregate_backward_kernel<false>":
                 "gn_window_aggregate_backward",
+            "gn_window_aggregate_backward_kernel<true>":
+                "gn_window_aggregate_backward_bf16",
             "corr_patch_lookup_backward_kernel":
                 "corr_patch_lookup_backward",
             "corr_patch_lookup_coords_backward_":
@@ -3712,7 +3956,7 @@ def main():
                          + train_launches.get(r["name"], 0)
                          + entry_launches.get(r["name"], 0)
                          + weights_launches.get(r["name"], 0))
-        needs = ({"train"} if r["name"].endswith("_backward")
+        needs = ({"train"} if "_backward" in r["name"]
                  else {"main", "eval"})
         if r["launches"] == 0 and needs <= phases:
             fail(f"{r['name']}: launched no time on the main paths")
@@ -3728,7 +3972,9 @@ def main():
             "plain_ms_bf16", "max_abs_err_bf16", "unequal_share_bf16",
             "ms_bf16_smooth", "ms_bf16_train", "bound_ms_bf16_train",
             "ms_smooth", "ms_scattered", "one_chunk_share", "global_adds",
-            "ms_kernel")
+            "ms_kernel", "ms_f32_form", "beyond_f32_share_random",
+            "worst_over_terms_random", "beyond_f32_share_smooth",
+            "worst_over_terms_smooth", "registers", "spill_bytes")
     print(f"chip_smoke: phases {','.join(sorted(phases))} in "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

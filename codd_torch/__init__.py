@@ -45,8 +45,9 @@ Conventions:
   ``ops/kernels.py`` builds the kernels with ``nvcc`` on first use and
   counts launches.
 * **Precision.**  Everything is float32 except the bf16 correlation
-  features and volumes (and, with ``gn_bf16_scores``, the GN scores), as
-  in ``codd_tpu``.  A model cast to bf16 with ``utils.precision.
+  features and volumes (and, with ``gn_bf16_scores``, the GN scores and
+  their VJP's roundings, in inference and in training, wherever
+  ``codd_tpu`` scores in bf16: its windowed form), as in ``codd_tpu``.  A model cast to bf16 with ``utils.precision.
   cast_floats`` and fed bf16 frames computes as ``codd_tpu`` under
   ``bench.py --bf16``: compute follows the dtypes (convolutions promote
   like flax's), f32 is kept for the SE(3) math, the GN system and solve,

@@ -106,6 +106,11 @@ extern "C" int gn_window_aggregate_launch(const void* ae, const void* vals,
 #define KP 7   // k-steps of P = [G | V] [V | G]^T: 2 x 28 values
 #define BR 72  // floats a query's partials take in the cross-warp reduction
 
+// x rounded to bf16 (to nearest even), as f32
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // The backward's ring of key rows: gn_window_sums' NSTAGE buffers, each
 // one key row of the block's window (key row ky_lo + r, columns kx_lo ..
 // kx_lo + nk - 1, in buffer r % NSTAGE, counted on that buffer's
@@ -187,6 +192,29 @@ struct KeyRows {
 // accumulators; s and u = s (1 - s) P on the accumulator fragments; then
 // the fragments, split, are the A operands of dvals += S G_k and U A_k, a
 // fresh accumulator each (3 mma) joined to the running sums by IEEE adds.
+//
+// BF16: the VJP of codd_tpu's windowed sums with bf16 scores
+// (codd_tpu/ops/gn.py:268, bf16_scores=True), whose roundings jax.vjp
+// fixes: with vb = bf16(v) and sb = bf16(s), s the f32 sigmoid,
+//
+//   dS_ij = bf16(G_i.vb_j), rounded once an ordered pair
+//   u_ij = dS_ij s_ij (1 - s_ij) + dS_ji s_ij (1 - s_ij)
+//   dvals_i = sum over the 32-column blocks k of the other end, from the
+//             highest: f32(bf16(t_k)), t_k = sum_{j in block k} sb_ij G_j
+//
+// P becomes two products, G_i.vb_j and vb_i.G_j, each rounded to bf16 on
+// its accumulator fragment; vb and sb are exact in TF32, so each of them
+// and of S G takes two mma (the G operand split, lo first) in place of
+// three.  The three block sums of dvals cost no registers: at R = 32 a
+// staged row is at most 5 chunks, one for each of the NS warps of an
+// m-tile, so a warp always takes the same chunk, which lies in one block
+// (chunks start at kx_lo = x0 - R, a multiple of 16, and blocks at
+// multiples of 32), and its running sum is a block's partial; the
+// cross-warp reduction adds the partials of each block in slot order,
+// rounds each block's sum to bf16 and adds the three, highest block
+// first.  So dvals stays in the one launch.  R = 32 only (the launcher
+// refuses another R): codd_tpu's windowed form exists only there.
+template <bool BF16>
 __global__ void __launch_bounds__(GN_THREADS, 1)
 gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
                                     const float* __restrict__ vals,
@@ -236,7 +264,10 @@ gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
   // lo are two
   // 16-byte words, a lane's 14 of them 60 words after the last lane's: the
   // 8 lanes of a quarter warp meet 8 different bank groups.
-  __shared__ __align__(16) unsigned gvs[QY][32][8 * KP + 4];
+  // BF16: k-steps 0-3 hold G's hi and lo (words 8s ..), then vb's four
+  // k-steps (words 32 + 4s ..), 52 words a lane, 13 16-byte words: odd,
+  // so a quarter warp still meets 8 bank groups.
+  __shared__ __align__(16) unsigned gvs[QY][32][BF16 ? 52 : 8 * KP + 4];
   const uint4* gv = reinterpret_cast<const uint4*>(gvs[wid / NS][lane]);
   unsigned qh[4][4], ql[4][4];
   float qsq[2];
@@ -262,7 +293,19 @@ gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
     }
     const float* gp = g + qi * NV;
     const float* vp = vals + qi * NV;
-    if (slot == 0) {
+    if (BF16 && slot == 0) {
+      unsigned* gw = gvs[wid / NS][lane];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int t = 8 * s + c + 4 * k;
+          split_tf32(t < NV ? __ldg(gp + t) : 0.f, gw[8 * s + i + 2 * k],
+                     gw[8 * s + 4 + i + 2 * k]);
+          gw[32 + 4 * s + i + 2 * k] =
+              __float_as_uint(t < NV ? bf16r(__ldg(vp + t)) : 0.f);
+        }
+    } else if (slot == 0) {
       unsigned* gw = gvs[wid / NS][lane];
 #pragma unroll
       for (int s = 0; s < KP; ++s)
@@ -340,8 +383,27 @@ gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
           const float* kgg = kg + (tb + gq) * NV;
           float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f},
                 pg[4] = {0.f, 0.f, 0.f, 0.f};
+          // BF16: p1 = G_q.vb_k (G's lo, then hi), p2 = vb_q.G_k (the key's
+          // lo, then hi); the key's values past its 27th meet zeros
 #pragma unroll
-          for (int s = 0; s < KP; ++s) {
+          for (int s = 0; BF16 && s < 4; ++s) {
+            const uint4 hv = gv[2 * s], lv = gv[2 * s + 1], bq = gv[8 + s];
+            const unsigned ah[4] = {hv.x, hv.y, hv.z, hv.w};
+            const unsigned al[4] = {lv.x, lv.y, lv.z, lv.w};
+            const unsigned ab[4] = {bq.x, bq.y, bq.z, bq.w};
+            const int t = 8 * s + c;
+            const unsigned b0 = __float_as_uint(bf16r(kv[t]));
+            const unsigned b1 = __float_as_uint(bf16r(kv[t + 4]));
+            mma_tf32(p1, al, b0, b1);
+            mma_tf32(p1, ah, b0, b1);
+            unsigned h0, l0, h1, l1;
+            split_tf32(kgg[t], h0, l0);
+            split_tf32(kgg[t + 4], h1, l1);
+            mma_tf32(p2, ab, l0, l1);
+            mma_tf32(p2, ab, h0, h1);
+          }
+#pragma unroll
+          for (int s = 0; !BF16 && s < KP; ++s) {
             const uint4 hv = gv[2 * s], lv = gv[2 * s + 1];
             const unsigned ah[4] = {hv.x, hv.y, hv.z, hv.w};
             const unsigned al[4] = {lv.x, lv.y, lv.z, lv.w};
@@ -362,8 +424,15 @@ gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
             const float logit = __fsub_rn(__fmaf_rn(2.0f, S, -qsq[e >> 1]),
                                           (e & 1) ? kn.y : kn.x);
             sv[e] = (keep >> (4 * i + e)) & 1 ? sigmoid_fast(logit) : 0.f;
-            const float P = __fadd_rn(__fadd_rn(p1[e], p2[e]), pg[e]);
-            uv[e] = __fmul_rn(__fmul_rn(sv[e], __fsub_rn(1.0f, sv[e])), P);
+            const float d = __fmul_rn(sv[e], __fsub_rn(1.0f, sv[e]));
+            if (BF16) {
+              uv[e] = __fadd_rn(__fmul_rn(bf16r(p1[e]), d),
+                                __fmul_rn(bf16r(p2[e]), d));
+              sv[e] = bf16r(sv[e]);  // S G takes the rounded scores
+            } else {
+              const float P = __fadd_rn(__fadd_rn(p1[e], p2[e]), pg[e]);
+              uv[e] = __fmul_rn(d, P);
+            }
           }
           rs[0] = __fadd_rn(__fadd_rn(rs[0], uv[0]), uv[1]);
           rs[1] = __fadd_rn(__fadd_rn(rs[1], uv[2]), uv[3]);
@@ -389,7 +458,7 @@ gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
             float d[4] = {0.f, 0.f, 0.f, 0.f};
             split_tf32(gk[j], h0, l0);
             split_tf32(gk[NV + j], h1, l1);
-            mma_tf32(d, sl, h0, h1);
+            if (!BF16) mma_tf32(d, sl, h0, h1);  // BF16: sb's lo is 0
             mma_tf32(d, sh, l0, l1);
             mma_tf32(d, sh, h0, h1);
 #pragma unroll
@@ -440,7 +509,23 @@ gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
     if (oy >= h || ox >= w) continue;
     const float* part = red + ((q / QX) * NS * QX + q % QX) * BR;
     const long long o = plane + (long long)oy * w + ox;
-    if (v < NV) {
+    if (BF16 && v < NV) {
+      // slot n's chunk is in block (kx_lo + 16 n) / 32, one of the tile's
+      // block m - 1, m, m + 1 (lo, mid, hi); slots past the row's chunks
+      // hold 0
+      const int kx_lo = max(x0 - R, 0);
+      float lo = 0.f, mid = 0.f, hi = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int k = ((kx_lo + n * CHUNK) >> 5) - (x0 >> 5);
+        const float pv = part[n * QX * BR + v];
+        if (k < 0) lo = __fadd_rn(lo, pv);
+        else if (k == 0) mid = __fadd_rn(mid, pv);
+        else hi = __fadd_rn(hi, pv);
+      }
+      dvals[o * NV + v] =
+          __fadd_rn(__fadd_rn(bf16r(hi), bf16r(mid)), bf16r(lo));
+    } else if (v < NV) {
       float s = part[v];
 #pragma unroll
       for (int n = 1; n < NS; ++n) s = __fadd_rn(s, part[n * QX * BR + v]);
@@ -460,23 +545,51 @@ gn_window_aggregate_backward_kernel(const float* __restrict__ ae,
   }
 }
 
-// dae (B, h, w, 32) and dvals (B, h, w, 27) are written in full.
-extern "C" int gn_window_aggregate_backward_launch(
-    const void* ae, const void* vals, const void* g, void* dae, void* dvals,
-    int B, int h, int w, int R, void* stream) {
+template <bool BF16>
+static int launch_backward(const void* ae, const void* vals, const void* g,
+                           void* dae, void* dvals, int B, int h, int w, int R,
+                           void* stream) {
   if (B == 0 || h == 0 || w == 0) return 0;
-  if (R < 0) return (int)cudaErrorInvalidValue;
+  if (R < 0 || (BF16 && R != 32)) return (int)cudaErrorInvalidValue;
   size_t bytes = (size_t)NSTAGE * gn_stage_floats(R, 2) * sizeof(float);
   const size_t reduce = (size_t)QY * NS * QX * BR * sizeof(float);
   if (reduce > bytes) bytes = reduce;
   cudaError_t err = cudaFuncSetAttribute(
-      gn_window_aggregate_backward_kernel,
+      gn_window_aggregate_backward_kernel<BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid = gn_grid(B, h, w);
-  gn_window_aggregate_backward_kernel<<<grid, GN_THREADS, bytes,
-                                        (cudaStream_t)stream>>>(
-      (const float*)ae, (const float*)vals, (const float*)g, (float*)dae,
-      (float*)dvals, h, w, R);
+  gn_window_aggregate_backward_kernel<BF16>
+      <<<grid, GN_THREADS, bytes, (cudaStream_t)stream>>>(
+          (const float*)ae, (const float*)vals, (const float*)g, (float*)dae,
+          (float*)dvals, h, w, R);
   return (int)cudaGetLastError();
+}
+
+// dae (B, h, w, 32) and dvals (B, h, w, 27) are written in full.
+extern "C" int gn_window_aggregate_backward_launch(
+    const void* ae, const void* vals, const void* g, void* dae, void* dvals,
+    int B, int h, int w, int R, void* stream) {
+  return launch_backward<false>(ae, vals, g, dae, dvals, B, h, w, R, stream);
+}
+
+// the bf16-score form; R must be 32
+extern "C" int gn_window_aggregate_backward_bf16_launch(
+    const void* ae, const void* vals, const void* g, void* dae, void* dvals,
+    int B, int h, int w, int R, void* stream) {
+  return launch_backward<true>(ae, vals, g, dae, dvals, B, h, w, R, stream);
+}
+
+// registers a thread and local (spilled) bytes of the backward's form
+extern "C" int gn_window_aggregate_backward_attributes(int bf16, int* regs,
+                                                       int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err = bf16 ? cudaFuncGetAttributes(
+                               &a, gn_window_aggregate_backward_kernel<true>)
+                         : cudaFuncGetAttributes(
+                               &a, gn_window_aggregate_backward_kernel<false>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }

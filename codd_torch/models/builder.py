@@ -31,23 +31,27 @@ through).  What each knob does here:
                        ``auto`` is ``patch`` (kernel 6 and its backward);
                        the volume values raise.
 ``pixel_center_offset``  passed to both splats.
-``tile_warp_variant``  kernel 1's form under bf16 features: ``pallas``
-                       computes in f32 and rounds the output, the others
-                       follow ``tile_warping`` step by step in bf16
-                       (``ops/tile_warp.py``).  In f32 they are one
-                       function.  ``tilewin``/``grouped`` are
-                       *approximations* in ``codd_tpu`` (fixed windows);
-                       the port does not reproduce them.
+``tile_warp_variant``  the propagation's warp cost.  ``auto`` / ``exact``
+                       / ``pallas``: kernel 1, whose bf16 form ``pallas``
+                       computes in f32 and rounds the output while the
+                       others follow ``tile_warping`` step by step in bf16
+                       (one function in f32); ``pallas`` has no backward.
+                       ``tilewin`` / ``grouped``: ``codd_tpu``'s other
+                       functions (a fixed column window a tile or tile
+                       row, zero outside it), as ATen ops
+                       (``ops/tile_warp.py:tile_warp_tilewin``,
+                       ``tile_warp_grouped``), trained by autograd.
 ``init_cost_variant``, ``splat_impl``, ``splat_impl_lr``, ``gn_unroll``
                        formulations of one function for the TPU's
                        compiler.  The port has one kernel per op and runs
                        it whatever the value; the value is validated.
-                       The ``xla_window`` splats are *approximations* in
-                       ``codd_tpu`` (overflow drop); the port's kernel is
-                       exact and does not reproduce them.
+                       The ``xla_window`` splats compute the same function
+                       (a fragment past ``points_per_pixel`` saturates the
+                       window, and the cap zeroes it anyway;
+                       ``tests/test_torch_splat.py``).
 ``splat_impl_train``   the differentiable splat of joint training
-                       (``xla`` or the approximate ``xla_sort_window``
-                       in ``codd_tpu``): the port runs kernel 4 with its
+                       (``xla`` or ``xla_sort_window`` in ``codd_tpu``, the
+                       same function): the port runs kernel 4 with its
                        backward (``ops/splat.py:SplatComposite``)
                        whatever the value; the value is validated.  The
                        motion stage's splats reach no loss and run kernel

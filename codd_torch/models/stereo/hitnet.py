@@ -11,7 +11,10 @@ are named after the flax modules so parameters bridge by path.
 initial cost volumes and twelve slant-upsampled planes.  Under autograd,
 ``calc_init_cost`` keeps its (rows, wt, C, D) differences for the
 backward (about 1.5 GB at 384x768, B=4), and kernel 1 runs with its
-backward (f32; ``tile_warp_variant`` ``auto`` or ``exact`` only).
+backward (``tile_warp_variant`` ``auto`` / ``exact``; ``tilewin`` and
+``grouped`` are ``codd_tpu``'s ATen-level functions of their own,
+``ops/tile_warp.py:tile_warp_tilewin`` / ``tile_warp_grouped``, which
+autograd differentiates; ``pallas`` has no VJP in ``codd_tpu`` and raises).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.tile_warp import VARIANT_FORMS, tile_warp_cost
+from ...ops.tile_warp import (VARIANT_FORMS, VARIANTS, tile_warp_cost,
+                              tile_warp_grouped, tile_warp_tilewin)
 from ...ops.upsample import hyp_upsample, pixel_unshuffle
 from ...utils.precision import absolute
 from ..layers import Conv, ConvTranspose, SharedStrideConv, lrelu
@@ -167,15 +171,23 @@ class ResBlock(nn.Module):
 
 class _CVEncoder(nn.Module):
     """unshuffled |fea_l| + tile-warp cost -> 16 ch (the `decrease` layer).
-    ``form`` is kernel 1's bf16 form ("exact" or "pallas")."""
+    ``variant`` is ``runtime.tile_warp_variant``: kernel 1 in the bf16
+    ``form`` it selects ("exact" or "pallas"), or ``codd_tpu``'s
+    ``tilewin`` / ``grouped`` functions (``form`` None)."""
 
-    def __init__(self, form: str = "exact"):
+    def __init__(self, variant: str = "auto"):
         super().__init__()
-        self.form = form
+        self.variant = variant
+        self.form = VARIANT_FORMS.get(variant)
         self.decrease = Conv(64, 16, 1)
 
     def forward(self, hyp3, fea_l, fea_r, fea_mag):
-        cv = tile_warp_cost(hyp3.contiguous(), fea_l, fea_r, self.form)
+        if self.variant == "tilewin":
+            cv = tile_warp_tilewin(hyp3, fea_l, fea_r)
+        elif self.variant == "grouped":
+            cv = tile_warp_grouped(hyp3, fea_l, fea_r)
+        else:
+            cv = tile_warp_cost(hyp3.contiguous(), fea_l, fea_r, self.form)
         return lrelu(self.decrease(torch.cat([fea_mag, cv], -1)))
 
 
@@ -190,9 +202,9 @@ def _relu_d(h):
 class TileUpdate0(nn.Module):
     """Coarsest-level refinement."""
 
-    def __init__(self, form: str = "exact"):
+    def __init__(self, variant: str = "auto"):
         super().__init__()
-        self.cv = _CVEncoder(form)
+        self.cv = _CVEncoder(variant)
         self.conv0 = Conv(32, 32, 1)
         self.resblock0 = ResBlock(32)
         self.resblock1 = ResBlock(32)
@@ -208,9 +220,9 @@ class TileUpdate0(nn.Module):
 class TileUpdate(nn.Module):
     """Two-hypothesis refinement + confidence selection."""
 
-    def __init__(self, form: str = "exact"):
+    def __init__(self, variant: str = "auto"):
         super().__init__()
-        self.cv = _CVEncoder(form)
+        self.cv = _CVEncoder(variant)
         self.conv0 = Conv(64, 32, 1)
         self.resblock0 = ResBlock(32)
         self.resblock1 = ResBlock(32)
@@ -278,11 +290,11 @@ class FinalTileUpdate(nn.Module):
 
 
 class TilePropagation(nn.Module):
-    def __init__(self, form: str = "exact"):
+    def __init__(self, variant: str = "auto"):
         super().__init__()
-        self.tile_update0 = TileUpdate0(form)
+        self.tile_update0 = TileUpdate0(variant)
         for i in range(1, 5):
-            setattr(self, f"tile_update{i}", TileUpdate(form))
+            setattr(self, f"tile_update{i}", TileUpdate(variant))
         self.tile_update4_1 = PostTileUpdate(FEA_CH[2] + 16)
         self.tile_update5 = PostTileUpdate(FEA_CH[3] + 16)
         self.tile_update6 = FinalTileUpdate(FEA_CH[4] + 16)
@@ -322,25 +334,27 @@ class TilePropagation(nn.Module):
 
 class HITNetStereo(nn.Module):
     """Stereo wrapper: the per-frame outputs dict of the eval branch.
-    ``tile_warp_variant`` (``runtime.tile_warp_variant``) selects kernel
-    1's bf16 form (``ops/tile_warp.py:VARIANT_FORMS``)."""
+    ``tile_warp_variant`` (``runtime.tile_warp_variant``) selects the
+    propagation's warp cost: kernel 1 in a bf16 form
+    (``ops/tile_warp.py:VARIANT_FORMS``) or ``codd_tpu``'s ``tilewin`` /
+    ``grouped`` functions."""
 
     def __init__(self, max_disp: int = 320, tile_warp_variant: str = "auto"):
         super().__init__()
-        if tile_warp_variant not in VARIANT_FORMS:
+        if tile_warp_variant not in VARIANTS:
             raise ValueError(f"bad tile_warp_variant {tile_warp_variant!r}; "
-                             f"one of {tuple(VARIANT_FORMS)}")
+                             f"one of {VARIANTS}")
         self.tile_warp_variant = tile_warp_variant
         self.backbone = HITUNet()
         self.tile_init = TileInitialization(max_disp)
-        self.tile_update = TilePropagation(VARIANT_FORMS[tile_warp_variant])
+        self.tile_update = TilePropagation(tile_warp_variant)
 
     def forward(self, left_img, right_img, train: bool = False):
-        if train and self.tile_warp_variant not in ("auto", "exact"):
+        if train and self.tile_warp_variant == "pallas":
             raise NotImplementedError(
-                f"HITNetStereo: tile_warp_variant {self.tile_warp_variant!r}"
-                " in training; codd_tpu differentiates only the exact "
-                "tile_warping ('auto' / 'exact')")
+                "HITNetStereo: tile_warp_variant 'pallas' in training; "
+                "codd_tpu's Pallas tile_warp_cost has no VJP (train with "
+                "'auto', 'exact', 'tilewin' or 'grouped')")
         B = left_img.shape[0]
         fea = self.backbone(torch.cat([left_img, right_img], 0))
         fea_l = [f[:B].contiguous() for f in fea]

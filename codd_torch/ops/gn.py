@@ -59,14 +59,22 @@ With G the sums' cotangent, for a query i and a key j of its window,
     u_ij = s_ij (1 - s_ij) (G_i . v_j + G_j . v_i)
     dae_i = -2 sum_j u_ij (a_i - a_j)
 
-so each output row is one pass over its own window, with no atomics.  A
-gradient-needing ``gn_step`` takes kernel 5 for ``auto``, ``windowed`` and
-``pallas_window`` (``codd_tpu``'s training path: its ``windowed`` or, at
-w/8 <= 96, ``dense`` sums, the same function) and raises for ``fused``
-(kernel 3 returns the solved update and has no backward; ``codd_tpu``'s
-``gn_fused_solve`` has no VJP) and for ``bf16_scores``.  ``grad_clip`` is
-``codd_tpu``'s straight-through clip of RAFT-3D's and the fusion net's
-head cotangents.
+so each output row is one pass over its own window, with no atomics.
+With ``bf16_scores`` the backward is that kernel's second form, a kernel
+of its own (``gn_window_aggregate_backward_bf16``), and computes what
+``jax.vjp`` of ``codd_tpu``'s windowed form with bf16 scores computes
+(``codd_tpu/ops/gn.py:268``): the dot G_i . bf16(v_j) rounded to bf16
+once an ordered pair, times the derivative of the f32 sigmoid; dvals
+from the bf16 scores, summed over each 32-column block of the other end,
+rounded to bf16 a block and the blocks added highest first
+(``gn_window_aggregate_backward_plain``).  A gradient-needing ``gn_step``
+takes kernel 5 for ``auto``, ``windowed`` and ``pallas_window``
+(``codd_tpu``'s training path: its ``windowed`` or, at w/8 <= 96,
+``dense`` sums, the same function), with bf16 scores where ``codd_tpu``
+would score in bf16, and raises for ``fused`` where ``codd_tpu`` runs
+``gn_fused_solve`` (kernel 3 returns the solved update and has no
+backward; ``codd_tpu``'s has no VJP).  ``grad_clip`` is ``codd_tpu``'s
+straight-through clip of RAFT-3D's and the fusion net's head cotangents.
 
 ``impl`` (``codd_tpu``'s ``runtime.gn_impl``) picks the route in
 ``gn_step``, at every shape: ``auto`` and ``fused`` take kernel 3,
@@ -241,37 +249,77 @@ def gn_window_aggregate_plain(ae, vals, radius: int = 32,
     return torch.bmm(scores, v).reshape(B, h, w, 27)
 
 
-def _backward_dense(g, ae, vals, radius):
-    """The dense masked (n, n) factors of the windowed sums' VJP:
-    q (B,n,C), S (B,n,n), G (B,n,27) and U = S (1 - S) (G V^T + V G^T)."""
+def _backward_dense(g, ae, vals, radius, bf16_scores=False):
+    """The dense masked (n, n) factors of the windowed sums' VJP: q (B,n,C),
+    the scores S (B,n,n) that multiply G, G (B,n,27) and U, the logits'
+    cotangent summed over both orders of a pair.  f32 scores: U = S (1 - S)
+    (G V^T + V G^T).  bf16 scores, step by step as ``jax.vjp`` of
+    ``_windowed_aggregate(bf16_scores=True)``: dS_ij = bf16(G_i . bf16(v_j))
+    rounded once an ordered pair, dlogit_ij = dS_ij s_ij (1 - s_ij) with the
+    f32 sigmoid s, U = dlogit + dlogit^T, and S = bf16(s)."""
     B, h, w, _ = ae.shape
     q, logits, inside = _dense_logits(ae, radius)
-    s = torch.sigmoid(logits) * inside[None].to(ae.dtype)
+    mask = inside[None].to(ae.dtype)
+    s = torch.sigmoid(logits)
     G = g.reshape(B, h * w, 27)
-    P = torch.bmm(G, vals.reshape(B, h * w, 27).transpose(1, 2))
-    return q, s, G, s * (1.0 - s) * (P + P.transpose(1, 2))
+    V = vals.reshape(B, h * w, 27)
+    if not bf16_scores:
+        s = s * mask
+        P = torch.bmm(G, V.transpose(1, 2))
+        return q, s, G, s * (1.0 - s) * (P + P.transpose(1, 2))
+    bf = torch.bfloat16
+    dS = torch.bmm(G, V.to(bf).float().transpose(1, 2)).to(bf).float()
+    dlogit = (dS * mask) * (s * (1.0 - s))
+    return q, s.to(bf).float() * mask, G, dlogit + dlogit.transpose(1, 2)
 
 
-def gn_window_aggregate_backward_plain(g, ae, vals, radius: int = 32):
+def _block_dvals(s, G, w):
+    """dvals under bf16 scores: for each 32-column block k of queries, its
+    sums t_k = S^T G over the block's queries, rounded to bf16, added in f32
+    highest block first, ((0 + t_{nb-1}) + ...) + t_0: ``jax.vjp`` of
+    ``_windowed_aggregate``'s pads and adds of the blocks' key cotangents
+    (a key meets blocks m - 1, m, m + 1; the others add exact zeros)."""
+    n = G.shape[1]
+    block = (torch.arange(n, device=G.device) % w) // _GN_BLOCK
+    out = torch.zeros_like(G)
+    for k in reversed(range(-(-w // _GN_BLOCK))):
+        t = torch.bmm(s.transpose(1, 2), G * (block == k)[None, :, None])
+        out = out + t.to(torch.bfloat16).float()
+    return out
+
+
+def gn_window_aggregate_backward_plain(g, ae, vals, radius: int = 32,
+                                       bf16_scores: bool = False):
     """The VJP of the windowed sums at (ae, vals) for the cotangent g
     (B,h,w,27) -> (dae (B,h,w,C), dvals (B,h,w,27)), over the dense masked
-    (n, n) scores: dvals = S G, U = S (1 - S) (G V^T + V G^T), dae =
+    (n, n) scores: dvals = S^T G, U as ``_backward_dense`` gives it, dae =
     -2 (rowsum(U) a - U a), which is what autodiff of ``codd_tpu``'s dense
-    form computes."""
-    q, s, G, u = _backward_dense(g, ae, vals, radius)
+    form computes (f32 scores), or of its windowed form with
+    ``bf16_scores`` (then dvals sums bf16-rounded 32-column blocks,
+    ``_block_dvals``; the form exists where w is a multiple of 32 above
+    96)."""
+    q, s, G, u = _backward_dense(g, ae, vals, radius, bf16_scores)
     dae = -2.0 * (u.sum(-1, keepdim=True) * q - torch.bmm(u, q))
-    return dae.reshape(ae.shape), torch.bmm(s, G).reshape(vals.shape)
+    if bf16_scores:
+        dvals = _block_dvals(s, G, ae.shape[2])
+    else:
+        dvals = torch.bmm(s.transpose(1, 2), G)
+    return dae.reshape(ae.shape), dvals.reshape(vals.shape)
 
 
-def gn_window_aggregate_backward_terms(g, ae, vals, radius: int = 32):
+def gn_window_aggregate_backward_terms(g, ae, vals, radius: int = 32,
+                                       bf16_scores: bool = False):
     """Each output's sum of |terms| in the VJP above: sum_j 2 |u_ij|
     (|a_i| + |a_j|) a channel for dae, whose two sums cancel, and
-    sum_j s_ij |G_j| for dvals.  The scale that f32 sums of the same terms
-    in another order are held to."""
-    q, s, G, u = _backward_dense(g, ae, vals, radius)
+    sum_j s_ij |G_j| for dvals (with ``bf16_scores``, U from the rounded
+    dS and the rounded scores).  The scale that f32 sums of the same terms
+    in another order are held to; under bf16 scores a term's rounding to
+    bf16 may flip too, by one bf16 ulp, 2^-7 of it at most."""
+    q, s, G, u = _backward_dense(g, ae, vals, radius, bf16_scores)
     u, qa = u.abs(), q.abs()
     dae = 2.0 * (u.sum(-1, keepdim=True) * qa + torch.bmm(u, qa))
-    return dae.reshape(ae.shape), torch.bmm(s, G.abs()).reshape(vals.shape)
+    return (dae.reshape(ae.shape),
+            torch.bmm(s.transpose(1, 2), G.abs()).reshape(vals.shape))
 
 
 def gn_fused_solve_plain(ae, vals, radius: int = 32, lm: float = 1e-4,
@@ -335,56 +383,56 @@ def _launch_window(ae, vals, radius, bf16_scores):
     return out
 
 
-def gn_window_aggregate_backward(g, ae, vals, radius: int = 32):
-    """Kernel 5's backward for CUDA tensors, the plain version for CPU
-    tensors -> (dae, dvals), f32."""
+def gn_window_aggregate_backward(g, ae, vals, radius: int = 32,
+                                 bf16_scores: bool = False):
+    """Kernel 5's backward for CUDA tensors (its bf16-score form, a kernel
+    of its own, with ``bf16_scores``; R = 32 there), the plain version for
+    CPU tensors -> (dae, dvals), f32."""
     if not ae.is_cuda:
-        return gn_window_aggregate_backward_plain(g, ae, vals, radius)
-    B, h, w = _check_gn("gn_window_aggregate_backward", ae, vals)
-    kernels.check_cuda("gn_window_aggregate_backward", g,
-                       dtypes=(torch.float32,))
+        return gn_window_aggregate_backward_plain(g, ae, vals, radius,
+                                                  bf16_scores)
+    name = "gn_window_aggregate_backward" + ("_bf16" if bf16_scores else "")
+    B, h, w = _check_gn(name, ae, vals)
+    kernels.check_cuda(name, g, dtypes=(torch.float32,))
     if tuple(g.shape) != (B, h, w, 27):
-        raise ValueError(f"gn_window_aggregate_backward: g {tuple(g.shape)}"
-                         f" (needs {(B, h, w, 27)})")
+        raise ValueError(f"{name}: g {tuple(g.shape)} (needs {(B, h, w, 27)})")
+    if bf16_scores and radius != _GN_BLOCK:
+        raise ValueError(f"{name}: radius {radius}; the bf16-score form is "
+                         f"codd_tpu's windowed one, radius {_GN_BLOCK}")
     dae = torch.empty_like(ae)
     dvals = torch.empty_like(vals)
-    kernels.launch("gn_window_aggregate_backward", ae.data_ptr(),
-                   vals.data_ptr(), g.data_ptr(), dae.data_ptr(),
-                   dvals.data_ptr(), B, h, w, radius,
+    kernels.launch(name, ae.data_ptr(), vals.data_ptr(), g.data_ptr(),
+                   dae.data_ptr(), dvals.data_ptr(), B, h, w, radius,
                    kernels.stream_ptr(ae.device))
     return dae, dvals
 
 
 class GNWindowAggregate(torch.autograd.Function):
-    """The windowed sums (f32 scores) with kernel 5's backward."""
+    """The windowed sums with kernel 5's backward, f32 or bf16 scores (the
+    forward in the same form, also where ``torch.utils.checkpoint``
+    recomputes it)."""
 
     @staticmethod
-    def forward(ctx, ae, vals, radius):
-        ctx.radius = radius
+    def forward(ctx, ae, vals, radius, bf16_scores=False):
+        ctx.radius, ctx.bf16 = radius, bool(bf16_scores)
         ctx.save_for_backward(ae, vals)
         if not ae.is_cuda:
-            return gn_window_aggregate_plain(ae, vals, radius)
-        return _launch_window(ae, vals, radius, False)
+            return gn_window_aggregate_plain(ae, vals, radius, ctx.bf16)
+        return _launch_window(ae, vals, radius, ctx.bf16)
 
     @staticmethod
     def backward(ctx, g):
-        dae, dvals = gn_window_aggregate_backward(g.contiguous(),
-                                                  *ctx.saved_tensors,
-                                                  ctx.radius)
-        return dae, dvals, None
+        dae, dvals = gn_window_aggregate_backward(
+            g.contiguous(), *ctx.saved_tensors, ctx.radius, ctx.bf16)
+        return dae, dvals, None, None
 
 
 def gn_window_aggregate(ae, vals, radius: int = 32,
                         bf16_scores: bool = False):
     """Kernel 5 for CUDA tensors, the plain version for CPU tensors; through
-    ``GNWindowAggregate`` when autograd needs its gradient (f32 scores
-    only)."""
+    ``GNWindowAggregate`` when autograd needs its gradient."""
     if _needs_grad(ae, vals):
-        if bf16_scores:
-            raise NotImplementedError(
-                "gn_window_aggregate: bf16_scores has no backward (codd_tpu "
-                "trains with f32 scores); set gn_bf16_scores=False")
-        return GNWindowAggregate.apply(ae, vals, radius)
+        return GNWindowAggregate.apply(ae, vals, radius, bool(bf16_scores))
     if not ae.is_cuda:
         return gn_window_aggregate_plain(ae, vals, radius, bf16_scores)
     return _launch_window(ae, vals, radius, bf16_scores)
@@ -415,21 +463,21 @@ def _route(impl: str, radius: int, w: int, bf16_scores: bool = False,
     kernel 3, ``window`` kernel 5, ``dense`` the (n, n) form), at every
     shape, and whether the scores are rounded to bf16: only where
     ``codd_tpu`` would not run its dense form.  With ``grad`` (autograd
-    needs the sums' gradient) ``auto`` is ``window`` and what has no
-    backward raises where ``codd_tpu`` would run it: kernel 3, and bf16
-    scores.  Where ``codd_tpu`` runs its dense form instead, it trains
-    that with f32 scores, and the port trains ``fused`` as ``auto``."""
+    needs the sums' gradient) ``auto`` is ``window`` (bf16 scores too:
+    kernel 5's backward has their form) and kernel 3, which has no
+    backward, raises where ``codd_tpu`` would run it.  Where ``codd_tpu``
+    runs its dense form instead, it trains that with f32 scores, and the
+    port trains ``fused`` as ``auto``."""
     if impl not in GN_IMPLS:
         raise ValueError(f"bad GN impl {impl!r}; one of {GN_IMPLS}")
     resolved = resolve_impl(impl, radius, w)
     bf16 = bool(bf16_scores) and resolved != "dense"
-    if grad and (resolved == "fused" or bf16):
+    if grad and resolved == "fused":
         raise NotImplementedError(
-            f"gn_step: gn_impl={impl!r}, gn_bf16_scores={bool(bf16_scores)} "
-            f"at a width of {w} has no backward (kernel 3 returns the solved "
-            "update; codd_tpu has no VJP of gn_fused_solve, and trains bf16 "
-            "scores only on its windowed form); train with gn_impl auto, "
-            "windowed or pallas_window and f32 scores")
+            f"gn_step: gn_impl={impl!r} at a width of {w} has no backward "
+            "(kernel 3 returns the solved update; codd_tpu has no VJP of "
+            "gn_fused_solve); train with gn_impl auto, windowed or "
+            "pallas_window")
     route = _ROUTES[impl]
     if grad and route == "fused":
         route = "window"

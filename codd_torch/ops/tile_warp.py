@@ -22,9 +22,8 @@ contraction moves ``floor()`` off the plain version.
 
 Under bf16 features the function has two forms, as in ``codd_tpu``:
 
-* ``"exact"`` (``tile_warp_variant`` ``auto`` / ``exact``, and the
-  approximations ``tilewin`` / ``grouped``, which the port does not
-  reproduce): ``tile_warping`` run in bf16.  Every elementwise step
+* ``"exact"`` (``tile_warp_variant`` ``auto`` / ``exact``):
+  ``tile_warping`` run in bf16.  Every elementwise step
   rounds to bf16: the plane offsets are ``jnp.linspace``'s bf16 values
   (-0.49609375 for -0.5), the x grid is a bf16 ``arange`` (above x = 512
   the columns round to multiples of 4, above 1024 to multiples of 8), the
@@ -41,6 +40,17 @@ Under bf16 features the function has two forms, as in ``codd_tpu``:
 
 Both read and write bf16 (half the bytes of the f32 form); the kernel is
 one body templated on the form.
+
+``tile_warp_variant`` ``tilewin`` and ``grouped`` are other functions in
+``codd_tpu``: ``tile_warping_tilewin`` and ``tile_warping_grouped``
+(``codd_tpu/models/stereo/hitnet.py:316`` and ``:413``), XLA code outside
+any Pallas kernel, which gather a fixed column window a tile (a row of a
+tile) and read zero for a tap outside it.  They equal ``tile_warping``
+for small slants only, and ``tilewin`` computes its lerps and costs in
+f32 whatever the features' dtype, with one rounding at the end.  The
+port runs them as the ATen ops of ``tile_warp_tilewin`` and
+``tile_warp_grouped`` below, on whichever device, with autograd's
+backward, in f32 and bf16 alike.
 
 Training: under grad mode, with an input that requires grad,
 ``tile_warp_cost`` goes through ``TileWarpCost``, a
@@ -90,13 +100,16 @@ __all__ = ["tile_warp_cost", "tile_warp_cost_plain", "TileWarpCost",
            "tile_warp_cost_backward", "tile_warp_cost_backward_plain",
            "tile_warp_cost_backward_terms",
            "backward_channel_group", "BWD_ROW_BYTES", "FORMS",
-           "VARIANT_FORMS"]
+           "VARIANT_FORMS", "VARIANTS", "tile_warp_tilewin",
+           "tile_warp_grouped", "TILE_WIN"]
 
 # the launcher's form codes: f32, and the two bf16 forms
 FORMS = {"f32": 0, "exact": 1, "pallas": 2}
-# runtime.tile_warp_variant -> the bf16 form it selects
-VARIANT_FORMS = {"auto": "exact", "exact": "exact", "tilewin": "exact",
-                 "grouped": "exact", "pallas": "pallas"}
+# runtime.tile_warp_variant -> kernel 1's bf16 form it selects; the other
+# variants are functions of their own (tile_warp_tilewin, _grouped)
+VARIANT_FORMS = {"auto": "exact", "exact": "exact", "pallas": "pallas"}
+VARIANTS = ("auto", "exact", "tilewin", "grouped", "pallas")
+TILE_WIN = 24  # tile_warp_tilewin's window: codd_tpu's _TILE_WIN
 
 
 # the shared memory (bytes) the backward's row block may give the packed
@@ -420,3 +433,109 @@ def tile_warp_cost(hyp3, fea_l, fea_r, form: str = "exact"):
     if not fea_r.is_cuda:
         return tile_warp_cost_plain(hyp3, fea_l, fea_r, form)
     return _launch_forward(hyp3, fea_l, fea_r, form)
+
+
+def _window_taps(win, taps, width):
+    """win (..., width, C) and tap columns taps (..., m) of that window ->
+    (..., m, C): the taps' values, zero for a tap outside [0, width)."""
+    inside = (taps >= 0) & (taps < width)
+    idx = torch.where(inside, taps, torch.zeros_like(taps))
+    got = torch.gather(win, -2, idx[..., None].expand(
+        *idx.shape, win.shape[-1]))
+    return got * inside[..., None].to(win.dtype)
+
+
+def tile_warp_tilewin(hyp3, fea_l, fea_r, contraction: str = "reduce",
+                      tw: int = TILE_WIN):
+    """``codd_tpu``'s ``tile_warping_tilewin``: one (4, tw, C) window of
+    the zero-padded right features a tile, starting tw/2 columns left of
+    the tile centre's position (clipped into the padded row); each pixel's
+    lerp reads its two taps from the window, zero outside it, in f32; the
+    L1 costs sum in f32 and round once to the features' dtype.  The plane,
+    sample positions, floor and window start follow the inputs' dtype,
+    step by step.  ``contraction`` ("reduce" or "mac") is how the TPU
+    sums the window's one-hot weights; the two taps' products and their
+    one add are the same either way.  -> (B, ht, wt, 48)."""
+    if contraction not in ("reduce", "mac"):
+        raise ValueError(f"bad tilewin contraction {contraction}")
+    B, H, W, C = fea_r.shape
+    ht, wt = H // 4, W // 4
+    d = hyp3[..., 0]
+    local_d = to_plane(d, hyp3[..., 1], hyp3[..., 2], size=4)
+    x, _ = meshgrid_xy(H, W, fea_r.dtype, fea_r.device)
+    p = x[None] - local_d
+    x0 = torch.floor(p)
+    f = (p - x0).to(fea_r.dtype)
+    P = tw  # zero pad: clamped windows and out-of-image taps read zeros
+    frp = F.pad(fea_r, (0, 0, P, P))
+    xc = 4.0 * torch.arange(wt, dtype=p.dtype, device=p.device) + 1.5
+    s = (torch.floor(xc[None, None, :] - d).to(torch.int32) - tw // 2 + P
+         ).clamp(0, W + 2 * P - tw).long()                 # (B, ht, wt)
+    idx = s[..., None] + torch.arange(tw, device=s.device)  # (B, ht, wt, tw)
+    win = torch.gather(
+        frp.reshape(B, ht, 4, W + 2 * P, C), 3,
+        idx.reshape(B, ht, 1, wt * tw, 1).expand(-1, -1, 4, -1, C))
+    win = win.reshape(B, ht, 4, wt, tw, C).permute(0, 1, 3, 2, 4, 5)
+
+    def t4(a):  # (B, H, W) -> (B, ht, wt, i, j)
+        return a.reshape(B, ht, 4, wt, 4).permute(0, 1, 3, 2, 4)
+
+    rel0 = t4(x0.to(torch.int32) + P) - s[..., None, None].to(torch.int32)
+    ks = torch.tensor([-1, 0, 1], dtype=torch.int32, device=s.device)
+    tap0 = rel0[:, :, :, :, None, :] - ks[:, None]       # (B,ht,wt,i,k,j)
+    taps = torch.stack([tap0, tap0 + 1], -1).reshape(B, ht, wt, 4, 24)
+    cols = _window_taps(win.float(), taps.long(), tw).reshape(
+        B, ht, wt, 4, 3, 4, 2, C)
+    fb = t4(f).float()[:, :, :, :, None, :, None]         # (B,ht,wt,i,1,j,1)
+    warped = cols[..., 0, :] * (1.0 - fb) + cols[..., 1, :] * fb
+    fl_t = fea_l.reshape(B, ht, 4, wt, 4, C).permute(0, 1, 3, 2, 4, 5)
+    cost = torch.abs(fl_t[:, :, :, :, None].float() - warped).sum(-1)
+    # channel k*16 + i*4 + j
+    cost = cost.permute(0, 1, 2, 4, 3, 5).reshape(B, ht, wt, 48)
+    return cost.to(fea_l.dtype)
+
+
+def tile_warp_grouped(hyp3, fea_l, fea_r, bw: int = 12):
+    """``codd_tpu``'s ``tile_warping_grouped``: one (1, bw, C) band of the
+    zero-padded right features for the four pixels of a tile row,
+    starting one column left of the row's leftmost k = 0 sample (clipped
+    into the padded row); each pixel's taps are read from the band, zero
+    outside it or outside the image, and everything runs in the features'
+    dtype as ``tile_warping`` does.  -> (B, ht, wt, 48)."""
+    B, H, W, C = fea_r.shape
+    if W % 4:
+        raise ValueError(f"tile_warp_grouped: width {W} is not a multiple "
+                         "of 4")
+    wt = W // 4
+    local_d = to_plane(hyp3[..., 0], hyp3[..., 1], hyp3[..., 2], size=4)
+    x, _ = meshgrid_xy(H, W, fea_r.dtype, fea_r.device)
+    p = x[None] - local_d
+    x0 = torch.floor(p)
+    f = (p - x0).to(fea_r.dtype).reshape(B, H, wt, 4, 1)
+    P = bw  # zero pad: clamped bands and out-of-image taps read zeros
+    frp = F.pad(fea_r, (0, 0, P, P))
+    pg = p.reshape(B, H, wt, 4)
+    pmin = torch.minimum(pg[..., 0], pg[..., 3])
+    s = (torch.floor(pmin).to(torch.int32) - 1 + P).clamp(
+        0, W + 2 * P - bw).long()                          # (B, H, wt)
+    idx = s[..., None] + torch.arange(bw, device=s.device)
+    band = torch.gather(frp, 2, idx.reshape(B, H, wt * bw, 1).expand(
+        -1, -1, -1, C)).reshape(B, H, wt, bw, C)
+    x0i = x0.to(torch.int32)
+    rel = (x0i + P - 1).reshape(B, H, wt, 4) - s.to(torch.int32)[..., None]
+    dt = fea_r.dtype
+    cvs = []
+    # k in (-1, 0, +1) lerps taps (j, j + 1) for j in (2, 1, 0)
+    for j in (2, 1, 0):
+        okj = ((x0i - 1 + j >= 0) & (x0i - 1 + j <= W - 1)).to(dt).reshape(
+            B, H, wt, 4, 1)
+        okj1 = ((x0i + j >= 0) & (x0i + j <= W - 1)).to(dt).reshape(
+            B, H, wt, 4, 1)
+        taps = torch.stack([rel + j, rel + j + 1], -1).reshape(B, H, wt, 8)
+        cols = _window_taps(band, taps.long(), bw).reshape(B, H, wt, 4, 2, C)
+        warped = (cols[..., 0, :] * ((1 - f) * okj)
+                  + cols[..., 1, :] * (f * okj1))
+        cv = torch.abs(fea_l - warped.reshape(B, H, W, C)).float().sum(
+            -1, keepdim=True)
+        cvs.append(pixel_unshuffle(cv.to(dt), 4))
+    return torch.cat(cvs, -1)

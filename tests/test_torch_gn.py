@@ -396,6 +396,100 @@ def test_backward_single_tf32_products_break_the_sums(kind, single):
     assert _backward_ratio(kind, 0.125, single) > 3.0
 
 
+def _backward_split_bf16(g, ae, vals, radius, single=False):
+    """The bf16-score backward as kernel 5's bf16 form computes it: the
+    logits' S = A A^T and U A in 3xTF32; vb = bf16(v) and sb = bf16(s) are
+    exact in TF32, so G_i.vb_j and sb G take two products, G's lo and hi
+    (``single``: G's hi alone, the guard); dS = bf16(G_i.vb_j) an ordered
+    pair, U = d (dS + dS^T) with d = s (1 - s) of the f32 sigmoid; dvals
+    per 32-column block of the other end, rounded to bf16, added highest
+    block first."""
+    B, h, w, C = ae.shape
+    n = h * w
+    q = ae.reshape(B, n, C)
+    sq = torch.sum(q * q, -1)
+    logits = (2.0 * _mm_split(q, q.transpose(1, 2).contiguous(), 3)
+              - sq[:, :, None] - sq[:, None, :])
+    ys, xs = torch.arange(n) // w, torch.arange(n) % w
+    inside = (((ys[:, None] - ys[None, :]).abs() <= radius)
+              & ((xs[:, None] - xs[None, :]).abs() <= radius))[None].float()
+    s = torch.sigmoid(logits)
+    G, V = g.reshape(B, n, 27), vals.reshape(B, n, 27)
+    gh, gl = _split(G)
+    vb = V.bfloat16().float()
+
+    def two(a, b_hi, b_lo):  # a b with b split, the small term first
+        return torch.bmm(a, b_hi) if single else \
+            torch.bmm(a, b_lo) + torch.bmm(a, b_hi)
+
+    dS = two(vb, gh.transpose(1, 2).contiguous(),
+             gl.transpose(1, 2).contiguous()).transpose(1, 2)
+    dS = dS.bfloat16().float() * inside
+    d = s * (1.0 - s)
+    u = dS * d + dS.transpose(1, 2) * d
+    dae = -2.0 * (u.sum(-1, keepdim=True) * q - _mm_split(u, q, 3))
+    sb = s.bfloat16().float() * inside
+    block = xs // 32
+    dvals = torch.zeros_like(G)
+    for k in reversed(range(-(-w // 32))):
+        m = (block == k)[None, :, None].float()
+        dvals = dvals + two(sb, gh * m, gl * m).bfloat16().float()
+    return dae.reshape(ae.shape), dvals.reshape(vals.shape)
+
+
+def _bf16_backward_case(kind, scale):
+    rng = np.random.RandomState(13)
+    ae = _embeddings(kind, scale, 8, 128, rng)
+    vals = T(rng.randn(1, 8, 128, 27) * np.logspace(-2, 3, 27))
+    g = T(rng.randn(1, 8, 128, 27))
+    noise = 8 * 2.0 ** -24 * 2 * float((ae * ae).sum(-1).max())
+    return g, ae, vals, noise
+
+
+def _bf16_backward_shares(kind, scale, single=False):
+    """(share of elements beyond the f32 bound, worst |err| over the sum
+    of |terms|) of the emulation against the plain bf16 backward."""
+    g, ae, vals, noise = _bf16_backward_case(kind, scale)
+    got = _backward_split_bf16(g, ae, vals, 32, single)
+    ref = tgn.gn_window_aggregate_backward_plain(g, ae, vals, 32, True)
+    terms = tgn.gn_window_aggregate_backward_terms(g, ae, vals, 32, True)
+    beyond, n, worst = 0, 0, 0.0
+    for a, b, t in zip(got, ref, terms):
+        err = torch.abs(a - b)
+        beyond += int((err > (1e-5 + noise) * t + 1e-7).sum())
+        n += err.numel()
+        worst = max(worst, float((err / (t + 1e-30)).max()))
+    return beyond / n, worst
+
+
+@pytest.mark.parametrize("scale", [0.125, 1.0])
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_backward_bf16_two_products_keep_the_sums(kind, scale):
+    """Kernel 5's bf16-score backward on the tensor cores, emulated
+    (``_backward_split_bf16``) at 8x128: every element within a bf16 ulp,
+    2^-7, of its sum of |terms| of the plain bf16 backward (measured 6.5e-4
+    at most), and at most 1e-2 of them beyond the f32 form's bound
+    (measured 0 to 6.9e-3: the value field's five decades make the dots'
+    f32 sums in another order cross a bf16 rounding boundary more often
+    than the model's field does, 5.8e-4 on the card): two products for
+    G_i.vb_j and sb G (the exact bf16 operand takes no lo part) leave only
+    the roundings the f32 sums in another order bring."""
+    share, worst = _bf16_backward_shares(kind, scale)
+    assert share <= 1e-2 and worst <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_backward_bf16_one_product_breaks_the_sums(kind):
+    """The guard: G's hi part alone (one TF32 product, 2^-11 of each
+    term) moves the dots far enough that many more of their bf16
+    roundings flip at the model's embedding scale, 1/8: over ten times
+    the share beyond the f32 bound (measured 0.52 and 0.35 against
+    1.2e-3 and 4.3e-4)."""
+    split, _ = _bf16_backward_shares(kind, 0.125)
+    single, _ = _bf16_backward_shares(kind, 0.125, single=True)
+    assert single > 10 * max(split, 1e-4)
+
+
 @pytest.mark.parametrize("h,w,radius,B", [(5, 19, 3, 2), (9, 40, 32, 1),
                                           (12, 72, 32, 1)])
 def test_window_aggregate_plain_matches_dense_at_odd_shapes(h, w, radius, B):

@@ -530,6 +530,7 @@ def test_streaming_goes_through_the_kernels(dev):
                                 "corr_patch_lookup": 0,
                                 "tile_warp_cost_backward": 0,
                                 "gn_window_aggregate_backward": 0,
+                                "gn_window_aggregate_backward_bf16": 0,
                                 "corr_patch_lookup_backward": 0,
                                 "splat_composite_backward": 0,
                                 "corr_patch_lookup_coords_backward": 0}
@@ -559,6 +560,7 @@ def test_bf16_streaming_goes_through_the_kernels(dev):
                                 "corr_patch_lookup": 0,
                                 "tile_warp_cost_backward": 0,
                                 "gn_window_aggregate_backward": 0,
+                                "gn_window_aggregate_backward_bf16": 0,
                                 "corr_patch_lookup_backward": 0,
                                 "splat_composite_backward": 0,
                                 "corr_patch_lookup_coords_backward": 0}
@@ -604,6 +606,7 @@ def test_eval_path_goes_through_kernels_5_and_6(dev):
                                 "corr_patch_lookup": 4,
                                 "tile_warp_cost_backward": 0,
                                 "gn_window_aggregate_backward": 0,
+                                "gn_window_aggregate_backward_bf16": 0,
                                 "corr_patch_lookup_backward": 0,
                                 "splat_composite_backward": 0,
                                 "corr_patch_lookup_coords_backward": 0}
@@ -939,10 +942,67 @@ def test_backward_kernels_under_autograd(dev):
         torch.ones_like(out), pyr["f1"], pyr["levels"], coords, 3))
 
 
+@pytest.mark.parametrize("h,w,B", [(12, 128, 1), (13, 160, 2), (48, 128, 4)])
+def test_gn_window_backward_bf16_kernel(dev, h, w, B):
+    """Kernel 5's backward in its bf16-score form (R = 32) against its
+    plain backward, at 1/8-res widths where codd_tpu scores in bf16 (128,
+    160; an odd h) and the motion stage's B = 4 at 48x128: each element
+    within one bf16 ulp (2^-7) of its sum of |terms| beyond the f32
+    form's bound (each ordered pair's dS and each block sum of dvals, an
+    f32 sum in another order, may round to the other bf16 value), at most
+    1e-2 of the elements beyond that bound (2.0e-3 measured at 12x128,
+    whose 12-row windows give an element fewer terms to hide a flip among;
+    under 1e-3 at the other shapes), two launches equal in bits; a radius
+    other than 32 raises."""
+    ae, vals = _gn_inputs(dev, h, w, B)
+    g = torch.randn(B, h, w, 27, generator=_g()).to(dev)
+    got = _launched("gn_window_aggregate_backward_bf16",
+                    lambda: gn.gn_window_aggregate_backward(
+                        g, ae, vals, bf16_scores=True))
+    ref = gn.gn_window_aggregate_backward_plain(g, ae, vals,
+                                                bf16_scores=True)
+    again = gn.gn_window_aggregate_backward(g, ae, vals, bf16_scores=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    share = 1e-5 + 8 * 2.0 ** -24 * 2 * float((ae * ae).sum(-1).max())
+    beyond, n = 0, 0
+    for a, b, t in zip(got, ref, gn.gn_window_aggregate_backward_terms(
+            g, ae, vals, bf16_scores=True)):
+        err = (a - b).abs()
+        assert (err <= (2.0 ** -7 + share) * t + 1e-7).all()
+        beyond += int((err > share * t + 1e-7).sum())
+        n += err.numel()
+    assert beyond <= 1e-2 * n
+    with pytest.raises(ValueError):
+        gn.gn_window_aggregate_backward(g, ae, vals, 16, bf16_scores=True)
+
+
+def test_gn_window_aggregate_bf16_trains(dev):
+    """Under autograd with bf16 scores, ``gn_window_aggregate`` launches
+    kernel 5's bf16 forward once and its bf16-score backward once, and
+    the gradients are the backward's."""
+    ae, vals = _gn_inputs(dev, 12, 128)
+    g = torch.randn(1, 12, 128, 27, generator=_g()).to(dev)
+    ta, tv = ae.clone().requires_grad_(), vals.clone().requires_grad_()
+    before = kernels.counts()
+    out = gn.gn_window_aggregate(ta, tv, bf16_scores=True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["gn_window_aggregate"] == before["gn_window_aggregate"] + 1
+    assert after["gn_window_aggregate_backward_bf16"] == \
+        before["gn_window_aggregate_backward_bf16"] + 1
+    assert after["gn_window_aggregate_backward"] == \
+        before["gn_window_aggregate_backward"]
+    with torch.no_grad():
+        assert torch.equal(out, gn.gn_window_aggregate(ae, vals,
+                                                       bf16_scores=True))
+    da, dv = gn.gn_window_aggregate_backward(g, ae, vals, bf16_scores=True)
+    assert torch.equal(ta.grad, da) and torch.equal(tv.grad, dv)
+
+
 def test_forward_only_kernels_raise_under_autograd(dev):
     """Kernel 2 has no backward for the ``volume_pallas`` select (its
-    other selects train through kernel 2b), kernel 3 none, kernel 5 none
-    for bf16 scores,
+    other selects train through kernel 2b), kernel 3 none,
     and kernel 4 called directly (``composite``, not ``splat_render``'s
     ``SplatComposite``) none: asked for such a gradient, each wrapper
     raises instead of returning a tensor cut from the graph; under
@@ -963,8 +1023,6 @@ def test_forward_only_kernels_raise_under_autograd(dev):
             select="pallas"),
         "gn_fused_solve": lambda grad: gn.gn_fused_solve(
             need(ae) if grad else ae, vals),
-        "gn_window_aggregate": lambda grad: gn.gn_window_aggregate(
-            ae, need(vals) if grad else vals, bf16_scores=True),
         "splat_composite": lambda grad: splat.composite(
             order, offsets, alpha, Z.contiguous(),
             need(feat) if grad else feat),
@@ -1057,6 +1115,7 @@ def test_training_step_on_the_card(dev, stage):
                           "splat_composite": 2, "gn_window_aggregate": 4,
                           "corr_patch_lookup": 4,
                           "gn_window_aggregate_backward": 2,
+                          "gn_window_aggregate_backward_bf16": 0,
                           "corr_patch_lookup_backward": 2,
                           "splat_composite_backward":
                               0 if stage == "motion" else 2,
@@ -1172,5 +1231,6 @@ def test_train_estimator_step_on_the_card(dev, tmp_path):
         "corr_lookup": 0, "corr_lookup_backward": 0, "gn_fused_solve": 0,
         "splat_composite": 2, "gn_window_aggregate": 4, "corr_patch_lookup": 4,
         "gn_window_aggregate_backward": 2, "corr_patch_lookup_backward": 2,
+        "gn_window_aggregate_backward_bf16": 0,
         "splat_composite_backward": 2, "corr_patch_lookup_coords_backward": 2}
     assert (tmp_path / "work" / "ckpt_1" / "state.pt").exists()

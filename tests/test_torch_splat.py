@@ -142,6 +142,39 @@ def test_clustered_scene_long_runs_wide_features():
     np.testing.assert_allclose(tz[0].numpy(), bz, atol=1e-6)
 
 
+@pytest.mark.parametrize("impl", ["xla_window", "xla_sort_window"])
+@pytest.mark.parametrize("case", [(10, 12, 6, 400, 1.0),    # full res: C=6
+                                  (12, 16, 32, 300, 2.0),   # quarter res
+                                  "clustered"])
+def test_splat_windows_are_the_same_function(case, impl):
+    """codd_tpu's windowed splats (``splat_impl`` / ``splat_impl_lr``
+    "xla_window", ``splat_impl_train`` "xla_sort_window") against the
+    port's ``splat_render``, which runs kernel 4 whatever the value, at
+    sizes where many pixels hold more fragments than ``points_per_pixel``
+    (up to 22; the clustered scene thousands): the splat tests' stated
+    tolerances, 2e-4 for features and 1e-3 for depth (measured 1.3e-6 and
+    0: no global cumsum there).  The window is exact, not an
+    approximation: a fragment past the cap saturates the window, and the
+    cap zeroes it anyway."""
+    if case == "clustered":
+        H, W, C, N, radius = 10, 12, 40, 2600, 2.0
+        pts, feats, intr = _clustered_scene(H, W, C, N, 2300, seed=3)
+    else:
+        H, W, C, N, radius = case
+        pts, feats, intr = _scene(H, W, C, N, seed=C, radius=radius)
+    args = (torch.from_numpy(pts), torch.from_numpy(feats),
+            torch.from_numpy(intr))
+    _, offsets, _, _ = tsplat.sort_fragments(args[0][0], args[2][0], H, W,
+                                             radius)
+    runs = offsets[1:] - offsets[:-1]
+    assert int((runs > 8).sum()) >= 30
+    to, tz = tsplat.splat_render(*args, H, W, radius)
+    jo, jz = jsplat(*(jnp.asarray(a) for a in (pts, feats, intr)), H=H, W=W,
+                    radius_px=radius, impl=impl)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-4)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-3)
+
+
 def test_ties_break_on_fragment_index():
     """Equal packed keys keep fragment-index order (stable sort): of two
     points at the same depth on one pixel, the lower point id is in front."""

@@ -694,9 +694,11 @@ def test_non_finite_gradients_are_zeroed(stereo_stage):
 # ---------------------------------------------------------------------------
 
 def test_unported_training_raises():
-    """The "pallas" tile-warp variant has no VJP (codd_tpu differentiates
-    only tile_warping): training raises in f32 and in bf16 compute; bf16
-    compute itself trains (tests/test_torch_train_bf16.py)."""
+    """The "pallas" tile-warp variant has no VJP (codd_tpu's Pallas
+    tile_warp_cost has none; tilewin and grouped train,
+    tests/test_torch_tile_warp_variants.py): training raises in f32 and in
+    bf16 compute; bf16 compute itself trains
+    (tests/test_torch_train_bf16.py)."""
     batch = {k: _t(v[:1]) for k, v in _batch().items()}
     args = (batch["l_img"], batch["r_img"], batch["intrinsics"])
     pallas = _cfg("stereo.py", "model.runtime.tile_warp_variant=pallas")

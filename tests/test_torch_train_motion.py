@@ -16,11 +16,15 @@ weights and batches.
   ``jax.value_and_grad``, stereo without gradients; one step of the
   port's ``make_train_step`` against codd_tpu's optimizer on codd_tpu's
   gradients;
-* the raises: ``gn_impl="fused"``, ``corr_impl="volume_pallas"`` (the
-  other volume impls train: ``tests/test_torch_corr_volume_backward.py``)
-  and ``gn_bf16_scores`` where codd_tpu scores in bf16 (its windowed form;
-  at the other widths they train as f32 scores, as in codd_tpu) (joint
-  training, with the coordinates' gradient, is
+* kernel 5's plain backward under bf16 scores against ``jax.vjp`` of
+  ``_windowed_aggregate(bf16_scores=True)`` (w = 128 and 160) and the
+  gradients of ``gn_step`` through it against ``jax.grad`` of codd_tpu's
+  (the motion stage's step with ``gn_bf16_scores`` is
+  ``tests/test_torch_train_motion_bf16.py``'s);
+* the raises: ``gn_impl="fused"`` where codd_tpu runs ``gn_fused_solve``
+  (f32 or bf16 scores) and ``corr_impl="volume_pallas"`` (the other
+  volume impls train: ``tests/test_torch_corr_volume_backward.py``)
+  (joint training, with the coordinates' gradient, is
   ``tests/test_torch_train_joint.py``'s).
 
 One JAX compile of the stage (``value_and_grad``, ~65 s on an 8-core
@@ -728,20 +732,19 @@ def test_motion_train_step_matches(motion_stage):
 # what the motion stage does not train
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["fused", "volume", "bf16_scores"])
+@pytest.mark.parametrize("case", ["fused", "volume"])
 def test_motion_training_raises(case):
-    """bf16 scores and the fused GN solve raise only where codd_tpu would
-    run them, on its windowed form: at a 1/8-res width of 128 (a 64x1024
-    frame); at the other widths both train as auto trains, with f32 scores
-    (the tests below).  ``volume_pallas`` raises at every width: codd_tpu
-    cannot differentiate its ``window_select`` either."""
-    width = 1024 if case in ("bf16_scores", "fused") else W
+    """The fused GN solve raises only where codd_tpu would run it, on its
+    windowed form: at a 1/8-res width of 128 (a 64x1024 frame); at the
+    other widths it trains as auto trains (the tests below).
+    ``volume_pallas`` raises at every width: codd_tpu cannot differentiate
+    its ``window_select`` either."""
+    width = 1024 if case == "fused" else W
     rng = np.random.RandomState(0)
     args = (_t(rng.rand(1, T, H, width, 3)), _t(rng.rand(1, T, H, width, 3)),
             _t([[100.0, 100.0, width / 2, H / 2]]))
     opts = {"fused": ["model.runtime.gn_impl=fused"],
-            "volume": ["model.runtime.corr_impl=volume_pallas"],
-            "bf16_scores": ["model.runtime.gn_bf16_scores=True"]}
+            "volume": ["model.runtime.corr_impl=volume_pallas"]}
     model = build_estimator(_cfg("stereo_motion.py", "model.motion.iters=1",
                                  *opts[case]), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -789,13 +792,104 @@ def test_gn_fused_trains_as_auto_where_dense():
         assert torch.equal(a, b)
 
 
-def test_gn_bf16_scores_raise_where_windowed():
-    """A 1/8-res width of 128: codd_tpu scores in bf16 on its windowed form,
-    which has no VJP; the port raises under autograd and runs without it."""
+def _terms_bound(got, ref, terms, ae, rounding):
+    """The share of elements beyond kernel 5's f32 bound (1e-5 of the sum
+    of |terms| plus 8 ulp of the logit's 2 max|a|^2, chip_smoke.py's
+    ``gn_backward_compare``), and whether every element lies within
+    ``rounding`` of its sum of |terms| beyond it."""
+    share = 1e-5 + 8 * 2.0 ** -24 * 2 * float((ae * ae).sum(-1).max())
+    beyond, n, within = 0, 0, True
+    for a, b, t in zip(got, ref, terms):
+        err = np.abs(np.asarray(a) - np.asarray(b))
+        t = np.asarray(t)
+        beyond += int((err > share * t + 1e-7).sum())
+        n += err.size
+        within &= bool((err <= (rounding + share) * t + 1e-7).all())
+    return beyond / n, within
+
+
+@pytest.mark.parametrize("w", [128, 160])
+def test_gn_backward_bf16_matches_windowed_vjp(w):
+    """w = 128 and 160 (4 and 5 column blocks), where codd_tpu scores in
+    bf16 on its windowed form: the plain backward with ``bf16_scores``
+    against ``jax.vjp(_windowed_aggregate, bf16_scores=True)``, compiled
+    with every bf16 rounding kept.  Each ordered pair's dS and each
+    block sum of dvals is an f32 sum in another order, rounded to bf16, so
+    a few round the other way: at most 1e-3 of the elements lie beyond the
+    f32 form's bound (measured 9.9e-5 and 6.6e-5), and every element within
+    one bf16 ulp of its sum of |terms|: two roundings of nearly the same
+    sum differ by an ulp, up to 2^-7 of the value (measured 5.7e-3 and
+    1.4e-4 of it: at w = 128 a dvals element that one block's sum makes
+    up took the neighbouring bf16 value).  The f32-score backward stands
+    ~2e-3 of the largest value away; the Function's backward is the plain
+    one."""
+    rng = np.random.RandomState(2)
+    ae = (rng.randn(1, 8, w, 32) * 0.4).astype(np.float32)
+    vals = rng.randn(1, 8, w, 27).astype(np.float32)
+    g = rng.randn(1, 8, w, 27).astype(np.float32)
+    args = [jnp.asarray(a) for a in (ae, vals, g)]
+    f = jax.jit(lambda a, v, c: jax.vjp(lambda a, v: jgn._windowed_aggregate(
+        a, v, 32, bf16_scores=True), a, v)[1](c)).lower(*args).compile(
+            compiler_options={"xla_allow_excess_precision": False})
+    ref = [np.asarray(x) for x in f(*args)]
+    got = tgn.gn_window_aggregate_backward_plain(_t(g), _t(ae), _t(vals),
+                                                 bf16_scores=True)
+    terms = tgn.gn_window_aggregate_backward_terms(_t(g), _t(ae), _t(vals),
+                                                   bf16_scores=True)
+    share, within = _terms_bound(got, ref, terms, ae, 2.0 ** -7)
+    assert share <= 1e-3 and within
+    f32 = tgn.gn_window_aggregate_backward_plain(_t(g), _t(ae), _t(vals))
+    assert max(rel(a.numpy(), r) for a, r in zip(f32, ref)) > 1e-3
+    ta, tv = _t(ae).requires_grad_(), _t(vals).requires_grad_()
+    tgn.gn_window_aggregate(ta, tv, bf16_scores=True).backward(_t(g))
+    assert torch.equal(ta.grad, got[0]) and torch.equal(tv.grad, got[1])
+
+
+@pytest.mark.parametrize("seed", [5, 7, 9])
+def test_gn_step_bf16_scores_gradients_match(seed):
+    """An 8x128 field: ``gn_step`` with ``bf16_scores`` (kernel 5's route
+    and its bf16 backward, plain on the CPU) against ``jax.grad`` of
+    codd_tpu's ``gn_step`` (its windowed form), compiled with every bf16
+    rounding kept; the gradients of ae, target and weight of the update's
+    sum.  A dS or a block sum of dvals that rounds to the other bf16 value
+    moves its term by 2^-8, and the value field's 27-term dots cancel on
+    the way to weight: each gradient within 5e-3 of its norm (measured
+    2e-5 to 3.9e-3) and at most 1e-3 of its elements beyond 1e-3 of its
+    largest value (measured 0 to 6.5e-4).  With f32 scores the port is
+    0.5-2.5 % of the norm away and 1-5 % of the elements beyond."""
+    field = _gn_field(8, 128, seed=seed)
+    Ts, ae, target, weight, depth, intr = field
+    assert jgn.resolve_impl("auto", 32, 128) == "windowed"
+
+    def f(a, t, wt):
+        return jnp.sum(jgn.gn_step(jnp.asarray(Ts), a, t, wt,
+                                   jnp.asarray(depth), jnp.asarray(intr),
+                                   bf16_scores=True))
+
+    args = [jnp.asarray(x) for x in (ae, target, weight)]
+    ref = [np.asarray(x) for x in jax.jit(jax.grad(f, argnums=(0, 1, 2))
+                                          ).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)]
+    _, got = _gn_step_grads(field, True)
+    _, f32 = _gn_step_grads(field, False)
+    for name, a, b, r in zip(("ae", "target", "weight"), got, f32, ref):
+        off = lambda x: float((np.abs(x.numpy() - r)
+                               > 1e-3 * np.abs(r).max()).mean())
+        assert rel_norm(a.numpy(), r) <= 5e-3, name
+        assert off(a) <= 1e-3, name
+        assert off(b) > 5e-3, name
+
+
+def test_gn_fused_bf16_scores_raise_where_windowed():
+    """A 1/8-res width of 128: codd_tpu runs ``gn_fused_solve`` for
+    gn_impl="fused" there, f32 or bf16 scores, which has no VJP; the port
+    raises under autograd with either, and runs without it."""
     field = _gn_field(8, 128, seed=5)
-    assert tgn.resolve_impl("auto", 32, 128) == "windowed"
-    with pytest.raises(NotImplementedError):
-        _gn_step_grads(field, True)
+    assert jgn.resolve_impl("fused", 32, 128) == "fused"
+    for bf16 in (True, False):
+        with pytest.raises(NotImplementedError):
+            _gn_step_grads(field, bf16, "fused")
     with torch.no_grad():
         assert torch.isfinite(tgn.gn_step(*(_t(a) for a in field),
+                                          impl="fused",
                                           bf16_scores=True)).all()
