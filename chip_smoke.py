@@ -62,9 +62,10 @@ Phases, in order:
      joint stage's two splat calls (one image of B=4: full res 384x768,
      C=6, r=1, the row's time; quarter res 96x192, C=32, r=2, the row's
      ``ms_quarter``) on random cotangents against its plain backward,
-     twice for equal bits; beside the times of these two, the parent
-     revision's forms' as ``python -m codd_torch.tools.kernel_cutouts
-     --source`` measured them (``MS_BEFORE``, printed only);
+     twice for equal bits; beside the times of the two kernels redesigned
+     last (5b bf16, 1b bf16), the parent revision's forms' as ``python -m
+     codd_torch.tools.kernel_cutouts --source`` measured them
+     (``MS_BEFORE``, printed only);
   4. main path: CODD from configs/models/codd.py (max_disp 320, 16 GN
      iterations, fusion width 32) with seeded random weights on the card,
      ``first_step`` and ``--steps`` ``step`` calls at 384x1280, B=1, with
@@ -239,16 +240,25 @@ T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 in the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense TF32 in the tensor cores
+# an f32 product to f32 accuracy on the tensor cores: three TF32 products
+# (3xTF32); where one operand is exact in bf16, three bf16 products (the
+# other operand as three bf16 parts that add to it exactly)
+F32_3XTF32_PER_S = TF32_FLOPS_PER_S / 3
+F32_3XBF16_PER_S = BF16_FLOPS_PER_S / 3
 H, W = 384, 1280
 # the parent revision's times of the two backward kernels redesigned last
-# (6c on the smooth and the scattered field, 4b at full and quarter res),
-# printed beside this run's: python -m codd_torch.tools.kernel_cutouts
-# --kernel corr_coords (with --box-bytes 98304) and --kernel
-# splat_backward, --source the parent's codd_torch/csrc, in turns with the
-# new forms, mean of 4 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6)
-MS_BEFORE = {"corr_patch_lookup_coords_backward": {"smooth": 0.1564,
-                                                   "scattered": 0.3086},
-             "splat_composite_backward": {"full": 0.0826, "quarter": 0.0277}}
+# (5b bf16 at B=4, 48x128 on the random field; 1b bf16 at the training
+# call, 4 x 384x768 with taps past both edges, and at 384x1280 on the
+# random and the smooth field), printed beside this run's: python -m
+# codd_torch.tools.kernel_cutouts --kernel gn_backward and --kernel
+# tile_warp, --source the parent's codd_torch/csrc, in turns with the new
+# forms (parent, new, new, parent), the mean of the parent's four readings
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6)
+MS_BEFORE = {"gn_window_aggregate_backward_bf16": {"random": 0.85005},
+             "tile_warp_cost_backward_bf16": {"training call": 0.22885,
+                                              "random": 0.157575,
+                                              "smooth": 0.15075}}
 # kernel 4's backward against its plain version: the plain version's
 # index_add_ adds by float atomics, which flush subnormals to zero on the
 # card, so a sum of up to K = 16 products may lose 16 x 2^-126
@@ -260,8 +270,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+def bound_ms(nbytes: float, flops, peak: float = F32_FLOPS_PER_S):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak.  ``flops`` is a count
+    at ``peak``, or a list of (count, peak): each kind of operation at the
+    rate of the unit that runs it."""
+    if not isinstance(flops, list):
+        flops = [(flops, peak)]
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = sum(f / p for f, p in flops)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -510,8 +527,7 @@ def splat_check(label, X, intr, h, w, radius, feat):
     return dict(res, plain_ms=cuda_ms(lambda: splat.composite_plain(*args)))
 
 
-def splat_backward_check(label, X, intr, h, w, radius, feat, g, gz, before,
-                         ppp=8):
+def splat_backward_check(label, X, intr, h, w, radius, feat, g, gz, ppp=8):
     """Kernel 4's backward at one training call on seeded points and random
     cotangents, against ``composite_backward_plain`` on the same saved
     forward: each element within 1e-5 of its sum of |terms|
@@ -565,8 +581,8 @@ def splat_backward_check(label, X, intr, h, w, radius, feat, g, gz, before,
     lb, by = bound_ms(nbytes, flops)
     print(f"  splat_composite_backward ({label}): {N} points, {M} fragments "
           f"({Mr} in runs, {ncomp} composited), C={C}: {ms:.4f} ms "
-          f"(ms_before {before} ms, recorded; bound "
-          f"{lb:.4f} ms by {by}, {ms / lb:.1f}x), plain {plain_ms:.4f} ms; "
+          f"(bound {lb:.4f} ms by {by}, {ms / lb:.1f}x), plain "
+          f"{plain_ms:.4f} ms; "
           f"worst |err| {worst:.3f} of its allowance (1e-5 of the sum of "
           f"|terms| + 2^-122), max |err| "
           f"{err:.3e}; equal in bits on two launches", flush=True)
@@ -729,14 +745,19 @@ def tile_warp_backward_bf16(hyp3, smooth, fl, fr, gout, nbytes, flops):
                             - 1], -1).to(dev),
                torch.randn(B4, h, w, C, generator=g).to(dev),
                torch.randn(B4, h, w, C, generator=g).to(dev))
+    from codd_torch.tools.kernel_cutouts import training_call_inputs
+    # "edges": the training call with taps past both edges (kernel_cutouts'
+    # inputs, those of MS_BEFORE)
     cases = {"random": bf(gout, hyp3, fl, fr),
-             "smooth": bf(gout, smooth, fl, fr), "training call": train}
+             "smooth": bf(gout, smooth, fl, fr), "training call": train,
+             "edges": training_call_inputs(dev)}
     errs, offs = zip(*(tile_warp_backward_bf16_compare(k, a)
                        for k, a in cases.items()))
     tile_warp_backward_bf16_repeat(dev)
     out = dict(max_abs_err_bf16=max(errs), unequal_share_bf16=max(offs))
     for key, k in (("ms_bf16", "random"), ("ms_bf16_smooth", "smooth"),
-                   ("ms_bf16_train", "training call")):
+                   ("ms_bf16_train", "training call"),
+                   ("ms_bf16_train_edges", "edges")):
         out[key] = cuda_ms(lambda: tile_warp.tile_warp_cost_backward(
             *cases[k]))
     out["plain_ms_bf16"] = cuda_ms(
@@ -746,10 +767,14 @@ def tile_warp_backward_bf16(hyp3, smooth, fl, fr, gout, nbytes, flops):
     out["bound_ms_bf16_train"], _ = bound_ms(
         2 * (2 * t[1].numel() + 4 * t[2].numel() + t[0].numel()),
         t[2].numel() // C * (36 * C + 10))
+    before = MS_BEFORE["tile_warp_cost_backward_bf16"]
     print(f"  tile_warp_cost_backward bf16: {out['ms_bf16']:.4f} ms random "
           f"field, {out['ms_bf16_smooth']:.4f} smooth (bound "
-          f"{out['bound_ms_bf16']:.4f}), {out['ms_bf16_train']:.4f} at the "
-          f"training call (bound {out['bound_ms_bf16_train']:.4f}); plain "
+          f"{out['bound_ms_bf16']:.4f}; ms_before {before['random']}, "
+          f"{before['smooth']}, recorded), {out['ms_bf16_train']:.4f} at the "
+          f"training call (bound {out['bound_ms_bf16_train']:.4f}), "
+          f"{out['ms_bf16_train_edges']:.4f} with taps past both edges "
+          f"(ms_before {before['training call']}, recorded); plain "
           f"{out['plain_ms_bf16']:.4f} ms", flush=True)
     return out
 
@@ -827,8 +852,8 @@ def gn_backward_bf16_check(fields, g):
     codd_tpu takes its windowed form) against its plain backward, on the
     ``random`` and the ``smooth`` embedding field (``fields``: name ->
     (ae, vals)), each twice for equal bits; its time on the random field,
-    the plain version's, registers and spill, and the bound by the f32
-    form's rule (``gn_backward_check``)."""
+    the plain version's, registers and spill, and the bound
+    (``gn_backward_ops``)."""
     import torch
     from codd_torch.ops import gn
     out = dict(name="gn_window_aggregate_backward_bf16",
@@ -877,14 +902,33 @@ def gn_backward_bf16_check(fields, g):
         g, ae, vals))
     out["registers"], out["spill_bytes"] = gn_backward_attributes(True)
     regs32, spill32 = gn_backward_attributes(False)
-    print(f"  gn_window_aggregate_backward_bf16: {out['ms']:.4f} ms (the f32 "
-          f"form {out['ms_f32_form']:.4f} ms on the same inputs), plain "
+    print(f"  gn_window_aggregate_backward_bf16: {out['ms']:.4f} ms "
+          f"(ms_before {MS_BEFORE['gn_window_aggregate_backward_bf16']['random']}"
+          f" ms, recorded; the f32 form {out['ms_f32_form']:.4f} ms on the "
+          f"same inputs), plain "
           f"{out['plain_ms']:.4f} ms; {pairs:.4g} pairs; {out['registers']} "
           f"registers, {out['spill_bytes']} bytes local (f32 form "
           f"{regs32}, {spill32})", flush=True)
     out.update(bytes=4 * B * h * w * (2 * C + 3 * 27),
-               flops=pairs * (204 + 5), library_ms=None)
+               flops=gn_backward_ops(pairs, bf16_scores=True),
+               library_ms=None)
     return out
+
+
+def gn_backward_ops(pairs: float, bf16_scores: bool):
+    """The operations of kernel 5's backward over ``pairs`` ordered pairs
+    of windows, as (count, peak) pairs for ``bound_ms``.  s_ij, u_ij and
+    the logit are symmetric, so each unordered pair takes the 32-wide
+    logit dot, the 27-wide dots G_i.v_j and G_j.v_i, 27 dvals updates each
+    way and 32 dae updates each way: 204 multiply-adds, 102 an ordered
+    pair, with the logit, sigmoid and u (~10 operations, 5 an ordered
+    pair) beside, on the CUDA cores.  The products need f32 accuracy:
+    3xTF32 for the logits and U A; with bf16 scores, G_i.bf16(v_j) and
+    bf16(s) G have an operand exact in bf16 (three bf16 products), with
+    f32 scores 3xTF32 as well."""
+    gv = F32_3XBF16_PER_S if bf16_scores else F32_3XTF32_PER_S
+    return [(pairs * 2 * (16 + 32), F32_3XTF32_PER_S),
+            (pairs * 2 * (27 + 27), gv), (pairs * 5, F32_FLOPS_PER_S)]
 
 
 def gn_bf16_fields(randn, rand, dev):
@@ -918,12 +962,8 @@ def gn_backward_check(ae, vals, g):
     """Kernel 5's backward at the motion stage's training call (B=4, 48x96,
     C=32, 27 values) against its plain backward, twice for equal bits; its
     time, the plain version's, and the bound: the operations the function
-    needs, f32 on the CUDA cores.  s_ij, u_ij and the logit are symmetric,
-    so each unordered pair of the window takes the 32-wide logit dot, the
-    27-wide dots G_i.v_j and G_j.v_i, 27 dvals updates each way and 32 dae
-    updates each way (dae_i = -2 (a_i sum_j u_ij - sum_j u_ij a_j)): 204
-    multiply-adds, 102 an ordered pair, with the logit, sigmoid and u
-    (~10 operations) beside."""
+    needs (``gn_backward_ops``; dae_i = -2 (a_i sum_j u_ij - sum_j u_ij
+    a_j)), the products as 3xTF32 on the tensor cores."""
     import torch
     from codd_torch.ops import gn
     got = gn.gn_window_aggregate_backward(g, ae, vals)
@@ -955,7 +995,7 @@ def gn_backward_check(ae, vals, g):
             g, ae, vals)),
         # read ae, vals, G once; write dae, dvals once
         bytes=4 * B * h * w * (2 * C + 3 * 27),
-        flops=pairs * (204 + 5), library_ms=None)
+        flops=gn_backward_ops(pairs, bf16_scores=False), library_ms=None)
 
 
 def corr_patch_backward_terms(g, f1, levels, coords):
@@ -1096,8 +1136,11 @@ def corr_patch_backward_check(pyr, fields, g):
         bytes=float(4 * f1.numel() + 4 * sum(l.numel() for l in levels)
                     + 4 * g.numel() + 4 * coords.numel()),
         # a tap of an unmasked query-level: its bilinear transpose (~8),
-        # 128 multiply-adds into df1, 128 products added into the level
-        flops=float(valid * 64 * (8 + 4 * 128)), library_ms=None)
+        # 128 multiply-adds into df1, 128 products added into the level,
+        # each an f32 cotangent times a bf16 feature (three bf16 products)
+        flops=[(float(valid * 64 * 8), F32_FLOPS_PER_S),
+               (float(valid * 64 * 4 * 128), F32_3XBF16_PER_S)],
+        library_ms=None)
 
 
 def corr_coords_backward_check(pyr, fields, g):
@@ -1116,7 +1159,6 @@ def corr_coords_backward_check(pyr, fields, g):
     from codd_torch.ops import corr
     f1, levels = pyr["f1"], pyr["levels"]
     ms, err, one = {}, {}, {}
-    before = MS_BEFORE["corr_patch_lookup_coords_backward"]
     for fname, coords in fields.items():
         args = (g, f1, levels, coords)
         got = corr.corr_patch_lookup_coords_backward(*args)
@@ -1142,7 +1184,7 @@ def corr_coords_backward_check(pyr, fields, g):
         ms[fname] = cuda_ms(lambda: corr.corr_patch_lookup_coords_backward(
             *args))
         print(f"  corr_patch_lookup_coords_backward ({fname}): "
-              f"{ms[fname]:.4f} ms (ms_before {before[fname]} ms, recorded); "
+              f"{ms[fname]:.4f} ms; "
               f"boxes of one chunk by level {one[fname]} "
               f"({corr.PATCH_COORDS_BOX_BYTES} B); "
               f"worst |err| {share:.3f} of its allowance "
@@ -1422,9 +1464,12 @@ def kernel_checks(dev):
             bytes=4 * n * (32 + 27 + out_w),
             # the operations the function needs: each unordered pair's
             # 32-wide dot (64), logit (3) and sigmoid (3) once, as s is
-            # symmetric, so 35 an ordered pair, and its own 27 FMAs (54);
-            # per query: norm (64) and, fused, the damped solve (~200)
-            flops=pairs * 89 + n * per_query, library_ms=None))
+            # symmetric, so 35 an ordered pair, and its own 27 FMAs (54),
+            # the products as 3xTF32 on the tensor cores; per query: norm
+            # (64) and, fused, the damped solve (~200)
+            flops=[(pairs * (32 + 54), F32_3XTF32_PER_S),
+                   (pairs * 3 + n * per_query, F32_FLOPS_PER_S)],
+            library_ms=None))
         lb, _ = bound_ms(rows[-1]["bytes"], rows[-1]["flops"])
         bf_ms = cuda_ms(lambda: fn(ae, vals, bf16_scores=True))
         print(f"  {name}: {rows[-1]['ms']:.4f} ms = {rows[-1]['ms'] / lb:.2f} "
@@ -1473,16 +1518,13 @@ def kernel_checks(dev):
     hq, wq = TRAIN_H // 4, TRAIN_W // 4
     X2q = se3.act(Ts[:, 1::4, 1::4], inv_project(depth[:, 1::4, 1::4],
                                                  intr_t / 4)).reshape(-1, 3)
-    before = MS_BEFORE["splat_composite_backward"]
     bfull = splat_backward_check(
         f"full res {TRAIN_H}x{TRAIN_W}, C=6, r=1", X2, intr_t[0], TRAIN_H,
         TRAIN_W, 1.0, randn(TRAIN_H * TRAIN_W, 6),
-        randn(TRAIN_H * TRAIN_W, 6), randn(TRAIN_H * TRAIN_W),
-        before["full"])
+        randn(TRAIN_H * TRAIN_W, 6), randn(TRAIN_H * TRAIN_W))
     bquarter = splat_backward_check(
         f"quarter res {hq}x{wq}, C=32, r=2", X2q, intr_t[0] / 4, hq, wq, 2.0,
-        randn(hq * wq, 32), randn(hq * wq, 32), randn(hq * wq),
-        before["quarter"])
+        randn(hq * wq, 32), randn(hq * wq, 32), randn(hq * wq))
     rows.append(dict(
         name="splat_composite_backward",
         source="codd_torch/csrc/splat_composite.cu",
@@ -3767,9 +3809,11 @@ def profile_call(run, label: str, out_file: Path):
             "splat_composite_backward_": "splat_composite_backward",
             "gn_window_aggregate_kernel": "gn_window_aggregate",
             "corr_patch_lookup_kernel": "corr_patch_lookup",
-            "gn_window_aggregate_backward_kernel<false>":
+            "gn_window_aggregate_backward_kernel":
                 "gn_window_aggregate_backward",
-            "gn_window_aggregate_backward_kernel<true>":
+            "gn_window_aggregate_backward_bf16_kernel":
+                "gn_window_aggregate_backward_bf16",
+            "gn_backward_bf16_keys_kernel":
                 "gn_window_aggregate_backward_bf16",
             "corr_patch_lookup_backward_kernel":
                 "corr_patch_lookup_backward",

@@ -241,13 +241,19 @@ int launch(const void* hyp3, const void* fea_l, const void* fea_r, void* out,
 constexpr int kBwdMaxThreads = 512;
 
 // Shared memory of a row block, in bytes: by sort slot, a pixel's (g_-1,
-// g_0, g_+1, f) (16 W); by pixel, its bin and rank, then its slot (4 W);
-// the bins' starts (4 (W + 4)); dL/d local_d a pixel (4 W); form 1 only,
-// a pixel's six channel sums of df so far, three bf16 pairs (12 W); by
-// slot, the signs of l - warped of the channel group a pass takes (cg W).
+// g_0, g_+1, f) (form 1: its four taps' cotangents) (16 W); by pixel, its
+// bin and rank, then its slot (4 W); the bins' starts (4 (W + 4)); dL/d
+// local_d a pixel (4 W); form 1 only, a pixel's six channel sums of df so
+// far, three bf16 pairs (12 W), and, where the row fits (``plane``), its
+// plane from the sort (8 W); by slot, the signs of l - warped of the
+// channel group a pass takes (cg W).  At the 227 KB a block may take, form
+// 1 keeps its planes up to W = 4096 at cg = 8 and W = 4468 at cg = 4, and
+// recomputes them in the row pass up to W = 5280 (form 0: W = 7260).
 __host__ __device__ __forceinline__ size_t bwd_smem_bytes(int W, int cg,
-                                                          int form) {
-  return (size_t)(28 + (form == 1 ? 12 : 0) + cg) * W + 16;
+                                                          int form,
+                                                          bool plane) {
+  return (size_t)(28 + (form == 1 ? 12 : 0) + (plane ? 8 : 0) + cg) * W
+         + 16;
 }
 
 // A pixel's plane as the forward of FORM computes it (so that floor(), the
@@ -400,14 +406,24 @@ __device__ __forceinline__ unsigned channels_exact(
 // every add.  The sums' order is fixed, so every output but dfea_r is the
 // plain version's bits (ops/tile_warp.py:_backward_exact), and dfea_r, whose
 // column sums run in bin order and pixel order within a bin (the stable
-// sort), has the same bits at every launch.
+// sort), has the same bits at every launch.  Three steps of form 1 differ
+// from form 0's, for what they cost in bf16 conversions and in the
+// gather's uneven bins (tools/kernel_cutouts.py ranked the gather first):
+// the sort keeps each pixel's plane (f, the taps' mask, col0) for the row
+// pass where the row fits (``keep``), so plane_exact's chain of roundings
+// runs once a pixel; the row
+// pass stores, by slot, the four taps' cotangents (g_k (1 - f) and g_k f,
+// each rounded to bf16 once), so a visit of the gather only applies the
+// signs; and a column walks the slots of bins c .. c + 3 as one run (tap
+// 3 - (bins past c) of each), so a warp's trip count is the longest of
+// its columns' runs, not the sum over the four bins of the longest bin.
 template <int FORM, typename T>
 __global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(kBwdMaxThreads, 2)
 tile_warp_cost_backward_kernel(
     const T* __restrict__ hyp3, const T* __restrict__ fea_l,
     const T* __restrict__ fea_r, const T* __restrict__ g,
     T* __restrict__ dhyp3, T* __restrict__ dfea_l, T* __restrict__ dfea_r,
-    int H, int W, int C, int cg) {
+    int H, int W, int C, int cg, int keep) {
   extern __shared__ float4 smem4[];
   __shared__ int warp_sum[kBwdMaxThreads / 32];
   cooperative_groups::cluster_group cluster =
@@ -416,9 +432,16 @@ tile_warp_cost_backward_kernel(
   int* slot = reinterpret_cast<int*>(gfv + W);         // [W] by pixel
   int* start = slot + W;                               // [W + 4]
   float* dloc = reinterpret_cast<float*>(start + W + 4);     // [W]
-  // form 1: by pixel, the three (pa, pb) pairs of its channel sums so far
+  // form 1: by pixel, the three (pa, pb) pairs of its channel sums so far,
+  // then (``keep``) its plane from the sort: f with the taps' mask in its
+  // low bits, and col0
+  const bool kept = FORM == 1 && keep;
   unsigned* part = reinterpret_cast<unsigned*>(dloc + W);    // [3][W]
-  unsigned* signs = part + (FORM == 1 ? 3 * W : 0);          // [cg/4][W]
+  unsigned* plane = part + (FORM == 1 ? 3 * W : 0);          // [2][W]
+  unsigned* signs = plane + (kept ? 2 * W : 0);              // [cg/4][W]
+  // form 1, by slot: tap m's cotangents (g_{2-m} (1 - f), g_{3-m} f) as a
+  // bf16 pair, 0 where the tap is masked out (gfv's place)
+  unsigned* taps = reinterpret_cast<unsigned*>(smem4);       // [W][4]
   const int wt = W / 4, nb = W + 3, nk = cg / 4;
   const int by = blockIdx.x;             // b * H + y
   const int y = by % H, i = y & 3;
@@ -444,6 +467,10 @@ tile_warp_cost_backward_kernel(
       bwd_plane<FORM>(hyp3 + (bt * wt + (x >> 2)) * 3, x, i, W, f, col0,
                       okbits);
       if (okbits) bin = col0 + 3;
+      if (kept) {
+        plane[x] = __float_as_uint(f) | okbits;  // f's 16 low bits are 0
+        plane[W + x] = (unsigned)col0;
+      }
     }
     const unsigned same = __match_any_sync(0xffffffffu, bin);
     const unsigned left = same & ((1u << lane) - 1u);
@@ -492,7 +519,14 @@ tile_warp_cost_backward_kernel(
       float f;
       int col0;
       unsigned okbits;
-      bwd_plane<FORM>(hyp3 + tile * 3, x, i, W, f, col0, okbits);
+      if (kept) {
+        const unsigned pf = plane[x];
+        f = __uint_as_float(pf & 0xffff0000u);
+        okbits = pf & 15u;
+        col0 = (int)plane[W + x];
+      } else {
+        bwd_plane<FORM>(hyp3 + tile * 3, x, i, W, f, col0, okbits);
+      }
       const float gf = FORM == 1 ? rb(__fsub_rn(1.0f, f))
                                  : __fsub_rn(1.0f, f);
       const long long pix = (long long)by * W + x;
@@ -502,10 +536,22 @@ tile_warp_cost_backward_kernel(
       const float gk[3] = {load1(gp), load1(gp + 16), load1(gp + 32)};
       const int s = slot[x];
       if (c0 == 0 && s >= 0) {
-        // form 1: the taps' mask in the 16 low bits of f, which are 0
-        const float fk = FORM == 1
-            ? __uint_as_float(__float_as_uint(f) | okbits) : f;
-        gfv[s] = make_float4(gk[0], gk[1], gk[2], fk);
+        if (FORM == 1) {
+          // tap m: -(s g)(1 - f) of the pair that starts there (offset
+          // 2 - m) and -(s g) f of the pair that ends there (3 - m), each
+          // magnitude rounded once; the gather applies the signs
+          unsigned tw[4];
+          for (int m = 0; m < 4; ++m) {
+            const float A = m <= 2 ? gk[2 - m] * gf : 0.f;
+            const float Bv = m >= 1 ? gk[3 - m] * f : 0.f;
+            tw[m] = (okbits >> m) & 1u
+                ? bits_of(__floats2bfloat162_rn(A, Bv)) : 0u;
+          }
+          reinterpret_cast<uint4*>(taps)[s] =
+              make_uint4(tw[0], tw[1], tw[2], tw[3]);
+        } else {
+          gfv[s] = make_float4(gk[0], gk[1], gk[2], f);
+        }
       }
       // dL/d local_d of this pixel (form 0); form 1: per offset kk the
       // channel sums of the cotangents of (1 - f) and f so far, a bf16 pair
@@ -586,43 +632,45 @@ tile_warp_cost_backward_kernel(
       const int c = t / nk, k = t % nk;
       const unsigned* sk = signs + k * W;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int m = 0; m < 4; ++m) {
-        const int ka = 2 - m, kb = 3 - m;
-        for (int e = start[c + 3 - m]; e < start[c + 4 - m]; ++e) {
-          const float4 gv = gfv[e];
-          const float gk4[4] = {gv.x, gv.y, gv.z, 0.f};
-          float f = gv.w;
-          if (FORM == 1) {
-            const unsigned u = __float_as_uint(f);
-            if (!((u >> m) & 1u)) continue;  // tap m masked out
-            f = __uint_as_float(u & 0xffff0000u);
-          }
-          const float gf = FORM == 1 ? rb(__fsub_rn(1.0f, f))
-                                     : __fsub_rn(1.0f, f);
-          const float A = ka >= 0 ? gk4[ka >= 0 ? ka : 3] * gf : 0.f;
-          const float Bv = kb <= 2 ? gk4[kb <= 2 ? kb : 3] * f : 0.f;
+      if constexpr (FORM == 1) {
+        // bins c .. c + 3 are one run of slots; a slot of bin c + 3 - m
+        // gives tap m: each cotangent -(s X) its sign flipped where s > 0,
+        // per lane, and an inner tap adds its two in bf16, two channels an
+        // instruction
+        const int e1 = start[c + 1], e2 = start[c + 2], e3 = start[c + 3];
+        for (int e = start[c], end = start[c + 4]; e < end; ++e) {
+          const int m = 3 - (e >= e1) - (e >= e2) - (e >= e3);
+          const int ka = 2 - m, kb = 3 - m;
+          const unsigned tap = taps[4 * e + m];
+          const unsigned a2 = __byte_perm(tap, 0u, 0x1010u);
+          const unsigned b2 = __byte_perm(tap, 0u, 0x3232u);
           const unsigned word = sk[e];
-          if constexpr (FORM == 1) {
-            // each cotangent -(s g)(1 - f) or -(s g) f rounded once; an
-            // inner tap adds its two in bf16, two channels an instruction
-            const unsigned a2 = bits_of(__float2bfloat162_rn(A));
-            const unsigned b2 = bits_of(__float2bfloat162_rn(Bv));
-            for (int q = 0; q < 4; q += 2) {
-              // -(s X): X's sign flipped where s > 0, per lane
-              const unsigned wa = ka >= 0 ? word >> (8 * ka + 2 * q) : 0u;
-              const unsigned wb = kb <= 2 ? word >> (8 * kb + 2 * q) : 0u;
-              const unsigned va = a2 ^ ((wa & 2u) ? 0u : 0x8000u)
-                                     ^ ((wa & 8u) ? 0u : 0x80000000u);
-              const unsigned vb = b2 ^ ((wb & 2u) ? 0u : 0x8000u)
-                                     ^ ((wb & 8u) ? 0u : 0x80000000u);
-              const float2 v = __bfloat1622float2(
-                  ka < 0 ? bf162_of(vb)
-                         : kb > 2 ? bf162_of(va)
-                                  : __hadd2_rn(bf162_of(va), bf162_of(vb)));
-              acc[q] += v.x;
-              acc[q + 1] += v.y;
-            }
-          } else {
+          for (int q = 0; q < 4; q += 2) {
+            const unsigned wa = ka >= 0 ? word >> (8 * ka + 2 * q) : 0u;
+            const unsigned wb = kb <= 2 ? word >> (8 * kb + 2 * q) : 0u;
+            const unsigned va = a2 ^ ((wa & 2u) ? 0u : 0x8000u)
+                                   ^ ((wa & 8u) ? 0u : 0x80000000u);
+            const unsigned vb = b2 ^ ((wb & 2u) ? 0u : 0x8000u)
+                                   ^ ((wb & 8u) ? 0u : 0x80000000u);
+            const float2 v = __bfloat1622float2(
+                ka < 0 ? bf162_of(vb)
+                       : kb > 2 ? bf162_of(va)
+                                : __hadd2_rn(bf162_of(va), bf162_of(vb)));
+            acc[q] += v.x;
+            acc[q + 1] += v.y;
+          }
+        }
+      } else {
+        for (int m = 0; m < 4; ++m) {
+          const int ka = 2 - m, kb = 3 - m;
+          for (int e = start[c + 3 - m]; e < start[c + 4 - m]; ++e) {
+            const float4 gv = gfv[e];
+            const float gk4[4] = {gv.x, gv.y, gv.z, 0.f};
+            const float f = gv.w;
+            const float gf = __fsub_rn(1.0f, f);
+            const float A = ka >= 0 ? gk4[ka >= 0 ? ka : 3] * gf : 0.f;
+            const float Bv = kb <= 2 ? gk4[kb <= 2 ? kb : 3] * f : 0.f;
+            const unsigned word = sk[e];
             for (int q = 0; q < 4; ++q) {
               float v = 0.f;
               if (ka >= 0) v -= signed_by(word >> (8 * ka + 2 * q), A);
@@ -686,7 +734,16 @@ template <int FORM, typename T>
 int launch_backward(const void* hyp3, const void* fea_l, const void* fea_r,
                     const void* g, void* dhyp3, void* dfea_l, void* dfea_r,
                     int B, int H, int W, int C, int cg, cudaStream_t stream) {
-  const size_t bytes = bwd_smem_bytes(W, cg, FORM);
+  // form 1 keeps the sort's planes where they fit a block's shared memory
+  // (beside warp_sum's)
+  static const size_t room = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return (size_t)v - sizeof(int) * (kBwdMaxThreads / 32);
+  }();
+  const bool keep = FORM == 1 && bwd_smem_bytes(W, cg, FORM, true) <= room;
+  const size_t bytes = bwd_smem_bytes(W, cg, FORM, keep);
   cudaError_t err = cudaFuncSetAttribute(
       tile_warp_cost_backward_kernel<FORM, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -697,7 +754,7 @@ int launch_backward(const void* hyp3, const void* fea_l, const void* fea_r,
   tile_warp_cost_backward_kernel<FORM, T><<<(unsigned)(B * H), threads,
                                             bytes, stream>>>(
       (const T*)hyp3, (const T*)fea_l, (const T*)fea_r, (const T*)g,
-      (T*)dhyp3, (T*)dfea_l, (T*)dfea_r, H, W, C, cg);
+      (T*)dhyp3, (T*)dfea_l, (T*)dfea_r, H, W, C, cg, (int)keep);
   return (int)cudaGetLastError();
 }
 

@@ -67,7 +67,12 @@ of its own (``gn_window_aggregate_backward_bf16``), and computes what
 once an ordered pair, times the derivative of the f32 sigmoid; dvals
 from the bf16 scores, summed over each 32-column block of the other end,
 rounded to bf16 a block and the blocks added highest first
-(``gn_window_aggregate_backward_plain``).  A gradient-needing ``gn_step``
+(``gn_window_aggregate_backward_plain``).  A pre-pass of that form
+writes each key's operands once into the wrapper's scratch
+(``backward_bf16_scratch``; the record's layout is the kernel's): the
+TF32 halves of its embedding, bf16(vals) and G as three bf16 parts that
+add to G exactly (``bf16_parts``), so G_i . bf16(v_j) and S G run as
+exact bf16 products.  A gradient-needing ``gn_step``
 takes kernel 5 for ``auto``, ``windowed`` and ``pallas_window``
 (``codd_tpu``'s training path: its ``windowed`` or, at w/8 <= 96,
 ``dense`` sums, the same function), with bf16 scores where ``codd_tpu``
@@ -100,12 +105,14 @@ __all__ = ["gn_step", "build_system", "resolve_impl", "gn_fused_solve",
            "sym_pack", "sym_unpack", "damped_solve", "tiling_pairs",
            "GN_IMPLS", "grad_clip", "GNWindowAggregate",
            "gn_window_aggregate_backward",
-           "gn_window_aggregate_backward_plain"]
+           "gn_window_aggregate_backward_plain", "backward_bf16_scratch",
+           "bf16_parts"]
 
 GN_IMPLS = ("auto", "fused", "windowed", "pallas_window", "dense")
 _GN_BLOCK = 32  # codd_tpu's column block: the windowed paths need r == 32
 _GN_QX = 16     # query columns of a block of csrc/gn_common.cuh (its QX)
 _GN_CHUNK = 16  # keys a warp of it takes at a time (its CHUNK)
+_GN_KREC = 132  # 32-bit words of a key's record in the bf16 backward (KREC)
 
 _TRI = [(i, j) for i in range(6) for j in range(i, 6)]
 
@@ -401,10 +408,33 @@ def gn_window_aggregate_backward(g, ae, vals, radius: int = 32,
                          f"codd_tpu's windowed one, radius {_GN_BLOCK}")
     dae = torch.empty_like(ae)
     dvals = torch.empty_like(vals)
+    # the bf16 form's key records, held until the launch is queued
+    recs = [backward_bf16_scratch(ae)] if bf16_scores else []
     kernels.launch(name, ae.data_ptr(), vals.data_ptr(), g.data_ptr(),
-                   dae.data_ptr(), dvals.data_ptr(), B, h, w, radius,
+                   *(r.data_ptr() for r in recs), dae.data_ptr(),
+                   dvals.data_ptr(), B, h, w, radius,
                    kernels.stream_ptr(ae.device))
     return dae, dvals
+
+
+def backward_bf16_scratch(ae):
+    """The bf16-score backward's scratch: a ``_GN_KREC``-word record for
+    each key of (B, h, w rounded up to whole chunks), which its pre-pass
+    writes (csrc/gn_window.cu: gn_backward_bf16_keys_kernel)."""
+    B, h, w, _ = ae.shape
+    wp = -(-w // _GN_CHUNK) * _GN_CHUNK
+    return torch.empty((B, h, wp, _GN_KREC), dtype=torch.int32,
+                       device=ae.device)
+
+
+def bf16_parts(x):
+    """x (f32) as three bf16 values hi + mid + lo that add to x exactly
+    (x - hi and (x - hi) - mid are exact in f32), each as f32."""
+    def r(t):
+        return t.to(torch.bfloat16).float()
+    hi = r(x)
+    mid = r(x - hi)
+    return hi, mid, r((x - hi) - mid)
 
 
 class GNWindowAggregate(torch.autograd.Function):

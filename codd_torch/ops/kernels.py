@@ -64,7 +64,7 @@ KERNELS = {
                                      [_P] * 5 + [_I] * 4 + [_P]),
     "gn_window_aggregate_backward_bf16": (
         "gn_window.cu", "gn_window_aggregate_backward_bf16_launch",
-        [_P] * 5 + [_I] * 4 + [_P]),
+        [_P] * 6 + [_I] * 4 + [_P]),
     "corr_patch_lookup_backward": ("corr_patch.cu",
                                    "corr_patch_lookup_backward_launch",
                                    [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5

@@ -84,7 +84,13 @@ in native bf16x2 arithmetic (each such step rounds once, as the f32 step
 rounded to bf16 does), with the channel sums of df kept in shared memory
 across channel groups: every output but dfea_r has the plain version's
 bits, and dfea_r sums each column's tap cotangents in f32 and rounds
-once, as the plain version does, in another order.
+once, as the plain version does, in another order.  The bf16 form also
+keeps each pixel's plane from the sort for the row pass (where the row
+fits a block's 227 KB of shared memory: W up to 4468; wider rows
+recompute it), rounds each slot's four tap cotangents once in the row
+pass, and walks the slots of a column's four bins as one run.  A row
+block holds rows up to W = 7260 in f32 and 5280 in bf16 (at four
+channels a pass).
 """
 
 from __future__ import annotations

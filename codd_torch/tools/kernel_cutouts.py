@@ -15,7 +15,8 @@ are never loaded by the port.  Kernels (``--kernel``, default
   384x1280, C=16: a random field, and for the backward also a smooth one,
   in f32 and bf16, and 1b in bf16 at the training call (4 x 384x768);
   ``--forward-only`` skips the backward, whose launcher an older revision
-  may not share;
+  may not share; the backward's cut-outs include its row sort (the stable
+  ranks by a shared atomic; the whole sort, each pixel its own bin);
 - ``corr_coords``: the lookup's coordinate gradient 6c
   (``csrc/corr_patch.cu``) at the motion stage's training call, B=4, 48x96
   queries, four levels, on the smooth and the scattered field, with the
@@ -23,7 +24,13 @@ are never loaded by the port.  Kernels (``--kernel``, default
   default; the first form took ``PATCH_BOX_BYTES``, 98304);
 - ``splat_backward``: the splat's backward 4b (``csrc/splat_composite.cu``)
   at the joint stage's two calls, full res 384x768 C=6 r=1 and quarter res
-  96x192 C=32 r=2.
+  96x192 C=32 r=2;
+- ``gn_backward``: kernel 5's backward 5b (``csrc/gn_window.cu``) at the
+  motion stage's training call, f32 scores at B=4, 48x96 and bf16 scores
+  at B=4, 48x128 (a 1024-wide crop), chip_smoke.py phase 3's random field:
+  cut-outs of the key operands' splits and roundings (where the bf16 form
+  has a key pre-pass, that pass), the P product, the sigmoid and u step,
+  the bf16 roundings and the cross-warp block sums.
 
 ``--source`` times another revision: the kernel's file, or a directory
 holding it (for example the parent commit's ``codd_torch/csrc`` unpacked
@@ -42,8 +49,8 @@ from pathlib import Path
 
 import torch
 
-from ..ops import corr, kernels, se3, splat, tile_warp
-from ..ops.projective import inv_project
+from ..ops import corr, gn, kernels, se3, splat, tile_warp
+from ..ops.projective import inv_project, project
 
 H, W, C = 384, 1280, 16
 OUT = kernels.BUILD.parent / "cutouts"
@@ -88,6 +95,28 @@ def _first(*edits):
     return edit
 
 
+def _require(marker: str):
+    """No edit; a ValueError where the revision lacks ``marker``."""
+    def edit(src: str) -> str:
+        if marker not in src:
+            raise ValueError("marker not found")
+        return src
+    return edit
+
+
+# 1b without its sort: singleton bins, each pixel at its own slot
+_NO_SORT = ("  for (int k = tid; k <= nb; k += nt) start[k] = min(max(k - 3, "
+            "0), W);\n"
+            "  for (int x = tid; x < W; x += nt) slot[x] = x;\n")
+# the planes the bf16 form's sort keeps for the row pass
+_PLANES = ("  for (int x = tid; x < W; x += nt) {\n"
+           "    float f;\n    int col0;\n    unsigned okbits;\n"
+           "    bwd_plane<FORM>(hyp3 + (bt * wt + (x >> 2)) * 3, x, i, W, f,"
+           " col0, okbits);\n"
+           "    if (kept) {\n"
+           "      plane[x] = __float_as_uint(f) | okbits;\n"
+           "      plane[W + x] = (unsigned)col0;\n    }\n  }\n")
+
 TILE_WARP_CUTOUTS = {
     "as_is": lambda src: src,
     # every bf16 rounding of the exact form's f32 steps the identity
@@ -112,7 +141,133 @@ TILE_WARP_CUTOUTS = {
         "        store_ch4(dfl + c, dl);",
         "        if (dl[0] == 12345.f)\n"
         "          store1(dfl + c, dl[1] + dl[2] + dl[3]);"),
+    # the sort's stable ranks (a barrier a warp) taken by one shared
+    # atomic a warp's group of equal bins, in no fixed order
+    "bwd_atomic_sort": _cut(
+        "    int base = 0;\n    for (int w = 0; w < nt / 32; ++w) {",
+        "    if (x < W) slot[x] =",
+        "    int base = 0;\n"
+        "    if (bin >= 0 && left == 0) base = atomicAdd(&start[bin],"
+        " __popc(same));\n"
+        "    base = __shfl_sync(0xffffffffu, base, __ffs(same) - 1);\n"),
+    # the whole sort: pixel x in bin x + 3, alone (the gather then walks
+    # one slot a tap, evenly; the signs are still stored at each slot);
+    # where the bf16 form keeps the sort's planes, they are still computed
+    "bwd_no_sort": _first(
+        _all(_require("  unsigned* plane = part"),
+             _cut("  for (int k = tid; k <= nb; k += nt) start[k] = 0;",
+                  "  for (int c0 = 0; c0 < C; c0 += cg) {",
+                  _NO_SORT + _PLANES + "  __syncthreads();\n\n")),
+        _cut("  for (int k = tid; k <= nb; k += nt) start[k] = 0;",
+             "  for (int c0 = 0; c0 < C; c0 += cg) {",
+             _NO_SORT + "  __syncthreads();\n\n")),
 }
+
+# 5b: kernel 5's backward (csrc/gn_window.cu).  The first edit of each pair
+# cuts the older revision's template (f32 and bf16 forms in one body), the
+# second the bf16 form's own kernel (marked CUTOUT) where the revision has
+# it; there the f32 kernel is the template's f32 body, as it was.
+# each warp's own partials, stored by its lanes (dvals' 27th value takes
+# the 28th's place)
+_OWN_PARTIALS = (
+    "  {\n    const long long o = plane + (long long)min(qy, h - 1)"
+    " * w + min(x0 + gq, w - 1);\n"
+    "#pragma unroll\n    for (int j = 0; j < 4; ++j) {\n"
+    "      dvals[o * NV + min(8 * c + j, NV - 1)] = __fadd_rn(__fadd_rn("
+    "av[j][0], av[j][1]), __fadd_rn(av[j][2], av[j][3]));\n"
+    "      dae[o * AC + 8 * c + j] = __fadd_rn(__fadd_rn(aa[j][0],"
+    " aa[j][1]), __fadd_rn(__fadd_rn(aa[j][2], aa[j][3]),"
+    " rs[0] + rs[1]));\n    }\n  }\n")
+
+def _maybe(edit):
+    """``edit`` where the revision has its part, else the text as it is."""
+    def apply(src: str) -> str:
+        try:
+            return edit(src)
+        except ValueError:
+            return src
+    return apply
+
+
+_SPLIT_KEY = _swap(
+    "__device__ __forceinline__ float bf16r(float x) {",
+    "__device__ __forceinline__ void split_key(float x, unsigned& hi,"
+    " unsigned& lo) {\n  hi = __float_as_uint(x);\n  lo = hi;\n}\n\n"
+    "__device__ __forceinline__ float bf16r(float x) {")
+
+
+def _key_split(args):
+    """split_tf32(<args>) on a key's value -> split_key (both halves the
+    value's bits)."""
+    return _swap("split_tf32(" + args, "split_key(" + args)
+
+
+GN_BACKWARD_CUTOUTS = {
+    "as_is": lambda src: src,
+    # the key operands' TF32 splits and bf16 roundings in the main loop (a
+    # key's f32 bits stand for both halves); in the revision whose bf16
+    # form has a pre-pass, that pre-pass (its records left unwritten)
+    "no_key_splits": _all(
+        _SPLIT_KEY, _key_split("kf0[s], h0, l0);"),
+        _key_split("kf1[s], h1, l1);"),
+        _key_split("s < 4 ? kv[t] : kgg[t - 28], h0, l0);"),
+        _key_split("s < 3 ? kv[t + 4] : kgg[t + 4 - 28], h1, l1);"),
+        _key_split("gk[j], h0, l0);"), _key_split("gk[NV + j], h1, l1);"),
+        _key_split("kx0[j], h0, l0);"), _key_split("kx1[j], h1, l1);"),
+        _first(
+            _all(_swap("const unsigned b0 = __float_as_uint(bf16r(kv[t]));",
+                       "const unsigned b0 = __float_as_uint(kv[t]);"),
+                 _swap("const unsigned b1 = __float_as_uint(bf16r(kv[t + 4]));",
+                       "const unsigned b1 = __float_as_uint(kv[t + 4]);"),
+                 _key_split("kgg[t], h0, l0);"),
+                 _key_split("kgg[t + 4], h1, l1);")),
+            _cut("  // CUTOUT keys {", "  // CUTOUT keys }"))),
+    # the P product (G_i.v_j + v_i.G_j; the key's staged values stand in)
+    "no_p": _first(
+        _cut("#pragma unroll\n          for (int s = 0; BF16 && s < 4; ++s) {",
+             "          // s and u of (column gq",
+             "#pragma unroll\n          for (int e = 0; e < 4; ++e) {\n"
+             "            p1[e] = kv[e];\n            p2[e] = kgg[e];\n"
+             "            pg[e] = kv[e + 4];\n          }\n"),
+        _all(_cut("#pragma unroll\n          for (int s = 0; s < KP; ++s) {",
+                  "          // s and u of (column gq",
+                  "#pragma unroll\n          for (int e = 0; e < 4; ++e) {\n"
+                  "            p1[e] = kv[e];\n            p2[e] = kgg[e];\n"
+                  "            pg[e] = kv[e + 4];\n          }\n"),
+             _cut("          // CUTOUT p {", "          // CUTOUT p }",
+                  "#pragma unroll\n          for (int e = 0; e < 4; ++e) {\n"
+                  "            p1[e] = __uint_as_float(kr[KR_VB + e]);\n"
+                  "            p2[e] = __uint_as_float(kr[KR_G + e]);\n"
+                  "          }\n"))),
+    # the sigmoid and the u step (the masked logit and p1 + p2 stand in)
+    "no_sigmoid_u": _all(
+        _cut("            sv[e] = (keep >> (4 * i + e)) & 1 ? sigmoid_fast",
+             "          rs[0] = __fadd_rn(",
+             "            sv[e] = (keep >> (4 * i + e)) & 1 ? logit : 0.f;\n"
+             "            uv[e] = __fadd_rn(__fadd_rn(p1[e], p2[e]), pg[e]);\n"
+             "          }\n"),
+        _maybe(_cut("            // CUTOUT sigmoid {",
+                    "            // CUTOUT sigmoid }",
+                    "            sv[e] = (keep >> (4 * i + e)) & 1 ? logit"
+                    " : 0.f;\n"
+                    "            uv[e] = __fadd_rn(p1[e], p2[e]);\n"))),
+    # every bf16 rounding the identity (the bf16 form's)
+    "no_bf16_round": _swap("  return __bfloat162float(__float2bfloat16_rn(x));",
+                           "  return x;"),
+    # the cross-warp block sums: each warp stores its own partials
+    # (racing; the shared-memory reduction and its barrier gone)
+    "no_block_sums": _first(
+        _cut("  // rowsum(U) over the group's four lanes, then the NS",
+             "template <bool BF16>\nstatic int launch_backward",
+             _OWN_PARTIALS + "}\n\n"),
+        _all(_cut("  // rowsum(U) over the group's four lanes, then the NS",
+                  "// -------------------------------------------------------"
+                  "--------------------\n// backward, bf16 scores",
+                  _OWN_PARTIALS + "}\n\n"),
+             _cut("  // CUTOUT sums {", "  // CUTOUT sums }",
+                  _OWN_PARTIALS))),
+}
+
 
 # 6c: the first edit of each pair cuts PR 12's form (a block every level
 # of a tile, lookup_tile<R, true>), the second the current one's (a block a
@@ -357,13 +512,61 @@ def splat_backward_calls(lib, dev, opts):
     return out
 
 
+def gn_fields(B, h, w, dev, g):
+    """Kernel 5's backward inputs (ae, vals, G) at the motion stage's
+    training call, as chip_smoke.py phase 3 builds them: the value field of
+    a GN system through SceneFlow's intrinsics at 1/8 res, embeddings at
+    the model's scale (iid, 1/8) and a random cotangent."""
+    def randn(*s, scale=1.0):
+        return (torch.randn(s, generator=g) * scale).to(dev)
+
+    def rand(*s, lo=0.0, hi=1.0):
+        return (torch.rand(s, generator=g) * (hi - lo) + lo).to(dev)
+
+    intr = torch.tensor([[1050.0 / 8, 1050.0 / 8, w / 2.0, 270.0 / 8]] * B,
+                        device=dev)
+    depth = rand(B, h, w, lo=2.0, hi=60.0)
+    Ts = se3.exp(randn(B, h, w, 6, scale=0.01))
+    target = (project(se3.act(Ts, inv_project(depth, intr)), intr)
+              + randn(B, h, w, 3, scale=0.5))
+    vals = gn.build_vals(Ts, target, rand(B, h, w, 3), depth,
+                         intr).contiguous()
+    ae = randn(B, h, w, 32, scale=1.0 / 8).contiguous()
+    return ae, vals, randn(B, h, w, 27)
+
+
+def gn_backward_calls(lib, dev, opts):
+    """5b at the motion stage's training call (B=4, 48x96 queries, f32
+    scores) and 5b bf16 at the same call with a 384x1024 crop (48x128,
+    bf16 scores, chip_smoke.py's random field)."""
+    g = _gen()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, w, fn in (("f32 48x96", 96, "gn_window_aggregate_backward"),
+                         ("bf16 48x128", 128,
+                          "gn_window_aggregate_backward_bf16")):
+        ae, vals, gg = gn_fields(4, 48, w, dev, g)
+        dae, dvals = torch.empty_like(ae), torch.empty_like(vals)
+        ts = [ae, vals, gg]
+        if fn.endswith("bf16") and not lib.old_form:
+            ts.append(gn.backward_bf16_scratch(ae))
+        ts += [dae, dvals]
+        args = [t.data_ptr() for t in ts] + [4, 48, w, 32, stream]
+        out[label] = (getattr(lib, kernels.KERNELS[fn][1]), args, ts)
+    return out
+
+
 # launchers whose parameters an older revision lacks: the marker of the
 # current form in the source, and the older argtypes (6c before its
 # scratch of level gradients)
 _OLD_ARGTYPES = {"corr_patch_lookup_coords_backward": (
     "void* dcoords, void* part,",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p])}
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    # 5b bf16 before its pre-pass's scratch of key records
+    "gn_window_aggregate_backward_bf16": (
+        "const void* g, void* recs, void* dae,",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])}
 
 # --kernel -> (source file, its cut-outs, the C entry points it times, the
 # calls)
@@ -375,6 +578,9 @@ TARGETS = {
                     ("corr_patch_lookup_coords_backward",), corr_coords_calls),
     "splat_backward": ("splat_composite.cu", SPLAT_BACKWARD_CUTOUTS,
                        ("splat_composite_backward",), splat_backward_calls),
+    "gn_backward": ("gn_window.cu", GN_BACKWARD_CUTOUTS,
+                    ("gn_window_aggregate_backward",
+                     "gn_window_aggregate_backward_bf16"), gn_backward_calls),
 }
 
 

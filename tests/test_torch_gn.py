@@ -398,12 +398,14 @@ def test_backward_single_tf32_products_break_the_sums(kind, single):
 
 def _backward_split_bf16(g, ae, vals, radius, single=False):
     """The bf16-score backward as kernel 5's bf16 form computes it: the
-    logits' S = A A^T and U A in 3xTF32; vb = bf16(v) and sb = bf16(s) are
-    exact in TF32, so G_i.vb_j and sb G take two products, G's lo and hi
-    (``single``: G's hi alone, the guard); dS = bf16(G_i.vb_j) an ordered
-    pair, U = d (dS + dS^T) with d = s (1 - s) of the f32 sigmoid; dvals
-    per 32-column block of the other end, rounded to bf16, added highest
-    block first."""
+    logits' S = A A^T and U A in 3xTF32; G in the three bf16 parts its key
+    pre-pass writes (``bf16_parts``: hi + mid + lo = G exactly), so the
+    two products with an exact bf16 operand, G_i.vb_j (and vb_i.G_j) and
+    sb G, take exact products, the small parts first (``single``: G's hi
+    part alone, the guard); dS = bf16(G_i.vb_j) an
+    ordered pair, U = d (dS + dS^T) with d = s (1 - s) of the f32 sigmoid;
+    dvals per 32-column block of the other end, rounded to bf16, added
+    highest block first."""
     B, h, w, C = ae.shape
     n = h * w
     q = ae.reshape(B, n, C)
@@ -415,15 +417,17 @@ def _backward_split_bf16(g, ae, vals, radius, single=False):
               & ((xs[:, None] - xs[None, :]).abs() <= radius))[None].float()
     s = torch.sigmoid(logits)
     G, V = g.reshape(B, n, 27), vals.reshape(B, n, 27)
-    gh, gl = _split(G)
+    gh, gm, gl = tgn.bf16_parts(G)
     vb = V.bfloat16().float()
 
-    def two(a, b_hi, b_lo):  # a b with b split, the small term first
-        return torch.bmm(a, b_hi) if single else \
-            torch.bmm(a, b_lo) + torch.bmm(a, b_hi)
+    def three(a, parts):  # a (gh + gm + gl), the small parts first
+        if single:
+            return torch.bmm(a, parts[0])
+        return (torch.bmm(a, parts[2]) + torch.bmm(a, parts[1])) \
+            + torch.bmm(a, parts[0])
 
-    dS = two(vb, gh.transpose(1, 2).contiguous(),
-             gl.transpose(1, 2).contiguous()).transpose(1, 2)
+    dS = three(vb, [t.transpose(1, 2).contiguous()
+                    for t in (gh, gm, gl)]).transpose(1, 2)
     dS = dS.bfloat16().float() * inside
     d = s * (1.0 - s)
     u = dS * d + dS.transpose(1, 2) * d
@@ -433,7 +437,8 @@ def _backward_split_bf16(g, ae, vals, radius, single=False):
     dvals = torch.zeros_like(G)
     for k in reversed(range(-(-w // 32))):
         m = (block == k)[None, :, None].float()
-        dvals = dvals + two(sb, gh * m, gl * m).bfloat16().float()
+        dvals = dvals + three(sb, [t * m for t in (gh, gm, gl)]
+                              ).bfloat16().float()
     return dae.reshape(ae.shape), dvals.reshape(vals.shape)
 
 
@@ -467,24 +472,23 @@ def _bf16_backward_shares(kind, scale, single=False):
 def test_backward_bf16_two_products_keep_the_sums(kind, scale):
     """Kernel 5's bf16-score backward on the tensor cores, emulated
     (``_backward_split_bf16``) at 8x128: every element within a bf16 ulp,
-    2^-7, of its sum of |terms| of the plain bf16 backward (measured 6.5e-4
-    at most), and at most 1e-2 of them beyond the f32 form's bound
-    (measured 0 to 6.9e-3: the value field's five decades make the dots'
-    f32 sums in another order cross a bf16 rounding boundary more often
-    than the model's field does, 5.8e-4 on the card): two products for
-    G_i.vb_j and sb G (the exact bf16 operand takes no lo part) leave only
-    the roundings the f32 sums in another order bring."""
+    2^-7, of its sum of |terms| of the plain bf16 backward, and at most
+    1e-2 of them beyond the f32 form's bound (the value field's five
+    decades make the dots' f32 sums in another order cross a bf16
+    rounding boundary more often than the model's field does): the two
+    products with an exact bf16 operand, G_i.vb_j and sb G, from G's
+    three bf16 parts leave only the roundings the f32 sums in another
+    order bring."""
     share, worst = _bf16_backward_shares(kind, scale)
     assert share <= 1e-2 and worst <= 2.0 ** -7
 
 
 @pytest.mark.parametrize("kind", ["random", "smooth"])
 def test_backward_bf16_one_product_breaks_the_sums(kind):
-    """The guard: G's hi part alone (one TF32 product, 2^-11 of each
-    term) moves the dots far enough that many more of their bf16
-    roundings flip at the model's embedding scale, 1/8: over ten times
-    the share beyond the f32 bound (measured 0.52 and 0.35 against
-    1.2e-3 and 4.3e-4)."""
+    """The guard: G's bf16 hi part alone (one product, 2^-9 of each term)
+    moves the dots far enough that many more of their bf16 roundings flip
+    at the model's embedding scale, 1/8: over ten times the share beyond
+    the f32 bound."""
     split, _ = _bf16_backward_shares(kind, 0.125)
     single, _ = _bf16_backward_shares(kind, 0.125, single=True)
     assert single > 10 * max(split, 1e-4)
@@ -512,3 +516,24 @@ def test_window_aggregate_plain_matches_dense_at_odd_shapes(h, w, radius, B):
         full = tgn.gn_window_aggregate_plain(T(ae / 8.0), T(np.abs(vals)),
                                              max(h, w)).numpy()
         assert (full > absum * (1 + 1e-3)).any()
+
+
+def test_bf16_parts_are_exact_across_magnitudes():
+    """``bf16_parts``: hi + mid + lo is x exactly, for values from 2^-100
+    to 2^100 and of both signs, each part a bf16 value."""
+    rng = np.random.RandomState(3)
+    x = T(rng.randn(4096) * 2.0 ** rng.randint(-100, 100, 4096))
+    parts = tgn.bf16_parts(x)
+    assert all(torch.equal(p, p.bfloat16().float()) for p in parts)
+    assert torch.equal(sum(p.double() for p in parts), x.double())
+
+
+@pytest.mark.parametrize("B,h,w", [(1, 3, 16), (2, 5, 100), (4, 48, 128)])
+def test_backward_bf16_scratch_pads_rows_to_chunks(B, h, w):
+    """The bf16-score backward's scratch: one 132-word record (int32) a
+    key, each row padded to whole 16-key chunks, as the kernel's pre-pass
+    writes them and its ring stages them, on the embeddings' device."""
+    ae = torch.zeros(B, h, w, 32)
+    recs = tgn.backward_bf16_scratch(ae)
+    assert recs.shape == (B, h, -(-w // 16) * 16, 132)
+    assert recs.dtype == torch.int32 and recs.device == ae.device

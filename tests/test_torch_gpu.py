@@ -714,9 +714,12 @@ def test_tile_warp_autograd_launches_both_kernels(dev):
 
 @pytest.mark.parametrize("B,H,W,C,field", [
     (4, 384, 768, 16, "random"),  # the training call
+    (1, 384, 1280, 16, "random"), (2, 16, 1280, 16, "smooth"),
+    (1, 16, 200, 16, "random"), (2, 12, 36, 16, "random"),
     (1, 32, 1280, 16, "random"), (2, 8, 1280, 32, "random"),
     (1, 8, 4096, 16, "random"), (1, 12, 64, 24, "random"),
     (3, 4, 768, 16, "smooth"), (1, 8, 256, 16, "pile"),
+    (1, 8, 5280, 16, "random"),  # the widest row: planes recomputed
 ])
 def test_tile_warp_backward_kernel_bf16(dev, B, H, W, C, field):
     """Kernel 1's backward in bf16 (the VJP of the exact form) against its
@@ -751,8 +754,9 @@ sys.path[:0] = sys.argv[1:3]
 from test_torch_gpu import _tile_warp_inputs
 from codd_torch.ops import tile_warp
 torch.backends.cudnn.allow_tf32 = False
+B, H, W = (int(a) for a in sys.argv[3:6])
 ins = [t.to(torch.bfloat16) for t in _tile_warp_inputs(
-    torch.device("cuda"), 4, 384, 768, 16, "random")]
+    torch.device("cuda"), B, H, W, 16, "random")]
 hyp3, fl, fr, gout = ins
 got = tile_warp.tile_warp_cost_backward(gout, hyp3, fl, fr)
 ref = tile_warp.tile_warp_cost_backward_plain(gout, hyp3, fl, fr)
@@ -763,22 +767,24 @@ print(" ".join(hashlib.sha1(t.cpu().view(torch.int16).numpy().tobytes())
 
 
 def test_tile_warp_backward_bf16_bits_across_processes(dev):
-    """The training call's case of test_tile_warp_backward_kernel_bf16 in
-    three processes of their own: the kernel's three outputs have the same
-    bits in each (the row's sort is stable; ranks taken in the order of
-    shared-memory atomics gave dfea_r other bits where a column's f32 sum
-    rounds to two bf16 values), and dhyp3 and dfea_l are the plain
-    version's."""
+    """The training call's case of test_tile_warp_backward_kernel_bf16,
+    and one 384x1280 image, each in three processes of their own: the
+    kernel's three outputs have the same bits in each (the row's sort is
+    stable and a column walks its slots in a fixed order; ranks taken in
+    the order of shared-memory atomics gave dfea_r other bits where a
+    column's f32 sum rounds to two bf16 values), and dhyp3 and dfea_l are
+    the plain version's."""
     here = Path(__file__).resolve().parent
-    runs = []
-    for _ in range(3):
-        r = subprocess.run([sys.executable, "-c", _BITS_SCRIPT, str(here),
-                            str(here.parent)], capture_output=True,
-                           text=True, timeout=300)
-        assert r.returncode == 0, r.stderr[-3000:]
-        runs.append(r.stdout.split()[-5:])
-    assert all(h == runs[0] for h in runs), runs
-    assert runs[0][:2] == runs[0][3:], runs[0]
+    for shape in ((4, 384, 768), (1, 384, 1280)):
+        runs = []
+        for _ in range(3):
+            r = subprocess.run([sys.executable, "-c", _BITS_SCRIPT, str(here),
+                                str(here.parent), *map(str, shape)],
+                               capture_output=True, text=True, timeout=300)
+            assert r.returncode == 0, r.stderr[-3000:]
+            runs.append(r.stdout.split()[-5:])
+        assert all(h == runs[0] for h in runs), (shape, runs)
+        assert runs[0][:2] == runs[0][3:], (shape, runs[0])
 
 
 @pytest.mark.parametrize("h,w,radius,B", [(12, 72, 32, 2), (5, 19, 3, 1),
@@ -942,11 +948,14 @@ def test_backward_kernels_under_autograd(dev):
         torch.ones_like(out), pyr["f1"], pyr["levels"], coords, 3))
 
 
-@pytest.mark.parametrize("h,w,B", [(12, 128, 1), (13, 160, 2), (48, 128, 4)])
+@pytest.mark.parametrize("h,w,B", [(12, 128, 1), (13, 160, 2), (48, 128, 4),
+                                   (48, 160, 4), (9, 100, 1), (11, 136, 1)])
 def test_gn_window_backward_bf16_kernel(dev, h, w, B):
     """Kernel 5's backward in its bf16-score form (R = 32) against its
     plain backward, at 1/8-res widths where codd_tpu scores in bf16 (128,
-    160; an odd h) and the motion stage's B = 4 at 48x128: each element
+    160; an odd h), the motion stage's B = 4 at 48x128 and 48x160, and
+    widths that are not a multiple of 16 (100, 136: a last chunk of zero
+    keys in the pre-pass's records): each element
     within one bf16 ulp (2^-7) of its sum of |terms| beyond the f32
     form's bound (each ordered pair's dS and each block sum of dvals, an
     f32 sum in another order, may round to the other bf16 value), at most
