@@ -54,11 +54,14 @@ Phases, in order:
      bits, with the share of boxes that are one chunk (the row's
      ``ms_scattered`` and ``one_chunk_share``); the volume lookup's
      backward 2b at the same call, for both selects ("xla", "reduce") on
-     both fields, against its plain backward (the volumes' cotangents in
-     bits, the coordinates' within 1e-5 of their sum of |terms|), twice
-     for equal bits, timed with the wrapper's ``torch.zeros`` of the
-     dense cotangents (the row's time; the kernel alone is ``ms_kernel``);
-     kernel 4's backward at the
+     both fields, dense and adding into a running cotangent, against its
+     plain backward (the volumes' cotangents in bits, the coordinates'
+     within 1e-5 of their sum of |terms|), twice for equal bits, timed
+     as the training step calls it, adding into the running cotangent
+     (the row's time; ``ms_cold`` with the L2 cache cold), and as the
+     dense VJP with the wrapper's ``torch.zeros`` (``ms_dense``,
+     ``bound_ms_dense``), beside grid_sample's backward on row 2's views
+     (``library_ms``); kernel 4's backward at the
      joint stage's two splat calls (one image of B=4: full res 384x768,
      C=6, r=1, the row's time; quarter res 96x192, C=32, r=2, the row's
      ``ms_quarter``) on random cotangents against its plain backward,
@@ -96,9 +99,12 @@ Phases, in order:
      trained by motion_loss; OneCycle 2e-4, on the panning plane, whose
      flow and disparity change are known in closed form), one step of the
      motion stage with ``corr_impl="volume"`` (kernel 2 forward twice an
-     iteration, 2b once, in place of 6 and 6b; 2b on the step's 16 calls
-     against its plain backward, the batch's gradients with 2b's plain
-     backward within 1e-3), one step of the motion stage with
+     iteration, 2b once, in place of 6 and 6b; the backward fills one
+     running cotangent of the volumes and adds no volume-shaped tensor,
+     the 16 calls of 2b add into it, each against its plain backward, and
+     what reaches the volumes' matmul is the in-order bf16 sum of the 16
+     plain dense cotangents in bits; the batch's gradients with 2b's
+     plain backward within 1e-3), one step of the motion stage with
      ``gn_bf16_scores`` at 384x1024 crops (kernel 5's bf16-score backward
      16 times a step, on each of its calls against its plain backward, the
      batch's gradients with its plain backward within 1e-3), then the joint
@@ -212,8 +218,8 @@ Phases, in order:
      and of the default one in bf16, under torch.profiler, split by
      category into chiprun_out/profile_step*.txt; both configurations
      streamed in turns; with the train phase, one more training step of
-     each stage into chiprun_out/profile_train_{stereo,fusion,motion,joint,
-     joint_full}.txt, and one batch of the motion and the joint stage run
+     each stage into chiprun_out/profile_train_{stereo,fusion,motion,
+     volume_motion,joint,joint_full}.txt, and one batch of the motion and the joint stage run
      twice in several configurations (each backward kernel alone,
      deterministic cuDNN and ATen), the gradients' run-to-run difference
      traced.
@@ -355,6 +361,22 @@ def _four_levels_equal(name, fn_all, fn_one, n_levels, K=49):
              "launches")
 
 
+def _grid_sample_views(vol, coords, i):
+    """Level ``i``'s bf16 volume as grid_sample's (B*N, 1, Hp, Wp) input
+    and the query's 7 x 7 window points on it (align_corners), a query a
+    batch row: the volume lookup as one library call."""
+    import torch
+    B, N, Hp, Wp = vol.shape
+    d = torch.arange(-3, 4, device=coords.device, dtype=torch.float32)
+    c = coords.reshape(B * N, 1, 1, 2) / 2 ** i + 7.0  # padded grid
+    pts = torch.stack(torch.broadcast_tensors(
+        c[..., 0] + d[None, None, :], c[..., 1] + d[None, :, None]), -1)
+    grid = (2 * pts / torch.tensor([Wp - 1.0, Hp - 1.0],
+                                   device=coords.device) - 1
+            ).to(torch.bfloat16)
+    return vol.reshape(B * N, 1, Hp, Wp), grid
+
+
 def corr_volume_check(vols, fields):
     """Kernel 2 on both fields against the plain version; its time, bound
     and the nearest library call: grid_sample on each bf16 volume viewed as
@@ -378,18 +400,10 @@ def corr_volume_check(vols, fields):
     coords = fields["smooth"]
     plain_ms = cuda_ms(lambda: [corr.corr_lookup_level_plain(
         v, coords / 2 ** i, 3) for i, v in enumerate(vols)])
-    B, N = vols[0].shape[:2]
-    d = torch.arange(-3, 4, device=coords.device, dtype=torch.float32)
+    N = vols[0].shape[1]
     lib = []
     for i, v in enumerate(vols):
-        Hp, Wp = v.shape[2:]
-        c = coords.reshape(B * N, 1, 1, 2) / 2 ** i + 7.0  # padded grid
-        pts = torch.stack(torch.broadcast_tensors(
-            c[..., 0] + d[None, None, :], c[..., 1] + d[None, :, None]), -1)
-        grid = (2 * pts / torch.tensor([Wp - 1.0, Hp - 1.0],
-                                       device=coords.device) - 1
-                ).to(torch.bfloat16)
-        img = v.reshape(B * N, 1, Hp, Wp)
+        img, grid = _grid_sample_views(v, coords, i)
         lib.append(cuda_ms(lambda: torch.nn.functional.grid_sample(
             img, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True)))
@@ -1211,43 +1225,93 @@ def corr_coords_backward_check(pyr, fields, g):
                     * 49 * 12), peak=BF16_FLOPS_PER_S, library_ms=None)
 
 
+def cuda_ms_cold(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` with the L2 cache cold: 256 MB written
+    before each call, each call timed alone by its own CUDA events."""
+    import torch
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
 def corr_volume_backward_check(vols, fields, g):
     """Kernel 2b, the volume lookup's backward, at the motion stage's
     training call (B=4, 48x96 queries, four levels) against its plain
     backward, for both selects ("xla", corr_impl volume; "reduce",
-    volume_reduce) on a smooth and a scattered field: the volumes'
-    cotangents equal in bits (the same roundings in the same order), the
-    coordinates' each within 1e-5 of its sum of |terms|
-    (``corr_lookup_coords_backward_terms``: the kernel sums a level's 49
-    products by rows, then the rows, the plain version in torch's order);
-    two launches equal in bits.  Timed as the autograd Function calls it,
-    ``torch.zeros`` of the dense cotangents included (the smooth field,
-    select "xla", is the row's time), and the kernel alone on zeroed
-    planes; the bound counts g, the coordinates and the taps of every
-    unmasked query-level read once, the dense cotangents (zeros included)
-    and the coordinates' gradient written once."""
-    import ctypes
-
+    volume_reduce) on a smooth and a scattered field, in its two uses:
+    dense (the VJP alone, into the wrapper's ``torch.zeros``) and adding
+    into a running cotangent (the training step's, here a dense cotangent
+    of another cotangent on the other field): the volumes' cotangents
+    equal in bits (the same roundings in the same order; the running one
+    also ``acc + dense`` in bits), the coordinates' each within 1e-5 of
+    its sum of |terms| (``corr_lookup_coords_backward_terms``: the kernel
+    sums a level's 49 products by rows, then the rows, the plain version
+    in torch's order); two launches equal in bits.  Timed as the training
+    step calls it, adding into a running cotangent (the row's ``ms``,
+    smooth field, select "xla"; ``ms_cold`` with the L2 cache cold), and
+    as the dense VJP with its ``torch.zeros`` (``ms_dense``).  The bound
+    of the training call counts g, the coordinates and their gradient,
+    the taps of every unmasked query-level read once and its window of
+    the running cotangent read and written; the dense VJP's counts the
+    dense cotangents (zeros included) written in place of the windows.
+    The library call is grid_sample's backward on row 2's views."""
     import torch
-    from codd_torch.ops import corr, kernels
+    from codd_torch.ops import corr
+
+    def bits(ts):
+        return [t.view(torch.int16) for t in ts]
+
     ms, err = {}, {}
     for select in ("xla", "reduce"):
         for fname, coords in fields.items():
+            other = next(c for k, c in fields.items() if k != fname)
             args = (g, vols, coords, 3, None, select)
             got = corr.corr_lookup_backward(*args)
             again = corr.corr_lookup_backward(*args)
             ref = corr.corr_lookup_backward_plain(*args)
             terms = corr.corr_lookup_coords_backward_terms(g, vols, coords)
+            # a running cotangent: another call's dense cotangent
+            run = corr.corr_lookup_backward_plain(g.flip(-1).contiguous(),
+                                                  vols, other, 3, None,
+                                                  select)[0]
+            acc = [corr.corr_lookup_backward(
+                *args, [r.clone() for r in run]) for _ in range(2)]
+            ref_acc = corr.corr_lookup_backward_plain(
+                *args, [r.clone() for r in run])
             torch.cuda.synchronize()
             label = f"corr_lookup_backward ({select}, {fname})"
-            if not (all(torch.equal(a, b) for a, b in zip(got[0], again[0]))
+            if not (all(torch.equal(a, b) for a, b in zip(
+                    bits(got[0]), bits(again[0])))
                     and torch.equal(got[1], again[1])):
                 fail(f"{label}: two launches differ in bits")
-            unequal = [i for i, (a, b) in enumerate(zip(got[0], ref[0]))
+            unequal = [i for i, (a, b) in enumerate(zip(bits(got[0]),
+                                                        bits(ref[0])))
                        if not torch.equal(a, b)]
             if unequal:
                 fail(f"{label}: the volumes' cotangents of levels {unequal} "
                      "differ from the plain backward's bits")
+            for i, (a, b, c, d, x) in enumerate(zip(
+                    bits(acc[0][0]), bits(acc[1][0]), bits(ref_acc[0]),
+                    ref[0], run)):
+                if not (torch.equal(a, b) and torch.equal(a, c)
+                        and torch.equal(a, (x + d).view(torch.int16))):
+                    fail(f"{label}: level {i}'s running cotangent differs "
+                         "between two launches, from the plain backward's "
+                         "bits or from acc + dense")
+            if not torch.equal(acc[0][1], got[1]):
+                fail(f"{label}: the coordinates' gradient differs when "
+                     "adding into a running cotangent")
             if not torch.isfinite(got[1]).all():
                 fail(f"{label}: non-finite coordinate gradient")
             e = (got[1] - ref[1]).abs()
@@ -1257,47 +1321,61 @@ def corr_volume_backward_check(vols, fields, g):
                      f"plain version ({share:.3f} of its allowance)")
             err[(select, fname)] = float(e.max())
             ms[(select, fname)] = cuda_ms(
+                lambda: corr.corr_lookup_backward(*args, run))
+            ms[(select, fname, "dense")] = cuda_ms(
                 lambda: corr.corr_lookup_backward(*args))
-            print(f"  {label}: {ms[(select, fname)]:.4f} ms (torch.zeros "
-                  f"of the dense cotangents included); volumes' cotangents "
-                  f"equal in bits to the plain backward's; coordinates' worst "
-                  f"|err| {share:.3f} of its allowance (1e-5 of the sum of "
-                  f"|terms|), max |err| {err[(select, fname)]:.3e}, max |ref| "
+            print(f"  {label}: {ms[(select, fname)]:.4f} ms adding into a "
+                  f"running cotangent, {ms[(select, fname, 'dense')]:.4f} "
+                  f"ms dense (torch.zeros included); volumes' cotangents, "
+                  f"dense and running, equal in bits to the plain "
+                  f"backward's; coordinates' worst |err| {share:.3f} of its "
+                  f"allowance (1e-5 of the sum of |terms|), max |err| "
+                  f"{err[(select, fname)]:.3e}, max |ref| "
                   f"{float(ref[1].abs().max()):.3e}; equal in bits on two "
                   "launches", flush=True)
     coords = fields["smooth"]
+    args = (g, vols, coords, 3, None, "xla")
+    run = corr.corr_lookup_backward_plain(*args)[0]
+    ms_cold = cuda_ms_cold(lambda: corr.corr_lookup_backward(*args, run))
     B, h, w = coords.shape[:3]
-    dvols = [torch.zeros_like(v) for v in vols]
-    dc = torch.empty((B, h, w, 2), dtype=torch.float32, device=g.device)
-    ptrs, hw, sc = corr._levels_args(vols, [v.shape[2:] for v in vols],
-                                     corr._scales(len(vols), None))
-    grads = (ctypes.c_void_p * len(vols))(*[d.data_ptr() for d in dvols])
-    kernel_ms = cuda_ms(lambda: kernels.launch(
-        "corr_lookup_backward", ptrs, hw, sc, len(vols), coords.data_ptr(),
-        g.data_ptr(), grads, dc.data_ptr(), B, h * w, 3, 0,
-        kernels.stream_ptr(g.device)))
-    zeros_ms = cuda_ms(lambda: [torch.zeros_like(v) for v in vols])
     valid = 0
     for i, v in enumerate(vols):
         *_, vq = corr._window_starts(coords / 2 ** i, v.shape[2] - 14,
                                      v.shape[3] - 14, 3)
         valid += int(vq.sum())
     dense = float(2 * sum(v.numel() for v in vols))
-    print(f"  corr_lookup_backward: the kernel alone on zeroed planes "
-          f"{kernel_ms:.4f} ms, torch.zeros of the {dense / 1e6:.0f} MB of "
-          f"dense cotangents {zeros_ms:.4f} ms; scattered field "
-          f"{ms[('xla', 'scattered')]:.4f} ms; select reduce "
-          f"{ms[('reduce', 'smooth')]:.4f} ms", flush=True)
+    # the nearest library call: grid_sample's backward (volume and grid)
+    # on row 2's views, its output's cotangent g's level in bf16, one call
+    # a level, timed alone
+    lib = []
+    for i, v in enumerate(vols):
+        img, grid = _grid_sample_views(v, coords, i)
+        go = (g.reshape(B * h * w, len(vols), 7, 7)[:, i:i + 1]
+              .to(torch.bfloat16).contiguous())
+        lib.append(cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            go, img, grid, 0, 0, True, [True, True])))
+    print(f"  corr_lookup_backward: library (grid_sampler_2d_backward, bf16) "
+          f"{sum(lib):.4f} ms = {' + '.join('%.4f' % t for t in lib)} by "
+          f"level; the training call with the L2 cache cold {ms_cold:.4f} "
+          f"ms; scattered field {ms[('xla', 'scattered')]:.4f} ms (dense "
+          f"{ms[('xla', 'scattered', 'dense')]:.4f}); select reduce "
+          f"{ms[('reduce', 'smooth')]:.4f} ms (dense "
+          f"{ms[('reduce', 'smooth', 'dense')]:.4f}); the "
+          f"{dense / 1e6:.0f} MB of dense cotangents the training call no "
+          "longer makes", flush=True)
+    inputs = 4 * g.numel() + 4 * coords.numel() * 2 + valid * 64 * 2
+    flops = float(valid * (64 * 12 + 49 * 12))
+    bound_dense, _ = bound_ms(inputs + dense, flops)
     return dict(
         name="corr_lookup_backward", source="codd_torch/csrc/corr_lookup.cu",
         replaces="codd_tpu/ops/corr.py:152",
         max_abs_err=max(err.values()), ms=ms[("xla", "smooth")],
-        ms_scattered=ms[("xla", "scattered")], ms_kernel=kernel_ms,
+        ms_cold=ms_cold, ms_scattered=ms[("xla", "scattered")],
+        ms_dense=ms[("xla", "smooth", "dense")], bound_ms_dense=bound_dense,
         plain_ms=cuda_ms(lambda: corr.corr_lookup_backward_plain(
-            g, vols, coords)),
-        bytes=float(4 * g.numel() + 4 * coords.numel() * 2
-                    + valid * 64 * 2 + dense),
-        flops=float(valid * (64 * 11 + 49 * 12)), library_ms=None)
+            *args, run)),
+        bytes=float(inputs + 2 * valid * 64 * 2), flops=flops,
+        library_ms=sum(lib))
 
 
 def kernel_checks(dev):
@@ -2146,24 +2224,87 @@ def motion_grad_checks(model, lc, batch, trace=False):
         ("both plain", both(gp, cp, False))])
 
 
+def volume_cotangent_ops(model, lc, batch):
+    """One batch's gradients (``stage_grads``) under torch.profiler, host
+    ops with their shapes: the fills (``aten::zero_``) and the adds
+    (``aten::add`` / ``add_``) of tensors as large as a volume of the
+    pyramid, the dense volume cotangents made and summed over the GN
+    iterations (shaped as the volume, or with its plane flat as the plain
+    backward makes it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from codd_torch.ops import corr
+    shapes, real = set(), corr.build_corr_pyramid
+
+    def build(*args, **kwargs):
+        vols = real(*args, **kwargs)
+        for v in vols:
+            B, N, Hp, Wp = v.shape
+            shapes.update({(B, N, Hp, Wp), (B, N, Hp * Wp)})
+        return vols
+
+    corr.build_corr_pyramid = build
+    try:
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as p:
+            stage_grads(model, lc, batch)
+    finally:
+        corr.build_corr_pyramid = real
+
+    def count(names):
+        return sum(1 for e in p.events() if e.name in names and e.input_shapes
+                   and tuple(e.input_shapes[0]) in shapes)
+
+    return count(("aten::zero_",)), count(("aten::add", "aten::add_"))
+
+
 def volume_motion_checks(model, lc, batch):
     """One batch of the motion stage with ``corr_impl="volume"`` (the
     lookup through the volume pyramid, kernel 2b in the backward),
-    gradients only, no update.  Gated: 2b on each of the step's 16 calls
-    against the plain backward on the same inputs (phase 3's rules:
-    volumes' cotangents in bits, coordinates' within 1e-5 of the sum of
-    |terms|); the batch's gradients with 2b swapped for its plain backward
-    (every other kernel kept): each parameter's within 1e-3 of its norm (a
-    norm counted as at least 1e-5 of the largest), the loss to 1e-6."""
+    gradients only, no update.  Gated: the batch's backward fills one
+    running cotangent (a ``zero_`` a level) and adds no tensor shaped as a
+    volume (``volume_cotangent_ops``); 2b's 16 calls all add into that one
+    running cotangent; on each call's inputs the dense VJP is the plain
+    backward's (phase 3's rules: volumes' cotangents in bits,
+    coordinates' within 1e-5 of the sum of |terms|); what reaches the
+    volumes' matmul (the ``VolumeCarry``'s gradient) is, in bits, the
+    in-order bf16 sum of the 16 calls' plain dense cotangents; the
+    batch's gradients with 2b swapped for its plain backward (every other
+    kernel kept): each parameter's within 1e-3 of its norm (a norm
+    counted as at least 1e-5 of the largest), the loss to 1e-6."""
     import torch
     from codd_torch.ops import corr
-    with recorded(corr, "corr_lookup_backward") as kept:
-        lk, gk, _ = stage_grads(model, lc, batch)
-    if len(kept) != 16:
-        fail(f"volume motion stage: {len(kept)} calls of kernel 2b in one "
-             "batch, not 16")
-    worst = 0.0
-    for i, (g, vols, coords, radius, scales, select) in enumerate(kept):
+    fills, adds = volume_cotangent_ops(model, lc, batch)
+    print(f"  volume motion stage, one batch's backward: {fills} fills and "
+          f"{adds} adds of tensors shaped as a volume", flush=True)
+    if (fills, adds) != (4, 0):
+        fail(f"volume motion stage: the backward fills {fills} and adds "
+             f"{adds} volume-shaped tensors, not one running cotangent (4 "
+             "and 0)")
+    arrived, real_build = [], corr.build_corr_pyramid
+
+    def build(*args, **kwargs):
+        vols = real_build(*args, **kwargs)
+        vols[0].grad_fn.register_hook(
+            lambda gi, go: arrived.append(list(gi)))
+        return vols
+
+    corr.build_corr_pyramid = build
+    try:
+        with recorded(corr, "corr_lookup_backward") as kept:
+            lk, gk, _ = stage_grads(model, lc, batch)
+    finally:
+        corr.build_corr_pyramid = real_build
+    iters = model.motion.raft3d.iters
+    if len(kept) != iters or len(arrived) != 1:
+        fail(f"volume motion stage: {len(kept)} calls of kernel 2b and "
+             f"{len(arrived)} volume cotangents in one batch, not {iters} "
+             "and 1")
+    if any(args[6] is None or args[6] is not kept[0][6] for args in kept):
+        fail("volume motion stage: the 16 calls of kernel 2b do not add "
+             "into one running cotangent")
+    worst, total = 0.0, None
+    for i, (g, vols, coords, radius, scales, select, _) in enumerate(kept):
         with torch.no_grad():
             got = corr.corr_lookup_backward(g, vols, coords, radius, scales,
                                             select)
@@ -2171,27 +2312,39 @@ def volume_motion_checks(model, lc, batch):
                                                   scales, select)
             terms = corr.corr_lookup_coords_backward_terms(g, vols, coords,
                                                            radius, scales)
-        if select != "xla" or not all(torch.equal(a, b)
-                                      for a, b in zip(got[0], ref[0])):
+        if select != "xla" or not all(
+                torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in zip(got[0], ref[0])):
             fail(f"volume motion stage: call {i} of kernel 2b (select "
                  f"{select}) differs from its plain backward's bits")
         worst = max(worst, float(((got[1] - ref[1]).abs()
                                   / (1e-5 * terms).clamp(min=1e-30)).max()))
+        total = ref[0] if total is None else [
+            t + d for t, d in zip(total, ref[0])]
+        del got, ref
     if worst > 1.0:
         fail(f"volume motion stage: kernel 2b's coordinate gradient "
              f"{worst:.3f} of its allowance")
-    del kept
+    if not all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(arrived[0], total)):
+        fail("volume motion stage: the cotangent that reaches the volumes' "
+             "matmul is not the in-order bf16 sum of the 16 plain dense "
+             "cotangents")
+    del kept, arrived, total
     with recorded(corr, "corr_lookup_backward",
                   corr.corr_lookup_backward_plain):
         lx, gx, _ = stage_grads(model, lc, batch)
     err, where = grads_apart(gk, gx, 1e-5, show=4)
     rel_loss = abs(lk - lx) / abs(lx)
-    print(f"  volume motion stage, one batch: kernel 2b on the step's 16 "
-          f"calls against its plain backward: volumes' cotangents equal in "
-          f"bits, coordinates' worst {worst:.3f} of the allowance; the "
-          f"batch's {len(gk)} gradients with 2b's plain backward (bound "
-          f"1e-3, loss 1e-6): loss {lx:.6f} (rel {rel_loss:.2e}), worst "
-          f"|diff| / |plain| {err:.2e} at {where}", flush=True)
+    print(f"  volume motion stage, one batch: kernel 2b's 16 calls add into "
+          f"one running cotangent; on each call's inputs its dense VJP "
+          f"equals the plain backward's bits, coordinates' worst "
+          f"{worst:.3f} of the allowance; the cotangent reaching the "
+          f"volumes' matmul is the in-order bf16 sum of the 16 plain dense "
+          f"cotangents, in bits; the batch's {len(gk)} gradients with 2b's "
+          f"plain backward (bound 1e-3, loss 1e-6): loss {lx:.6f} (rel "
+          f"{rel_loss:.2e}), worst |diff| / |plain| {err:.2e} at {where}",
+          flush=True)
     if set(gx) != set(gk) or err > 1e-3 or rel_loss > 1e-6:
         fail("volume motion stage: the gradients with kernel 2b disagree "
              "with those of its plain backward")
@@ -2781,8 +2934,8 @@ def train_phase(dev, profile_dir=None):
     """The stereo stage, the fusion stage, the motion stage, the joint
     stage, then the full joint stage; returns the launches of the five
     runs, summed by kernel.  With ``profile_dir``, one more step of each
-    under torch.profiler (profile_train_{stereo,fusion,motion,joint,
-    joint_full}.txt) and the run-to-run traces."""
+    under torch.profiler (profile_train_{stereo,fusion,motion,
+    volume_motion,joint,joint_full}.txt) and the run-to-run traces."""
     prof = (lambda n: None) if profile_dir is None else \
         (lambda n: profile_dir / f"profile_train_{n}.txt")
     import torch
@@ -2863,7 +3016,7 @@ def train_phase(dev, profile_dir=None):
                                1.0, dict(model.named_parameters()),
                                ["stereo"])
     volume = train_stage("volume motion stage", model, opt, lc, mb[:1],
-                         ("stereo",))
+                         ("stereo",), prof("volume_motion"))
     want = dict(per_step, corr_patch_lookup=0, corr_patch_lookup_backward=0,
                 corr_lookup=32, corr_lookup_backward=16)
     if volume != want:
@@ -3803,6 +3956,7 @@ def profile_call(run, label: str, out_file: Path):
     hand = {"tile_warp_cost_kernel": "tile_warp_cost",
             "tile_warp_cost_backward_kernel": "tile_warp_cost_backward",
             "corr_lookup_kernel": "corr_lookup",
+            "corr_lookup_backward_kernel": "corr_lookup_backward",
             "gn_fused_solve_kernel": "gn_fused_solve",
             "splat_composite_walk": "splat_composite",
             "splat_composite_lanes": "splat_composite",
@@ -4016,7 +4170,8 @@ def main():
             "plain_ms_bf16", "max_abs_err_bf16", "unequal_share_bf16",
             "ms_bf16_smooth", "ms_bf16_train", "bound_ms_bf16_train",
             "ms_smooth", "ms_scattered", "one_chunk_share", "global_adds",
-            "ms_kernel", "ms_f32_form", "beyond_f32_share_random",
+            "ms_cold", "ms_dense", "bound_ms_dense", "ms_f32_form",
+            "beyond_f32_share_random",
             "worst_over_terms_random", "beyond_f32_share_smooth",
             "worst_over_terms_smooth", "registers", "spill_bytes")
     print(f"chip_smoke: phases {','.join(sorted(phases))} in "

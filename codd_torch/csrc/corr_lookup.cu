@@ -29,19 +29,30 @@
 // and the coordinates (codd_tpu differentiates it through XLA; no Pallas
 // kernel of its own).  Per query and level the 49 cotangents g go through
 // the transpose of the bilinear combine to the t x t tap cotangents, which
-// land in the query's own plane of the volume's cotangent: a query writes
-// only its plane, so the planes are collision-free and no float atomics
-// are needed.  The corners' terms are added d11, d10, d01, d00, JAX's
-// order; select "xla" adds them in f32 and rounds once to bf16, select
-// "reduce" rounds each to bf16 and adds in bf16 (a template parameter).
-// The coordinates' cotangent is sum_levels scale * sum_taps g . d out / d
-// (fx, fy) on the masked taps read back from the volume, summed in a fixed
-// order (a lane's row, then the rows, then the levels), so two launches
-// give equal bits.  The planes outside the windows are the wrapper's
-// torch.zeros: the kernel writes the windows only.  Bound by bytes: per
-// query and level 49 f32 cotangents, 64 bf16 taps read and 64 written, 2
-// coords; one warp a query as in the forward, a lane a tap row of one
-// level, row ty - 1's cotangents from the lane before by a shuffle.
+// are added into the query's own plane of the volume's running cotangent:
+// a query touches only its plane, so the planes are collision-free and no
+// float atomics are needed.  The corners' terms are added d11, d10, d01,
+// d00, JAX's order; select "xla" adds them in f32 and rounds once to bf16,
+// select "reduce" rounds each to bf16 and adds in bf16 (a template
+// parameter).  Each tap's cotangent then meets the running cotangent as
+// autograd's bf16 add of a dense cotangent meets it: acc = bf16(acc + s),
+// one more rounding.  The training step's 16 GN iterations look up the
+// same volumes, so the 16 calls of one backward add into one running
+// cotangent, zeroed once (ops/corr.py:VolumeCarry), as codd_tpu's scan
+// carry adds each iteration's; on zeros the add is the dense VJP's store.
+// The coordinates' cotangent is sum_levels scale * sum_taps g . d out /
+// d (fx, fy) on the masked taps read back from the volume, summed in a
+// fixed order (a lane's row, then the rows, then the levels), so two
+// launches give equal bits.  Bound by bytes: per query and level 49 f32
+// cotangents, 64 bf16 taps read, the 64 window entries of the running
+// cotangent read and written, 2 coords (~43 MB for a training call at
+// B=4, 48x96, no dense plane); one warp a query as in the forward, a lane
+// a tap row of one level, row ty - 1's cotangents from the lane before by
+// a shuffle.  A lane reads its window row of the running cotangent in the
+// one or two aligned 16-byte blocks that hold it and writes back only the
+// row's own bytes, in the fewest naturally aligned stores: a wider store
+// would rewrite bytes of the next tap row of the plane or of the next
+// query's plane, which other lanes add into at the same time.
 #include <stdint.h>
 
 #include <cuda_bf16.h>
@@ -153,14 +164,89 @@ extern "C" int corr_lookup_launch(const void* const* vols, const int* hw,
 // Kernel 2b: the backward.
 // ---------------------------------------------------------------------------
 
-// The volumes' cotangents of one launch, level i at ptr[i], each shaped as
-// its volume (B, N, Hp, Wp) bf16 and zero on entry.
+// The volumes' running cotangents of one launch, level i at ptr[i], each
+// shaped as its volume (B, N, Hp, Wp) bf16 and 16-byte aligned; the
+// kernel adds each query's window into them.
 struct CorrGrads {
   void* ptr[CORR_MAX_LEVELS];
 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// row[i] = bf16(row[i] + s[i]) for the T bf16 entries at ``row`` (any even
+// byte address); each s[i] is a bf16 value.  The one or two aligned
+// 16-byte blocks that hold the row are read whole; the sums are placed
+// in the blocks' frame (the row starts at entry o of the first block) and
+// only entries o .. o + T - 1 are stored, each block by the largest
+// aligned pieces (16, 8, 4, 2 bytes) that lie inside the row.
+template <int T>
+__device__ __forceinline__ void add_row(unsigned short* row,
+                                        const float (&s)[T]) {
+  const uintptr_t addr = (uintptr_t)row;
+  const int o = (int)((addr & 15u) >> 1), e = o + T;
+  uint4* blk = (uint4*)(addr & ~(uintptr_t)15u);
+  const uint4 lo = blk[0];
+  const uint4 hi = e > 8 ? blk[1] : make_uint4(0, 0, 0, 0);
+  const unsigned a[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  unsigned w[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int m = 0; m < T / 2; ++m)  // s in the row's frame
+    w[m] = (__float_as_uint(s[2 * m]) >> 16) |
+           (__float_as_uint(s[2 * m + 1]) & 0xffff0000u);
+  // shifted by o entries into the blocks' frame
+  if (o & 1) {
+#pragma unroll
+    for (int m = 7; m > 0; --m) w[m] = __funnelshift_l(w[m - 1], w[m], 16);
+    w[0] <<= 16;
+  }
+  if (o & 2) {
+#pragma unroll
+    for (int m = 7; m > 0; --m) w[m] = w[m - 1];
+    w[0] = 0u;
+  }
+  if (o & 4) {
+#pragma unroll
+    for (int m = 7; m > 1; --m) w[m] = w[m - 2];
+    w[0] = w[1] = 0u;
+  }
+  unsigned n[8];  // the sums, every entry of the blocks (stored: the row's)
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const unsigned short l = __bfloat16_as_ushort(__float2bfloat16_rn(
+        __fadd_rn(bf16_lo(a[m]), bf16_lo(w[m]))));
+    const unsigned short h = __bfloat16_as_ushort(__float2bfloat16_rn(
+        __fadd_rn(bf16_hi(a[m]), bf16_hi(w[m]))));
+    n[m] = (unsigned)l | ((unsigned)h << 16);
+  }
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    if (o <= 8 * b && 8 * b + 8 <= e) {
+      blk[b] = make_uint4(n[4 * b], n[4 * b + 1], n[4 * b + 2], n[4 * b + 3]);
+      continue;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int p = 8 * b + 4 * hf, m = p / 2;
+      if (o <= p && p + 4 <= e) {
+        ((uint2*)blk)[p / 4] = make_uint2(n[m], n[m + 1]);
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int q = p + 2 * k;
+        if (o <= q && q + 2 <= e) {
+          ((unsigned*)blk)[q / 2] = n[q / 2];
+          continue;
+        }
+        if (o <= q && q < e)
+          ((unsigned short*)blk)[q] = (unsigned short)(n[q / 2] & 0xffffu);
+        if (o <= q + 1 && q + 1 < e)
+          ((unsigned short*)blk)[q + 1] = (unsigned short)(n[q / 2] >> 16);
+      }
+    }
+  }
 }
 
 template <int R, bool REDUCE>
@@ -229,10 +315,9 @@ corr_lookup_backward_kernel(const __grid_constant__ CorrLevels lv,
   const float fx = win.fx, fy = win.fy;
   const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
 
-  // the tap cotangents of row ty, written into the query's plane
+  // the tap cotangents of row ty, added into the query's plane
   if (active && win.vq && ty < T) {
-    __nv_bfloat16* dv = (__nv_bfloat16*)gr.ptr[lvl] +
-                        (q * Hp + win.sy + ty) * (long long)Wp + win.sx;
+    float sv[T];
 #pragma unroll
     for (int tx = 0; tx < T; ++tx) {
       // absent corners are the +0 of JAX's pads
@@ -252,9 +337,13 @@ corr_lookup_backward_kernel(const __grid_constant__ CorrLevels lv,
       } else {
         s = __fadd_rn(__fadd_rn(__fadd_rn(p11, p10), p01), p00);
       }
-      // 0 + s, as a scatter-add into zeros: a -0 becomes +0
-      dv[tx] = __float2bfloat16_rn(__fadd_rn(s, 0.0f));
+      // 0 + s, as a scatter-add into zeros: a -0 becomes +0, so no -0
+      // ever enters the running cotangent
+      sv[tx] = bf16_round(__fadd_rn(s, 0.0f));
     }
+    add_row<T>((unsigned short*)gr.ptr[lvl] +
+                   (q * Hp + win.sy + ty) * (long long)Wp + win.sx,
+               sv);
   }
 
   // the coordinates: row ty of the window, taps rows ty and ty + 1
@@ -318,7 +407,8 @@ static void corr_lookup_backward_r(bool reduce, unsigned blocks,
 
 // vols: L device pointers (B, N, Hp, Wp) bf16; hw: L (Hp, Wp) pairs;
 // scales: L floats; g (B, N, L * (2r+1)^2) f32; grads: L device pointers
-// shaped as vols, zeroed by the caller; dcoords (B, N, 2) f32.
+// shaped as vols, 16-byte aligned, the running cotangents the windows are
+// added into (zeros for the dense VJP); dcoords (B, N, 2) f32.
 // reduce != 0 takes select "reduce"'s roundings, else select "xla"'s.
 extern "C" int corr_lookup_backward_launch(
     const void* const* vols, const int* hw, const float* scales, int L,

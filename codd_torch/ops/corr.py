@@ -94,6 +94,19 @@ masked taps read back from the volume.  The rest of the VJP is the matmul
 that built the volumes, left to autograd as the forward leaves it to
 ``torch.matmul``.  ``volume_pallas`` (``select="pallas"``) raises under
 autograd: ``codd_tpu``'s ``window_select`` has no VJP either.
+
+The 16 GN iterations look up the same volumes, and ``codd_tpu``'s scan
+adds each iteration's cotangent of them into one carry.  The port does
+the same: under autograd ``build_corr_pyramid`` returns its volumes as a
+``VolumePyramid``, the outputs of an identity Function (``VolumeCarry``)
+that owns their running cotangent (``VolumeCotangent``: one bf16 tensor a
+level, zeroed at a backward pass's first 2b call).  Each 2b call adds its
+windows into it, acc = bf16(acc + window) as autograd's bf16 add of a
+dense cotangent would, and returns no gradient for the volumes; the
+carry's backward runs after every lookup's and hands the running
+cotangent to the matmul, bit for bit the dense cotangents' in-order sum,
+with no dense plane made or added an iteration.  A plain list of volumes
+has no running cotangent: its lookups return dense cotangents.
 """
 
 from __future__ import annotations
@@ -117,7 +130,8 @@ __all__ = ["build_corr_pyramid", "corr_lookup", "corr_lookup_levels",
            "corr_patch_lookup_coords_backward",
            "corr_patch_lookup_coords_backward_plain",
            "corr_patch_lookup_coords_backward_terms",
-           "CorrVolumeLookup", "CORR_SELECTS", "corr_lookup_backward",
+           "CorrVolumeLookup", "VolumePyramid", "VolumeCarry",
+           "VolumeCotangent", "CORR_SELECTS", "corr_lookup_backward",
            "corr_lookup_backward_plain", "corr_lookup_coords_backward_terms"]
 
 # runtime.corr_impl values; the three volume selects of codd_tpu are
@@ -159,7 +173,9 @@ def build_corr_pyramid(fmap1, fmap2, num_levels: int = 4, radius: int = 3,
     ``impl="volume"``: per-level bf16 volumes (B, h*w, Hp, Wp) with
     Hp = hl + 2(2r+1), Wp = wl + 2(2r+1).  ``impl="patch"``:
     ``{"f1": (B, h*w, C) bf16, "levels": [(B, Hp, Wp, C) bf16 padded]}``.
-    ``radius`` sets the padding and must match the lookup's."""
+    ``radius`` sets the padding and must match the lookup's.  Volumes that
+    require grad come as a ``VolumePyramid`` (their lookups' backward adds
+    into one running cotangent)."""
     if impl not in ("volume", "patch"):
         raise ValueError(f"bad corr pyramid impl {impl!r}")
     B, h, w, C = fmap1.shape
@@ -185,7 +201,72 @@ def build_corr_pyramid(fmap1, fmap2, num_levels: int = 4, radius: int = 3,
         vol = torch.matmul(f1.float(), f2p.reshape(B, Hp * Wp, C).float()
                            .transpose(1, 2))
         vols.append(vol.reshape(B, h * w, Hp, Wp).to(torch.bfloat16))
+    if torch.is_grad_enabled() and vols[0].requires_grad:
+        return VolumePyramid(vols)
     return vols
+
+
+class VolumeCotangent:
+    """The running cotangent of a pyramid's volumes in one backward pass:
+    one bf16 tensor a level, zeroed at the pass's first lookup backward
+    (``running``), into which every lookup of the pass adds its windows,
+    and handed to the volumes' producer by ``VolumeCarry``'s backward
+    (``take``), which releases it.  A pass is autograd's graph task, so a
+    second backward over a retained graph starts from zeros again.  It
+    holds no volume: the autograd nodes that keep it hold no reference to
+    the tensors they produced, so a step's graph is freed with its
+    tensors."""
+
+    def __init__(self):
+        self.levels, self.task = None, None
+
+    def running(self, vols):
+        task = torch._C._current_graph_task_id()
+        if self.levels is None or self.task != task:
+            self.levels = [torch.zeros_like(v) for v in vols]
+            self.task = task
+        return self.levels
+
+    def take(self):
+        levels, task = self.levels, self.task
+        self.levels, self.task = None, None
+        return levels if task == torch._C._current_graph_task_id() else None
+
+
+class VolumeCarry(torch.autograd.Function):
+    """The identity on the volumes, the owner of their running cotangent.
+    Every ``CorrVolumeLookup`` on them adds its windows into it and returns
+    no gradient for them; this backward runs after all of them and returns
+    it, so the matmul that built the volumes receives what autograd's
+    bf16 sum of the dense cotangents would have given it, bit for bit,
+    with no dense plane made or added a lookup.  The gradient of any other
+    op on the volumes (autograd's sum of them) is added to the running
+    cotangent last, in bf16."""
+
+    @staticmethod
+    def forward(ctx, cotangent, *vols):
+        ctx.cotangent = cotangent
+        ctx.set_materialize_grads(False)
+        return tuple(v.view_as(v) for v in vols)
+
+    @staticmethod
+    def backward(ctx, *dense):
+        running = ctx.cotangent.take()
+        if running is None:
+            return (None, *dense)
+        return (None, *[r if d is None else r.add_(d)
+                        for r, d in zip(running, dense)])
+
+
+class VolumePyramid(list):
+    """``build_corr_pyramid``'s volumes under autograd: the outputs of a
+    ``VolumeCarry``, with its running cotangent (``cotangent``), which the
+    lookups find through the pyramid they are given.  A plain list of
+    volumes has none: its lookups return dense cotangents."""
+
+    def __init__(self, vols):
+        self.cotangent = VolumeCotangent()
+        super().__init__(VolumeCarry.apply(self.cotangent, *vols))
 
 
 def _window_starts(coords, hl, wl, radius):
@@ -301,6 +382,7 @@ def corr_lookup_levels(vols: Sequence[torch.Tensor], coords, radius: int = 3,
             raise NotImplementedError("corr_lookup: under autograd the "
                                       "lookup makes its own output")
         return CorrVolumeLookup.apply(coords, radius, tuple(scales), select,
+                                      getattr(vols, "cotangent", None),
                                       *vols)
     if out is None:
         out = torch.empty((B, h, w, len(vols) * K), dtype=torch.float32,
@@ -351,11 +433,13 @@ def _tap_cotangents(g, fy, fx, vq, t, select):
     return (dd * vq[:, :, None, None]).to(torch.bfloat16)
 
 
-def _volume_backward(g, vols, coords, radius, scales, select, sign):
+def _volume_backward(g, vols, coords, radius, scales, select, sign,
+                     out=None):
     """Each level's window cotangents (with ``select``; none for
-    ``select=None``) and its masked taps against the bilinear weights'
-    derivatives, times its scale, summed in level order (``sign=1``: the
-    corners' terms added instead, their |terms| on |g| and |taps|)."""
+    ``select=None``), added into ``out``'s level or into zeros, and its
+    masked taps against the bilinear weights' derivatives, times its
+    scale, summed in level order (``sign=1``: the corners' terms added
+    instead, their |terms| on |g| and |taps|)."""
     B, h, w = coords.shape[:3]
     K = (2 * radius + 1) ** 2
     t = 2 * radius + 2
@@ -372,12 +456,13 @@ def _volume_backward(g, vols, coords, radius, scales, select, sign):
                + sx[..., None, None] + ar[None, :]).reshape(B, N, t * t)
         if select is not None:
             dd = _tap_cotangents(gi, fy, fx, vq, t, select)
-            # collision-free: each query writes its own plane; 0 + x makes
-            # every zero +0, as JAX's scatter-add into zeros does
-            dv = torch.zeros((B, N, Hp * Wp), dtype=torch.bfloat16,
-                             device=vol.device)
-            dv.scatter_add_(2, idx, dd.reshape(B, N, t * t))
-            dvols.append(dv.reshape(vol.shape))
+            # collision-free: each query adds into its own plane, one bf16
+            # rounding an element, as autograd's add of a dense cotangent;
+            # into zeros, 0 + x makes every zero +0, as JAX's scatter-add
+            dv = (torch.zeros_like(vol) if out is None else out[i])
+            dv.view(B, N, Hp * Wp).scatter_add_(2, idx,
+                                                dd.reshape(B, N, t * t))
+            dvols.append(dv)
         dots = torch.gather(vol.reshape(B, N, Hp * Wp), 2, idx).float()
         dots = dots.reshape(B, N, t, t) * vq[:, :, None, None]
         dc = dc + sc * _bilinear_coords(gi, dots, fy, fx, sign).reshape(
@@ -386,12 +471,16 @@ def _volume_backward(g, vols, coords, radius, scales, select, sign):
 
 
 def corr_lookup_backward_plain(g, vols, coords, radius: int = 3, scales=None,
-                               select: str = "xla"):
+                               select: str = "xla", out=None):
     """The VJP of ``corr_lookup_levels`` (``out`` made by it) for the
     cotangent g (B,h,w,L*(2r+1)^2) f32 -> ([dvol] bf16 shaped like
     ``vols``, zero outside each query's window; dcoords (B,h,w,2) f32, each
-    level's gradient times its scale, summed in level order)."""
-    return _volume_backward(g, vols, coords, radius, scales, select, -1.0)
+    level's gradient times its scale, summed in level order).  With
+    ``out`` (a running cotangent, a bf16 tensor a level shaped like its
+    volume, holding no -0), each window is added into it in place, one
+    bf16 rounding an element, and ``out`` is returned."""
+    return _volume_backward(g, vols, coords, radius, scales, select, -1.0,
+                            out)
 
 
 def corr_lookup_coords_backward_terms(g, vols, coords, radius: int = 3,
@@ -404,15 +493,17 @@ def corr_lookup_coords_backward_terms(g, vols, coords, radius: int = 3,
 
 
 def corr_lookup_backward(g, vols, coords, radius: int = 3, scales=None,
-                         select: str = "xla"):
+                         select: str = "xla", out=None):
     """Kernel 2b for CUDA tensors (one launch, every level), the plain
-    version for CPU tensors -> ([dvol] bf16, dcoords f32).  The volumes'
-    cotangents are made by ``torch.zeros``; the kernel writes each
-    query's window into them."""
+    version for CPU tensors -> ([dvol] bf16, dcoords f32).  The kernel
+    adds each query's window into ``out``, the volumes' running cotangent
+    (a 16-byte aligned bf16 tensor a level shaped like its volume, holding
+    no -0), or into the dense cotangents that ``torch.zeros`` makes when
+    it is not given."""
     vols = list(vols)
     if not vols[0].is_cuda:
         return corr_lookup_backward_plain(g, vols, coords, radius, scales,
-                                          select)
+                                          select, out)
     B, h, w = coords.shape[:3]
     K = (2 * radius + 1) ** 2
     name = "corr_lookup_backward"
@@ -427,7 +518,15 @@ def corr_lookup_backward(g, vols, coords, radius: int = 3, scales=None,
         raise ValueError(f"{name}: bad shapes g {tuple(g.shape)} volumes "
                          f"{[tuple(v.shape) for v in vols]} coords "
                          f"{tuple(coords.shape)}")
-    dvols = [torch.zeros_like(v) for v in vols]
+    if out is None:
+        dvols = [torch.zeros_like(v) for v in vols]
+    else:
+        dvols = list(out)
+        kernels.check_cuda(name, *dvols, dtypes=(torch.bfloat16,) * len(vols))
+        if (any(d.shape != v.shape for d, v in zip(dvols, vols))
+                or any(d.data_ptr() % 16 for d in dvols)):
+            raise ValueError(f"{name}: the running cotangent is not shaped "
+                             "as the volumes or not 16-byte aligned")
     dc = torch.empty((B, h, w, 2), dtype=torch.float32, device=g.device)
     ptrs, hw, sc = _levels_args(vols, [v.shape[2:] for v in vols],
                                 _scales(len(vols), scales))
@@ -441,21 +540,27 @@ def corr_lookup_backward(g, vols, coords, radius: int = 3, scales=None,
 class CorrVolumeLookup(torch.autograd.Function):
     """The four-level volume lookup (kernel 2) with kernel 2b's backward:
     the volumes' cotangents and, where they require it, the
-    coordinates'."""
+    coordinates'.  With a ``VolumeCotangent`` (the volumes of a
+    ``VolumePyramid``) the backward adds the windows into its running
+    cotangent and returns none for the volumes; without one it returns
+    their dense cotangents."""
 
     @staticmethod
-    def forward(ctx, coords, radius, scales, select, *vols):
+    def forward(ctx, coords, radius, scales, select, cotangent, *vols):
         ctx.radius, ctx.scales, ctx.select = radius, scales, select
+        ctx.cotangent = cotangent
         ctx.save_for_backward(coords, *vols)
         return corr_lookup_levels(vols, coords, radius, scales)
 
     @staticmethod
     def backward(ctx, g):
         coords, *vols = ctx.saved_tensors
-        dvols, dc = corr_lookup_backward(g.contiguous(), vols, coords,
-                                         ctx.radius, ctx.scales, ctx.select)
+        cot = ctx.cotangent
+        dvols, dc = corr_lookup_backward(
+            g.contiguous(), vols, coords, ctx.radius, ctx.scales, ctx.select,
+            None if cot is None else cot.running(vols))
         return (dc if ctx.needs_input_grad[0] else None, None, None, None,
-                *dvols)
+                None, *(dvols if cot is None else [None] * len(vols)))
 
 
 def _tap_dots(f1, f2p, coords, radius):

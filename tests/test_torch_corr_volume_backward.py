@@ -149,7 +149,9 @@ def test_volume_backward_selects_round_differently():
 @pytest.mark.parametrize("select", SELECTS)
 def test_volume_backward_through_the_pyramid(select):
     """``corr_lookup`` on the port's pyramid under autograd runs as
-    ``CorrVolumeLookup``.  The f32 products after the pyramid's matmul
+    ``CorrVolumeLookup``; the volumes' cotangent, as the pyramid's
+    ``VolumeCarry`` hands it to the matmul, equals codd_tpu's in bits.
+    The f32 products after the pyramid's matmul
     (each volume's cotangent against the bf16 operands) within 1e-5 of
     the largest of their f64 values from codd_tpu's cotangents.  Each
     level's gradient of f1 is rounded to bf16 before the levels add, as
@@ -164,8 +166,8 @@ def test_volume_backward_through_the_pyramid(select):
     out = tcorr.corr_lookup(vols, c, 3, select=select)
     assert type(out.grad_fn).__name__ == "CorrVolumeLookupBackward"
     seen, prods, real = {}, [], torch.matmul
-    for i, v in enumerate(vols):
-        v.register_hook(lambda d, i=i: seen.__setitem__(i, d))
+    # where the volumes' (running) cotangent reaches the matmul
+    vols[0].grad_fn.register_hook(lambda gi, go: seen.update(enumerate(gi)))
 
     def matmul(x, y):   # each level's f32 product's gradient of f1
         i = len(prods)
@@ -410,9 +412,11 @@ def test_volume_cotangents_add_as_the_scan_carry(volume_stage, monkeypatch):
     """Each GN iteration runs under ``torch.utils.checkpoint(use_reentrant=
     False)``; the volumes' gradient reaches them through it, one 2b call
     an iteration, last iteration first (its coordinates are those of the
-    forward's calls in reverse), and autograd's buffer adds their
-    cotangents in bf16 in that order, one rounding an iteration, as
-    codd_tpu's scan carry adds them."""
+    forward's calls in reverse).  Every call adds into the pyramid's one
+    running cotangent, in bf16 in that order, one rounding an iteration,
+    as codd_tpu's scan carry adds them: what reaches the volumes' matmul
+    (the ``VolumeCarry``'s gradient) is the in-order bf16 sum of the
+    calls' dense cotangents, in bits."""
     s = volume_stage
     model = build_estimator(s["cfg"], device="cpu", seed=None)
     model.load_state_dict(torch_state_dict_from_jax(s["variables"]),
@@ -425,13 +429,15 @@ def test_volume_cotangents_add_as_the_scan_carry(volume_stage, monkeypatch):
     def build(*args, **kwargs):
         vols = real_build(*args, **kwargs)
         if isinstance(vols, list) and vols[0].requires_grad:
-            for i, v in enumerate(vols):
-                v.register_hook(lambda d, i=i: seen.__setitem__(i, d))
+            vols[0].grad_fn.register_hook(
+                lambda gi, go: seen.update(enumerate(gi)))
         return vols
 
     def backward(*args):
+        # the call's dense cotangent, from the plain backward
+        dense = tcorr.corr_lookup_backward_plain(*args[:6])[0]
         out = real_bwd(*args)
-        bwd.append((args[2], out[0]))
+        bwd.append((args[2], dense, args[6]))
         return out
 
     monkeypatch.setattr(tcorr.CorrVolumeLookup, "apply",
@@ -444,12 +450,13 @@ def test_volume_cotangents_add_as_the_scan_carry(volume_stage, monkeypatch):
     loss.backward()
     # the forward's calls, then the checkpoint's recompute of each
     assert len(fwd) == 2 * ITERS and len(bwd) == ITERS
-    for k, (coords, _) in enumerate(bwd):
+    for k, (coords, _, running) in enumerate(bwd):
         assert torch.equal(coords, fwd[ITERS - 1 - k])
+        assert running is bwd[0][2]
     assert sorted(seen) == [0, 1, 2, 3]
     for i, got in seen.items():
         acc = bwd[0][1][i]
-        for _, d in bwd[1:]:
+        for _, d, _ in bwd[1:]:
             acc = acc + d[i]
         assert got.dtype == torch.bfloat16 and torch.equal(got, acc)
 

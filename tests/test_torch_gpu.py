@@ -155,7 +155,12 @@ def test_corr_lookup_backward_kernel(dev, r, select):
     roundings in the same order), zero outside the windows; the
     coordinates' within 1e-5 of their sum of |terms| (sums in another
     order); two launches equal in bits; under autograd ``corr_lookup``
-    runs as ``CorrVolumeLookup`` and launches 2b once a backward."""
+    runs as ``CorrVolumeLookup`` and launches 2b once a backward.  Added
+    into a running cotangent (random bf16 values and +0s, no -0), the
+    plain version's bits and ``acc + dense``, two launches equal; on the
+    pyramid's volumes two lookups add into one running cotangent, which
+    reaches the volumes' matmul with the bits of the same lookups' dense
+    sum on a bare list."""
     g = _g()
     f1, f2 = (torch.randn(2, 12, 40, 64, generator=g).to(dev)
               for _ in range(2))
@@ -184,6 +189,43 @@ def test_corr_lookup_backward_kernel(dev, r, select):
     for v, b in zip(need, ref[0]):
         assert torch.equal(v.grad, b)
     assert torch.equal(c.grad, got[1])
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    run = []
+    for v in vols:
+        a = torch.randn(v.shape, generator=g)
+        a[torch.rand(v.shape, generator=g) < 0.25] = 0.0
+        run.append(a.to(dev, torch.bfloat16))
+    kernels.reset_counts()
+    acc = [corr.corr_lookup_backward(cot, vols, coords, r, None, select,
+                                     [a.clone() for a in run])
+           for _ in range(2)]
+    ref_acc = corr.corr_lookup_backward_plain(cot, vols, coords, r, None,
+                                              select, [a.clone() for a in run])
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_lookup_backward"] == 2
+    for a, b, c, d, x in zip(acc[0][0], acc[1][0], ref_acc[0], ref[0], run):
+        assert torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))
+        assert torch.equal(bits(a), bits(x + d))
+    assert torch.equal(acc[0][1], got[1])
+    # the pyramid's volumes: one running cotangent for two lookups
+    a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    pyr = corr.build_corr_pyramid(a1, a2, 4, r)
+    arrived = []
+    pyr[0].grad_fn.register_hook(lambda gi, go: arrived.append(gi))
+    bare = [v.detach().clone().requires_grad_() for v in vols]
+    fields = (coords, (coords + 0.7).contiguous())
+    kernels.reset_counts()
+    for vs in (pyr, bare):
+        sum((corr.corr_lookup(vs, c, r, select=select) * cot).sum()
+            for c in fields).backward()
+    torch.cuda.synchronize()
+    assert kernels.counts()["corr_lookup_backward"] == 4
+    assert len(arrived) == 1
+    for x, v in zip(arrived[0], bare):
+        assert torch.equal(bits(x), bits(v.grad))
 
 
 @pytest.mark.parametrize("r", [0, 1, 3])
