@@ -44,6 +44,7 @@ from .fusion.others import gt_fusion, kalman_fusion
 from .motion.motion import Motion
 from .motion.others import gt_motion
 from .stereo.hitnet import HITNetStereo
+from ..utils.spans import span
 
 __all__ = ["CODD", "CoddCarry", "MOTION_TYPES", "FUSION_TYPES"]
 
@@ -110,33 +111,36 @@ class CODD(nn.Module):
 
     def _stereo_forward(self, left, right, train: bool):
         s_train = train and not self.freeze_stereo
-        with _grad(s_train):
+        with _grad(s_train), span("stereo"):
             return self.stereo(left, right, train=s_train)
 
     def _project_feat(self, out, train: bool = False):
         """Memory features: the fusion net's key projection, or the raw
         stereo features without a fusion net."""
-        if self.fusion_type != "Fusion":
-            return out["left_feat"]
-        with _grad(train and not self.freeze_fusion):
-            return self.fusion.project(out["left_feat"])
+        with span("project"):
+            if self.fusion_type != "Fusion":
+                return out["left_feat"]
+            with _grad(train and not self.freeze_fusion):
+                return self.fusion.project(out["left_feat"])
 
     def first_step(self, left, right, intrinsics, train: bool = False
                    ) -> Tuple[CoddCarry, Dict[str, Any]]:
         """Frame 0: stereo + feature caches; no motion/fusion compute."""
-        out = self._stereo_forward(left, right, train)
-        B, H, W, _ = left.shape
-        if self.motion_type == "Motion":
-            with _grad(train and not self.freeze_motion):
-                fmap, netinp = self.motion.encode(left)
-        else:
-            fmap = left.new_zeros((B, H // 8, W // 8, 128))
-            netinp = left.new_zeros((B, H // 8, W // 8, 512))
-        carry = CoddCarry(
-            memory_img=left, memory_feat=self._project_feat(out, train),
-            memory_disp=out["pred_disp"][..., 0], fmap=fmap, netinp=netinp,
-            kalman_p=left.new_zeros((B, H, W, 1)))
-        return carry, out
+        with span("first_step"):
+            out = self._stereo_forward(left, right, train)
+            B, H, W, _ = left.shape
+            if self.motion_type == "Motion":
+                with _grad(train and not self.freeze_motion), \
+                        span("motion.encode"):
+                    fmap, netinp = self.motion.encode(left)
+            else:
+                fmap = left.new_zeros((B, H // 8, W // 8, 128))
+                netinp = left.new_zeros((B, H // 8, W // 8, 512))
+            carry = CoddCarry(
+                memory_img=left, memory_feat=self._project_feat(out, train),
+                memory_disp=out["pred_disp"][..., 0], fmap=fmap, netinp=netinp,
+                kalman_p=left.new_zeros((B, H, W, 1)))
+            return carry, out
 
     def step(self, carry: CoddCarry, left, right, intrinsics,
              gt: Optional[Dict[str, torch.Tensor]] = None,
@@ -145,62 +149,65 @@ class CODD(nn.Module):
         ``gt`` holds this frame's ground truth for the oracle variants:
         GTMotion reads gt_flow / gt_disp_change / gt_flow_occ, GTFusion
         gt_disp."""
-        out = self._stereo_forward(left, right, train)
-        pred_disp = out["pred_disp"]
-        B, H, W, _ = left.shape
-        fmap, netinp = carry.fmap, carry.netinp
+        with span("step"):
+            out = self._stereo_forward(left, right, train)
+            pred_disp = out["pred_disp"]
+            B, H, W, _ = left.shape
+            fmap, netinp = carry.fmap, carry.netinp
 
-        if self.motion_type == "Motion":
-            m_train = train and not self.freeze_motion
-            with _grad(m_train):
-                memory5, raft_out, fmap, netinp = self.motion(
-                    left, pred_disp[..., 0], carry.memory_img,
-                    carry.memory_feat, carry.memory_disp, carry.fmap,
-                    carry.netinp, intrinsics, train_mode=m_train,
-                    warp_grad=self._warp_grad(train))
-            _, feat_warp, confidence_warp, disp_warp, flow_warp = memory5
-            out.update(raft_out)
-        elif self.motion_type == "GTMotion":
-            memory5, out["Ts"] = gt_motion(
-                carry.memory_img, carry.memory_feat, carry.memory_disp,
-                gt["gt_flow"], gt["gt_disp_change"], gt["gt_flow_occ"])
-            _, feat_warp, confidence_warp, disp_warp, flow_warp = memory5
-        else:  # no motion: the memory passes through unwarped
-            feat_warp = carry.memory_feat
-            disp_warp = carry.memory_disp
-            flow_warp = left.new_zeros((B, H, W, 3))
-            confidence_warp = left.new_ones((B, H, W, 3))
+            if self.motion_type == "Motion":
+                m_train = train and not self.freeze_motion
+                disp_curr = pred_disp[..., 0]
+                with _grad(m_train), span("motion"):
+                    memory5, raft_out, fmap, netinp = self.motion(
+                        left, disp_curr, carry.memory_img,
+                        carry.memory_feat, carry.memory_disp, carry.fmap,
+                        carry.netinp, intrinsics, train_mode=m_train,
+                        warp_grad=self._warp_grad(train))
+                _, feat_warp, confidence_warp, disp_warp, flow_warp = memory5
+                out.update(raft_out)
+            elif self.motion_type == "GTMotion":
+                memory5, out["Ts"] = gt_motion(
+                    carry.memory_img, carry.memory_feat, carry.memory_disp,
+                    gt["gt_flow"], gt["gt_disp_change"], gt["gt_flow_occ"])
+                _, feat_warp, confidence_warp, disp_warp, flow_warp = memory5
+            else:  # no motion: the memory passes through unwarped
+                feat_warp = carry.memory_feat
+                disp_warp = carry.memory_disp
+                flow_warp = left.new_zeros((B, H, W, 3))
+                confidence_warp = left.new_ones((B, H, W, 3))
 
-        feat_curr = self._project_feat(out, train)
-        kalman_p = carry.kalman_p
-        if kalman_p is None:
-            kalman_p = left.new_zeros((B, H, W, 1))
+            feat_curr = self._project_feat(out, train)
+            kalman_p = carry.kalman_p
+            if kalman_p is None:
+                kalman_p = left.new_zeros((B, H, W, 1))
 
-        if self.fusion_type == "Fusion":
-            with _grad(train and not self.freeze_fusion):
-                fused, wf, wr = self.fusion(
-                    pred_disp, disp_warp[..., None], feat_curr, feat_warp,
-                    flow_warp, confidence_warp, out["left_feat"],
-                    out["right_feat"])
-            out["fusion_weights"] = wf
-            out["reset_weights"] = wr
-        elif self.fusion_type == "GTFusion":
-            fused = gt_fusion(pred_disp, disp_warp[..., None], gt["gt_disp"])
-        elif self.fusion_type == "KalmanFusion":
-            fused, kalman_p = kalman_fusion(pred_disp, disp_warp[..., None],
-                                            kalman_p)
-        else:  # NullFusion / none: pred_disp stays the stereo output
-            fused = None
-        if fused is not None:
-            out["pred_curr"] = pred_disp
-            out["pred_warp"] = disp_warp[..., None]
-            out["pred_disp"] = fused
+            pred_warp = disp_warp[..., None]
+            if self.fusion_type == "Fusion":
+                with _grad(train and not self.freeze_fusion), span("fusion"):
+                    fused, wf, wr = self.fusion(
+                        pred_disp, pred_warp, feat_curr, feat_warp,
+                        flow_warp, confidence_warp, out["left_feat"],
+                        out["right_feat"])
+                out["fusion_weights"] = wf
+                out["reset_weights"] = wr
+            elif self.fusion_type == "GTFusion":
+                fused = gt_fusion(pred_disp, pred_warp, gt["gt_disp"])
+            elif self.fusion_type == "KalmanFusion":
+                fused, kalman_p = kalman_fusion(pred_disp, pred_warp,
+                                                kalman_p)
+            else:  # NullFusion / none: pred_disp stays the stereo output
+                fused = None
+            if fused is not None:
+                out["pred_curr"] = pred_disp
+                out["pred_warp"] = pred_warp
+                out["pred_disp"] = fused
 
-        new_carry = CoddCarry(
-            memory_img=left, memory_feat=feat_curr,
-            memory_disp=out["pred_disp"][..., 0], fmap=fmap, netinp=netinp,
-            kalman_p=kalman_p)
-        return new_carry, out
+            new_carry = CoddCarry(
+                memory_img=left, memory_feat=feat_curr,
+                memory_disp=out["pred_disp"][..., 0], fmap=fmap, netinp=netinp,
+                kalman_p=kalman_p)
+            return new_carry, out
 
     def forward(self, left_seq, right_seq, intrinsics, train: bool = False,
                 gt_seq: Optional[Dict[str, torch.Tensor]] = None

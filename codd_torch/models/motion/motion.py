@@ -28,6 +28,7 @@ from .raft3d import RAFT3D
 
 from ...utils.masks import BF_DEFAULT  # baseline * focal = 210
 from ...utils.precision import rdiv
+from ...utils.spans import span
 
 __all__ = ["Motion", "BF_DEFAULT", "disp_to_depth"]
 
@@ -63,7 +64,8 @@ class Motion(nn.Module):
             img_curr, depth_prev, depth_curr, intrinsics, fmap_prev,
             netinp_prev, train_mode=train_mode)
         # no loss reaches the warped memory without warp_grad (docstring)
-        with contextlib.nullcontext() if warp_grad else torch.no_grad():
+        with contextlib.nullcontext() if warp_grad else torch.no_grad(), \
+                span("motion.splat"):
             memory5 = self._warp(img_curr, raft_out, memory_img, memory_feat,
                                  depth_prev, intrinsics)
         return memory5, raft_out, fmap_curr, netinp_curr

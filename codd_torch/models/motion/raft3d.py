@@ -43,6 +43,7 @@ from ...ops.projective import induced_flow, projective_transform
 from ...ops.upsample import cvx_upsample, upsample_se3
 from ...ops.warp import meshgrid_xy
 from ...utils.precision import rdiv
+from ...utils.spans import span
 from ..layers import Conv
 from .encoders import BasicEncoder
 from .hrnet import HRNetSmall, ResizeConcatConv
@@ -127,23 +128,26 @@ class GNIteration(nn.Module):
     def forward(self, net, Ts, inp, vols, depth1_r8, zinv2, intr8, coords0,
                 depth_prev=None, intrinsics=None):
         Ts = Ts.detach()
-        coords1_xyz, _ = projective_transform(Ts, depth1_r8, intr8)
-        coords1 = coords1_xyz[..., :2]
-        zinv_proj = coords1_xyz[..., 2:]
-        zinv = grid_sample(zinv2[..., None], coords1, mode="bilinear",
-                           padding_mode="zeros")
-        corr = corr_ops.corr_lookup(vols, coords1, self.corr_radius,
-                                    select=self.corr_select)
-        flow = coords1 - coords0
-        dz = zinv - zinv_proj
-        twist = se3.log(Ts)
-        dt = net.dtype  # the carry keeps its dtype under bf16
-        net2, mask, ae, delta, weight = self.update_block(
-            net, inp, corr, flow, dz, twist)
-        target = (coords1_xyz + delta).float()
-        Ts = gn_step(Ts, ae, target, weight, depth1_r8, intr8,
-                     impl=self.gn_impl, bf16_scores=self.gn_bf16_scores
-                     ).to(Ts.dtype)
+        with span("gn.lookup"):
+            coords1_xyz, _ = projective_transform(Ts, depth1_r8, intr8)
+            coords1 = coords1_xyz[..., :2]
+            zinv_proj = coords1_xyz[..., 2:]
+            zinv = grid_sample(zinv2[..., None], coords1, mode="bilinear",
+                               padding_mode="zeros")
+            corr = corr_ops.corr_lookup(vols, coords1, self.corr_radius,
+                                        select=self.corr_select)
+        with span("gn.update"):
+            flow = coords1 - coords0
+            dz = zinv - zinv_proj
+            twist = se3.log(Ts)
+            dt = net.dtype  # the carry keeps its dtype under bf16
+            net2, mask, ae, delta, weight = self.update_block(
+                net, inp, corr, flow, dz, twist)
+        with span("gn.solve"):
+            target = (coords1_xyz + delta).float()
+            Ts = gn_step(Ts, ae, target, weight, depth1_r8, intr8,
+                         impl=self.gn_impl, bf16_scores=self.gn_bf16_scores
+                         ).to(Ts.dtype)
         mask = mask.to(dt)
         out = (net2.to(dt), Ts, mask, weight.to(dt))
         if depth_prev is None:
@@ -201,10 +205,11 @@ class RAFT3D(nn.Module):
                     "volume, volume_reduce, patch or auto")
             if self.corr_impl == "auto":
                 pyramid_impl = "patch"
-        fmap_curr = self.fnet(image_curr)
-        vols = corr_ops.build_corr_pyramid(fmap_prev, fmap_curr,
-                                           self.corr_levels, self.corr_radius,
-                                           impl=pyramid_impl)
+        with span("motion.features"):
+            fmap_curr = self.fnet(image_curr)
+            vols = corr_ops.build_corr_pyramid(
+                fmap_prev, fmap_curr, self.corr_levels, self.corr_radius,
+                impl=pyramid_impl)
         net = torch.tanh(netinp_prev[..., :128])
         inp = F.relu(netinp_prev[..., 128:])
         intr8 = intrinsics / 8.0
@@ -217,21 +222,24 @@ class RAFT3D(nn.Module):
         weight = torch.zeros((B, h8, w8, 3), dtype=dt, device=dev)
         ests, revs = [], []
         for _ in range(self.iters):
-            if train_mode:
-                net, Ts, mask, weight, est, rev = checkpoint(
-                    self.gn_iter, net, Ts, inp, vols, depth1_r8, zinv2,
-                    intr8, coords0, depth_prev, intrinsics,
-                    use_reentrant=False)
-                ests.append(est)
-                revs.append(rev)
-            else:
-                net, Ts, mask, weight = self.gn_iter(
-                    net, Ts, inp, vols, depth1_r8, zinv2, intr8, coords0)
-        Ts_up = upsample_se3(Ts, mask)
-        flow2d, _, _ = induced_flow(Ts_up, depth_prev, intrinsics)
-        out = {"Ts": Ts_up, "flow2d_est_induced": flow2d,
-               "weight": cvx_upsample(weight, mask)}
+            with span("motion.gn_iter"):
+                if train_mode:
+                    net, Ts, mask, weight, est, rev = checkpoint(
+                        self.gn_iter, net, Ts, inp, vols, depth1_r8, zinv2,
+                        intr8, coords0, depth_prev, intrinsics,
+                        use_reentrant=False)
+                    ests.append(est)
+                    revs.append(rev)
+                else:
+                    net, Ts, mask, weight = self.gn_iter(
+                        net, Ts, inp, vols, depth1_r8, zinv2, intr8, coords0)
+        with span("motion.upsample"):
+            Ts_up = upsample_se3(Ts, mask)
+            flow2d, _, _ = induced_flow(Ts_up, depth_prev, intrinsics)
+            out = {"Ts": Ts_up, "flow2d_est_induced": flow2d,
+                   "weight": cvx_upsample(weight, mask)}
         if train_mode:
             out["flow2d_est"], out["flow2d_rev"] = ests, revs
-        netinp_curr = self.cnet_out(self.cnet(image_curr))
+        with span("motion.context"):
+            netinp_curr = self.cnet_out(self.cnet(image_curr))
         return out, fmap_curr, netinp_curr

@@ -27,6 +27,7 @@ from ...ops.tile_warp import (VARIANT_FORMS, VARIANTS, tile_warp_cost,
                               tile_warp_grouped, tile_warp_tilewin)
 from ...ops.upsample import hyp_upsample, pixel_unshuffle
 from ...utils.precision import absolute
+from ...utils.spans import span
 from ..layers import Conv, ConvTranspose, SharedStrideConv, lrelu
 
 __all__ = ["HITUNet", "calc_init_cost", "TileInitialization",
@@ -356,11 +357,14 @@ class HITNetStereo(nn.Module):
                 "codd_tpu's Pallas tile_warp_cost has no VJP (train with "
                 "'auto', 'exact', 'tilewin' or 'grouped')")
         B = left_img.shape[0]
-        fea = self.backbone(torch.cat([left_img, right_img], 0))
-        fea_l = [f[:B].contiguous() for f in fea]
-        fea_r = [f[B:].contiguous() for f in fea]
-        init_cv, init_hyps = self.tile_init(fea_l, fea_r)
-        prop = self.tile_update(fea_l, fea_r, init_hyps, train)
+        with span("stereo.backbone"):
+            fea = self.backbone(torch.cat([left_img, right_img], 0))
+            fea_l = [f[:B].contiguous() for f in fea]
+            fea_r = [f[B:].contiguous() for f in fea]
+        with span("stereo.init"):
+            init_cv, init_hyps = self.tile_init(fea_l, fea_r)
+        with span("stereo.propagate"):
+            prop = self.tile_update(fea_l, fea_r, init_hyps, train)
         out = {
             "pred_disp": prop[0] if train else prop,
             "left_feat": fea_l[2],

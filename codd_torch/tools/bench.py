@@ -26,7 +26,8 @@ the stream's ms a call between CUDA events, the hand kernels' launches a
 call (``ops/kernels.py`` counts), the peak device memory, and the card's
 name and power limit.  ``--profile-dir D`` writes a ``torch.profiler``
 trace of 3 calls (``D/trace.json``) and its table by device time
-(``D/profile.txt``).  The last line is ``bench.py``'s JSON line:
+(``D/profile.txt``), the port's ``codd.*`` spans among them
+(``utils/spans.py``).  The last line is ``bench.py``'s JSON line:
 ``{"metric": "fps_<mode>[_b<B>]_kitti_<H>x<W>", "value", "unit": "fps",
 "vs_baseline"}`` against 60 frames/s.  Without a card the command fails
 unless ``--device cpu`` is given; CPU numbers are no device metric.
